@@ -1,0 +1,19 @@
+"""warpedganspace_torch — WarpedGANSpace in PyTorch, with hand-written CUDA
+kernels for an NVIDIA H100 (sm_90a).
+
+The port of :mod:`warpedganspace_tpu` (JAX on a TPU), which stays the
+reference it is tested against. Module names mirror the JAX package:
+
+- :mod:`warpedganspace_torch.ops`      — RBF warp (plain and the CUDA kernel),
+  upfirdn2d, fused bias + leaky ReLU;
+- :mod:`warpedganspace_torch.models`   — support sets, the StyleGAN2 generator,
+  the uniform generator contract and its builders;
+- :mod:`warpedganspace_torch.convert`  — reference ``g_ema`` state dicts and
+  JAX parameter pytrees into the port's modules;
+- :mod:`warpedganspace_torch.core`     — latent-code sampling;
+- :mod:`warpedganspace_torch.traverse` — path integration, rendering, JPEG/GIF output;
+- :mod:`warpedganspace_torch.cli`      — ``sample_gan`` and ``traverse_latent_space``.
+
+CUDA sources live in ``csrc/`` and are built with ``nvcc`` at first use into
+``build/warpedganspace_torch/``.
+"""

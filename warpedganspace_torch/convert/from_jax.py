@@ -1,0 +1,65 @@
+"""The JAX package's parameter pytrees, as numpy arrays, -> the port's state dicts.
+
+The JAX package stores convolutions HWIO, linears (in, out), activations and
+noise buffers NHWC; the port stores OIHW, (out, in) and NCHW. Both already
+hold the equalized-lr scales folded in, so only layouts change. The caller
+converts the pytree's leaves with ``numpy.asarray``; this module imports no JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(x, *perm) -> torch.Tensor:
+    x = np.asarray(x, dtype=np.float32)
+    if perm:
+        x = np.transpose(x, perm)
+    return torch.from_numpy(np.array(x, order="C"))  # a writable copy
+
+
+def _linear(p, dst, out):
+    out[dst + ".weight"] = _t(p["w"], 1, 0)          # (in, out) -> (out, in)
+    out[dst + ".bias"] = _t(p["b"])
+
+
+def _mod_conv(p, dst, out):
+    out[dst + ".conv.weight"] = _t(p["w"], 3, 2, 0, 1)   # HWIO -> OIHW
+    _linear(p["mod"], dst + ".conv.modulation", out)
+
+
+def _styled(p, dst, out):
+    _mod_conv(p, dst, out)
+    out[dst + ".noise_weight"] = _t(p["noise_weight"]).reshape(())
+    out[dst + ".act_bias"] = _t(p["act_bias"])
+
+
+def _rgb(p, dst, out):
+    _mod_conv(p, dst, out)
+    out[dst + ".bias"] = _t(p["bias"])
+
+
+def stylegan2_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``StyleGAN2Generator.init``/converter params -> port generator state dict."""
+    out: dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(params["mapping"]):
+        _linear(layer, f"mapping.{i}", out)
+    out["const_input"] = _t(params["const_input"], 0, 3, 1, 2)   # (1,4,4,C) -> (1,C,4,4)
+    _styled(params["conv1"], "conv1", out)
+    _rgb(params["to_rgb1"], "to_rgb1", out)
+    for j, p in enumerate(params["convs"]):
+        _styled(p, f"convs.{j}", out)
+    for j, p in enumerate(params["to_rgbs"]):
+        _rgb(p, f"to_rgbs.{j}", out)
+    for i, n in enumerate(params["noises"]):
+        out[f"noises.noise_{i}"] = _t(n, 0, 3, 1, 2)            # (1,H,W,1) -> (1,1,H,W)
+    return out
+
+
+def support_sets_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``SupportSets.init`` params -> the reference state-dict layout that
+    :meth:`SupportSets.from_torch_state_dict` reads."""
+    sv = np.asarray(params["support_sets"], dtype=np.float32)
+    return {"SUPPORT_SETS": _t(sv.reshape(sv.shape[0], -1)),
+            "ALPHAS": _t(params["alphas"]),
+            "LOGGAMMA": _t(params["loggamma"])}

@@ -1,0 +1,227 @@
+"""StyleGAN2 (config-f, FFHQ 256/1024) generator, NCHW.
+
+Counterpart of the generator in :mod:`warpedganspace_tpu.models.stylegan2`
+(reference ``models/StyleGAN2/model.py``): a mapping network of PixelNorm and
+``n_mlp`` equalized-lr linears (lr_mul 0.01), a constant 4x4 input, styled
+modulated/demodulated convs with blurred 2x upsampling, fixed noise buffers,
+skip-accumulated ToRGB, truncation and style mixing.
+
+As in the JAX package, the equalized-lr scales are folded into the stored
+weights by the converters (the generator is frozen), and modulation uses the
+factorisation conv(x, w * s_b) == conv(x * s_b, w): every sample shares one
+conv weight, and demodulation is the per-(sample, out-channel) scalar
+rsqrt(sum_i s_i^2 * sum_kh,kw w^2 + 1e-8), applied to the conv's output.
+The stride-2 upsampling conv is ``conv_transpose2d`` followed by the 4x4 blur.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from warpedganspace_torch.ops.fused_act import fused_leaky_relu
+from warpedganspace_torch.ops.upfirdn2d import setup_filter, upfirdn2d
+
+BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
+
+
+def channels_dict(channel_multiplier: int = 2) -> dict[int, int]:
+    """Per-resolution channel table (reference model.py:297-307)."""
+    return {4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * channel_multiplier,
+            128: 128 * channel_multiplier, 256: 64 * channel_multiplier,
+            512: 32 * channel_multiplier, 1024: 16 * channel_multiplier}
+
+
+def _randn(shape, generator):
+    return torch.randn(shape, generator=generator, dtype=torch.float32)
+
+
+class EqualLinear(nn.Module):
+    """x @ weight.T + bias, with lr_mul / sqrt(in) already folded into both."""
+
+    def __init__(self, in_dim: int, out_dim: int, lr_mul: float = 1.0,
+                 bias_init: float = 0.0, generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(_randn((out_dim, in_dim), generator) / math.sqrt(in_dim))
+        self.bias = nn.Parameter(torch.full((out_dim,), float(bias_init)))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class ModulatedConv2d(nn.Module):
+    """Styled conv: x * s -> conv (or stride-2 transposed conv) -> demod [-> blur]."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, style_dim: int,
+                 demodulate: bool = True, upsample: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            _randn((out_ch, in_ch, kernel, kernel), generator) / math.sqrt(in_ch * kernel * kernel))
+        self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0, generator=generator)
+        self.demodulate = demodulate
+        self.upsample = upsample
+        if upsample:
+            self.register_buffer("blur_kernel", setup_filter(BLUR_KERNEL, gain=4.0),
+                                 persistent=False)
+
+    def forward(self, x, style):
+        s = self.modulation(style)                                   # (B, in)
+        x = x * s[:, :, None, None]
+        if self.upsample:
+            x = F.conv_transpose2d(x, self.weight.transpose(0, 1), stride=2)
+        else:
+            x = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
+        if self.demodulate:
+            w2 = torch.sum(self.weight * self.weight, dim=(2, 3))    # (out, in)
+            x = x * torch.rsqrt((s * s) @ w2.t() + 1e-8)[:, :, None, None]
+        if self.upsample:
+            # Blur pad (1, 1) for a 3x3 kernel, factor 2, blur length 4.
+            x = upfirdn2d(x, self.blur_kernel, pad=(1, 1))
+        return x
+
+
+class StyledConv(nn.Module):
+    """Modulated conv + noise injection + fused bias/leaky ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, style_dim: int,
+                 upsample: bool = False, generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, out_ch, kernel, style_dim, upsample=upsample,
+                                    generator=generator)
+        self.noise_weight = nn.Parameter(torch.zeros(()))
+        self.act_bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x, style, noise):
+        x = self.conv(x, style) + self.noise_weight * noise
+        return fused_leaky_relu(x, self.act_bias)
+
+
+class ToRGB(nn.Module):
+    """1x1 modulated conv to RGB, plus the blur-upsampled skip of the block below."""
+
+    def __init__(self, in_ch: int, style_dim: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, 3, 1, style_dim, demodulate=False,
+                                    generator=generator)
+        self.bias = nn.Parameter(torch.zeros(3))
+        self.register_buffer("blur_kernel", setup_filter(BLUR_KERNEL, gain=4.0),
+                             persistent=False)
+
+    def forward(self, x, style, skip=None):
+        out = self.conv(x, style) + self.bias[None, :, None, None]
+        if skip is not None:
+            out = out + upfirdn2d(skip, self.blur_kernel, up=2, pad=(2, 1))
+        return out
+
+
+class StyleGAN2Generator(nn.Module):
+    """The frozen StyleGAN2 generator; images are NCHW in roughly tanh range."""
+
+    def __init__(self, resolution: int = 1024, style_dim: int = 512, n_mlp: int = 8,
+                 channel_multiplier: int = 2, shift_in_w_space: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.resolution = resolution
+        self.style_dim = style_dim
+        self.shift_in_w_space = shift_in_w_space
+        ch = channels_dict(channel_multiplier)
+        self.mapping = nn.ModuleList(
+            EqualLinear(style_dim, style_dim, lr_mul=0.01, generator=generator)
+            for _ in range(n_mlp))
+        self.const_input = nn.Parameter(_randn((1, ch[4], 4, 4), generator))
+        self.conv1 = StyledConv(ch[4], ch[4], 3, style_dim, generator=generator)
+        self.to_rgb1 = ToRGB(ch[4], style_dim, generator=generator)
+        self.convs = nn.ModuleList()
+        self.to_rgbs = nn.ModuleList()
+        in_ch = ch[4]
+        for i in range(3, self.log_size + 1):
+            out_ch = ch[2 ** i]
+            self.convs.append(StyledConv(in_ch, out_ch, 3, style_dim, upsample=True,
+                                         generator=generator))
+            self.convs.append(StyledConv(out_ch, out_ch, 3, style_dim, generator=generator))
+            self.to_rgbs.append(ToRGB(out_ch, style_dim, generator=generator))
+            in_ch = out_ch
+        self.noises = nn.Module()
+        for i in range(self.num_layers):
+            size = 2 ** ((i + 5) // 2)
+            self.noises.register_buffer(f"noise_{i}", _randn((1, 1, size, size), generator))
+
+    @property
+    def dim_z(self) -> int:
+        return 512
+
+    @property
+    def log_size(self) -> int:
+        return int(math.log2(self.resolution))
+
+    @property
+    def num_layers(self) -> int:
+        return (self.log_size - 2) * 2 + 1
+
+    @property
+    def n_latent(self) -> int:
+        return self.log_size * 2 - 2
+
+    # ------------------------------------------------------------------ mapping
+    def style(self, z):
+        """Mapping network Z -> W: PixelNorm, then linears with fused leaky ReLU."""
+        x = z * torch.rsqrt(torch.mean(z * z, dim=-1, keepdim=True) + 1e-8)
+        for layer in self.mapping:
+            x = fused_leaky_relu(layer(x), None)
+        return x
+
+    def get_w(self, z):
+        return self.style(z)
+
+    # ---------------------------------------------------------------- synthesis
+    def synthesis(self, latent):
+        """Per-layer W latents (B, n_latent, 512) -> NCHW image (B, 3, H, W),
+        with the fixed noise buffers (the reference's randomize_noise=False)."""
+        b = latent.shape[0]
+        noise = [getattr(self.noises, f"noise_{i}") for i in range(self.num_layers)]
+        out = self.const_input.expand(b, -1, -1, -1)
+        out = self.conv1(out, latent[:, 0], noise[0])
+        skip = self.to_rgb1(out, latent[:, 1])
+        i = 1
+        for idx, to_rgb in enumerate(self.to_rgbs):
+            out = self.convs[2 * idx](out, latent[:, i], noise[2 * idx + 1])
+            out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise[2 * idx + 2])
+            skip = to_rgb(out, latent[:, i + 2], skip)
+            i += 2
+        return skip
+
+    def forward(self, styles, input_is_latent: bool = False, inject_index: int | None = None,
+                truncation: float = 1.0, truncation_latent=None):
+        """Full forward with style mixing and truncation (reference :359-403).
+
+        ``styles`` is a list of (B, 512) latents. With two styles the second
+        takes over at ``inject_index`` (default n_latent // 2).
+        """
+        if not input_is_latent:
+            styles = [self.style(s) for s in styles]
+        if truncation < 1.0:
+            styles = [truncation_latent + truncation * (s - truncation_latent) for s in styles]
+        if len(styles) < 2:
+            latent = styles[0][:, None, :].expand(-1, self.n_latent, -1)
+        else:
+            if inject_index is None:
+                inject_index = self.n_latent // 2
+            latent = torch.cat([
+                styles[0][:, None, :].expand(-1, inject_index, -1),
+                styles[1][:, None, :].expand(-1, self.n_latent - inject_index, -1)], dim=1)
+        return self.synthesis(latent)
+
+    def apply(self, z, shift=None, latent_is_w: bool = False):
+        """The uniform contract (reference StyleGAN2Wrapper.forward): shifts live
+        in W when ``shift_in_w_space``, else in Z."""
+        if self.shift_in_w_space:
+            w = z if latent_is_w else self.style(z)
+            if shift is not None:
+                w = w + shift
+            return self.forward([w], input_is_latent=True)
+        if shift is not None:
+            z = z + shift
+        return self.forward([z], input_is_latent=False)
