@@ -1,30 +1,46 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile biggan    # instead: where that path's time goes
 
-Five phases, each of which must pass; any failure ends the run with a
-non-zero exit and no result line:
+Phases, each of which must pass; any failure ends the run with a non-zero
+exit and no result line:
 
 1. device: the card's name and power limit;
-2. build: the CUDA warp kernel, compiled from ``warpedganspace_torch/csrc``;
-3. kernel: the warp kernel against its plain PyTorch version at the
-   production shape (K=200 sets, 2N=1024 support vectors, d=512, R=64 rows =
-   32 codes x +-) in f32 and with bf16 set storage, and at the traversal's own
-   shape below; both timed with CUDA events;
-4. generator: StyleGAN2-1024 in W space with random weights from a seed, B=4,
-   f32 and bf16, and f32 on the card against f32 on the CPU;
-5. the port's main path through its CLIs: ``sample_gan`` makes a one-code
-   pool, then ``traverse_latent_space`` walks a K=8, D=512 W-space experiment
-   for 20 steps each way at bf16 and writes the 8 x 41-frame tree and GIFs.
-   The warp kernel's launch count is reset just before and must show at least
-   one launch per step; the stored codes are checked against the plain warp.
+2. build: the CUDA kernels of ``warpedganspace_torch/csrc``, one ``nvcc`` per
+   source, started together;
+3. kernels, each against its plain PyTorch version and timed with CUDA events
+   (plain, kernel, kernel, plain):
+   - the RBF warp at the production shape (K=200 sets, 2N=1024 support
+     vectors, d=512, R=64 rows = 32 codes x +-) in f32 and with bf16 set
+     storage, and at the shapes the two traversals below give it;
+   - the SA attention at BigGAN-128's shape (B=16, N=4096, M=1024, dk=24,
+     dv=96) in f32 and bf16, at the two shapes the BigGAN path below gives it
+     (a bf16 render batch of 64, one f32 sample) and at a ragged shape, with
+     ``F.scaled_dot_product_attention`` timed beside it as a yardstick the
+     port never calls;
+4. generators with random weights from a seed: StyleGAN2-1024 in W space
+   (B=4) and BigGAN-128 at full width (class 239, B=16), each in f32 and bf16
+   and in f32 on the card against f32 on the CPU; BigGAN also with the
+   attention kernel swapped for its plain version, in f32 and on a bf16 render
+   batch of 64;
+5. the port's main paths through its CLIs, ``sample_gan`` then
+   ``traverse_latent_space``: a K=8, D=512 StyleGAN2-1024 W-space experiment
+   for 20 steps each way at bf16 with GIFs, and the K=120, D=256 BigGAN-128
+   class-239 experiment for 10 steps each way at bf16 (2,520 frames). Each
+   kernel's launch count is set to 0 just before a path and read just after:
+   the warp must show one launch per step on both, the attention one launch
+   per generator forward on BigGAN's. The stored codes are checked against the
+   plain warp.
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
-launches, error and times, then, last, ``{"ok": true, "device": {...}}``.
+launches, error, times and bound, then, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
+import copy
 import json
 import math
 import os
@@ -33,9 +49,24 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 K_PROD, N_DIP, D, ROWS = 200, 512, 512, 64   # production warp shape
-K_SMOKE, STEPS, EPS, BATCH = 8, 20, 0.2, 16   # the traversal the CLI runs
+# The two traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
+SG2 = dict(gan="StyleGAN2", k=8, dipoles=512, d=512, steps=20, eps=0.2, batch=16, res=1024,
+           gif=True, pool="smoke")
+BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=10, eps=0.15, batch=64, res=128,
+              gif=False, pool="smoke_biggan")
+ATTN_SHAPE = (16, 4096, 1024, 24, 96)        # B, N, M, dk, dv of BigGAN-128's attention, timed
+# What the BigGAN path gives the kernel: bf16 render batches (the last one is
+# padded to the batch size) and sample_gan's one f32 code.
+ATTN_RENDER = (BIGGAN["batch"],) + ATTN_SHAPE[1:]
+ATTN_SAMPLE = (1,) + ATTN_SHAPE[1:]
+ATTN_RAGGED = (2, 1000, 250, 20, 80)
+
+# NVIDIA H100 SXM data sheet: device memory rate and the f32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -70,7 +101,15 @@ def psnr(img, ref) -> float:
     return float("inf") if mse == 0 else 10 * math.log10(peak ** 2 / mse)
 
 
-def phase_kernel(card: str) -> dict:
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: each input read and each output
+    written once at the memory rate, or the operations at the f32 peak."""
+    t_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_warp_kernel(card: str) -> dict:
     import torch
 
     from warpedganspace_torch.models.support_sets import SupportSets
@@ -80,7 +119,6 @@ def phase_kernel(card: str) -> dict:
     gen = torch.Generator().manual_seed(0)
     S = SupportSets(K_PROD, N_DIP, D, learn_gammas=True, generator=gen).to(dev)
     z = torch.randn((K_PROD, ROWS, D), generator=gen).to(dev)        # |z| ~ sqrt(d)
-    res = {}
     with torch.no_grad():
         ws = rbf_cuda.prepare_warp_sets(S.support_sets, S.alphas, S.gammas())
         ws16 = rbf_cuda.prepare_warp_sets(S.support_sets, S.alphas, S.gammas(), torch.bfloat16)
@@ -101,13 +139,18 @@ def phase_kernel(card: str) -> dict:
         # bf16 set storage against f32: the bound of tests/test_rbf_pallas.py.
         check(cos16 > 0.999, f"bf16 vs f32 mean cosine {cos16:.6f} <= 0.999")
 
-        # The traversal's own shape: K=8 sets, one code x +- = 2 rows.
-        zs = torch.randn((K_SMOKE, 2, D), generator=gen).to(dev)
-        ws8 = rbf_cuda.prepare_warp_sets(S.support_sets[:K_SMOKE], S.alphas[:K_SMOKE],
-                                         S.gammas()[:K_SMOKE])
-        err8 = float((rbf_cuda.warp_grad_all_sets_kn(ws8, zs, backend="cuda")
-                      - rbf_cuda._torch_kn(ws8.sv, ws8.g, ws8.ag, ws8.svsq, zs)).abs().max())
-        check(err8 <= 1e-4, f"kernel vs plain at the traversal shape: max abs {err8:.3g}")
+        # The traversals' own shapes: one code x +- = 2 rows, and 64 rows at BigGAN's.
+        errs = {}
+        for cfg, rows in ((SG2, 2), (BIGGAN, 2), (BIGGAN, 64)):
+            Ss = SupportSets(cfg["k"], cfg["dipoles"], cfg["d"], learn_gammas=True,
+                             generator=gen).to(dev)
+            zs = torch.randn((cfg["k"], rows, cfg["d"]), generator=gen).to(dev)
+            wss = rbf_cuda.prepare_warp_sets(Ss.support_sets, Ss.alphas, Ss.gammas())
+            e = float((rbf_cuda.warp_grad_all_sets_kn(wss, zs, backend="cuda")
+                       - rbf_cuda._torch_kn(wss.sv, wss.g, wss.ag, wss.svsq, zs)).abs().max())
+            name = f"K={cfg['k']} 2N={2 * cfg['dipoles']} d={cfg['d']} R={rows}"
+            check(e <= 1e-4, f"warp kernel vs plain at {name}: max abs {e:.3g} > 1e-4")
+            errs[name] = e
 
         # Plain, kernel, kernel, plain: one card, in turns.
         kern = lambda: rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")  # noqa: E731
@@ -116,19 +159,123 @@ def phase_kernel(card: str) -> dict:
         plain16 = lambda: rbf_cuda._torch_kn(ws16.sv, ws16.g, ws16.ag, ws16.svsq, z)  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
         q1, j1, j2, q2 = cuda_ms(plain16), cuda_ms(kern16), cuda_ms(kern16), cuda_ms(plain16)
+    # f32 sets, their three (K, 2N) vectors and z read once, the directions
+    # written once; two contractions of K * R * 2N * d FMAs each.
+    n2 = 2 * N_DIP
+    bound_ms, bound_by = bound(4 * (K_PROD * n2 * (D + 3) + 2 * K_PROD * ROWS * D),
+                               2 * 2 * K_PROD * ROWS * n2 * D)
     res = {"max_abs_err": err, "max_abs_err_bf16": err16, "cos_bf16_vs_f32": cos16,
-           "max_abs_err_traversal_shape": err8,
+           "max_abs_err_traversal_shapes": errs,
            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           "ms_bf16": (j1 + j2) / 2, "plain_ms_bf16": (q1 + q2) / 2}
-    print(f"[kernel] rbf_warp K={K_PROD} 2N={2 * N_DIP} d={D} R={ROWS} on {card}: "
+           "ms_bf16": (j1 + j2) / 2, "plain_ms_bf16": (q1 + q2) / 2,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": f"K={K_PROD} 2N={n2} d={D} R={ROWS} f32"}
+    print(f"[kernel] rbf_warp {res['shape']} on {card}: "
           f"f32 kernel {res['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {res['plain_ms']:.4f} ms "
-          f"({p1:.4f}, {p2:.4f}); bf16 sets kernel {res['ms_bf16']:.4f} ms "
-          f"plain {res['plain_ms_bf16']:.4f} ms; max abs err f32 {err:.3g}, "
-          f"bf16 {err16:.3g}, traversal shape {err8:.3g}; bf16-vs-f32 cos {cos16:.6f}")
+          f"({p1:.4f}, {p2:.4f}); bound {bound_ms:.4f} ms by {bound_by}; "
+          f"bf16 sets kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms; "
+          f"max abs err f32 {err:.3g}, bf16 {err16:.3g}; bf16-vs-f32 cos {cos16:.6f}; "
+          "traversal shapes " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
     return res
 
 
-def phase_generator(card: str) -> None:
+def attn_inputs(shape, seed: int, dtype):
+    """Normal queries and keys (a peaked softmax), values uniform in [-1, 1):
+    every output is a convex combination of values of magnitude below 1."""
+    import torch
+
+    b, n, m, dk, dv = shape
+    gen = torch.Generator().manual_seed(seed)
+    theta = torch.randn((b, n, dk), generator=gen)
+    phi = torch.randn((b, m, dk), generator=gen)
+    g = torch.rand((b, m, dv), generator=gen) * 2 - 1
+    return tuple(t.to(device="cuda", dtype=dtype) for t in (theta, phi, g))
+
+
+def phase_attn_kernel(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from warpedganspace_torch.ops import attn_cuda
+    from warpedganspace_torch.ops.attn import sa_attention_plain
+
+    errs = {}
+    with torch.no_grad():
+        # f32: sums over M=1024 terms in another order, of values below 1.
+        # bf16: against the plain version in bf16; one bf16 ulp of O(1) values
+        # after a 1024-term sum.
+        for shape, dtype, tol in ((ATTN_SHAPE, torch.float32, 1e-4),
+                                  (ATTN_SHAPE, torch.bfloat16, 3e-2),
+                                  (ATTN_RENDER, torch.bfloat16, 3e-2),
+                                  (ATTN_SAMPLE, torch.float32, 1e-4),
+                                  (ATTN_RAGGED, torch.float32, 1e-4),
+                                  (ATTN_RAGGED, torch.bfloat16, 3e-2)):
+            theta, phi, g = attn_inputs(shape, 2, dtype)
+            before = attn_cuda.launches
+            out = attn_cuda.sa_attention(theta, phi, g)
+            torch.cuda.synchronize()
+            check(attn_cuda.launches == before + 1,
+                  "the attention kernel's launch count did not move")
+            ref = sa_attention_plain(theta, phi, g)
+            name = f"{shape} {str(dtype).split('.')[-1]}"
+            check(out.dtype == dtype and out.shape == ref.shape, f"attention output at {name}")
+            check(bool(torch.isfinite(out).all()), f"non-finite attention output at {name}")
+            e = float((out.float() - ref.float()).abs().max())
+            check(e <= tol, f"attention kernel vs plain at {name}: max abs {e:.3g} > {tol}")
+            errs[name] = e
+
+        times = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            theta, phi, g = attn_inputs(ATTN_SHAPE, 2, dtype)
+            kern = lambda: attn_cuda.sa_attention(theta, phi, g)  # noqa: E731
+            plain = lambda: sa_attention_plain(theta, phi, g)  # noqa: E731
+            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+            # The yardstick: one library call for the same function (one head,
+            # no scale). Timed here, never called by the port.
+            q, k, v = theta[:, None], phi[:, None], g[:, None]
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
+            lib_err = float((lib()[:, 0].float()
+                             - sa_attention_plain(theta, phi, g).float()).abs().max())
+            times[dtype] = ((k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(lib), lib_err,
+                            (k1, k2, p1, p2))
+        # The render batch's own shape, timed too (bf16, the CLI's batch size).
+        theta, phi, g = attn_inputs(ATTN_RENDER, 2, torch.bfloat16)   # kern and plain read these
+        p1, k1, k2, p2 = (cuda_ms(f, iters=20) for f in (plain, kern, kern, plain))
+        render_ms, render_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+
+    b, n, m, dk, dv = ATTN_SHAPE
+    # f32 theta, phi, g read once and the output written once; two products of
+    # B * N * M * (dk + dv) multiply-adds (the B * N * M exponentials are not counted).
+    bound_ms, bound_by = bound(4 * b * (n * dk + m * dk + m * dv + n * dv),
+                               2 * b * n * m * (dk + dv))
+    ms, plain_ms, lib_ms, lib_err, runs = times[torch.float32]
+    ms16, plain_ms16, lib_ms16, lib_err16, _ = times[torch.bfloat16]
+    res = {"max_abs_err": errs[f"{ATTN_SHAPE} float32"], "max_abs_errs": errs,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
+           "ms_render_bf16": render_ms, "plain_ms_render_bf16": render_plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+    print(f"[kernel] sa_attention {res['shape']} on {card}: f32 kernel {ms:.4f} ms "
+          f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
+          f"{runs[3]:.4f}) library SDPA {lib_ms:.4f} ms (its max abs err vs plain "
+          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
+          f"plain {plain_ms16:.4f} ms library SDPA {lib_ms16:.4f} ms (err {lib_err16:.3g}); "
+          f"bf16 at the render batch B={ATTN_RENDER[0]}: kernel {render_ms:.4f} ms plain "
+          f"{render_plain_ms:.4f} ms; "
+          "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
+    return res
+
+
+def check_images(x, shape, name: str) -> None:
+    import torch
+
+    check(tuple(x.shape) == shape, f"{name} image shape {tuple(x.shape)}")
+    check(bool(torch.isfinite(x).all()), f"non-finite {name} image")
+    check(float(x.float().std()) > 0, f"constant {name} image")
+
+
+def phase_generator_stylegan2(card: str) -> None:
     import torch
 
     from warpedganspace_torch.models.api import cast_params_bf16
@@ -144,10 +291,8 @@ def phase_generator(card: str) -> None:
         img = G(w, shift, latent_is_w=True)
         img16 = G16(w.bfloat16(), shift.bfloat16(), latent_is_w=True).float()
         torch.cuda.synchronize()
-        for name, x in (("f32", img), ("bf16", img16)):
-            check(tuple(x.shape) == (4, 3, 1024, 1024), f"{name} image shape {tuple(x.shape)}")
-            check(bool(torch.isfinite(x).all()), f"non-finite {name} image")
-            check(float(x.std()) > 0, f"constant {name} image")
+        check_images(img, (4, 3, 1024, 1024), "f32")
+        check_images(img16, (4, 3, 1024, 1024), "bf16")
         p16 = psnr(img16, img)
         ms32 = cuda_ms(lambda: G(w, shift, latent_is_w=True), iters=5, warmup=1)
         ms16 = cuda_ms(lambda: G16(w.bfloat16(), shift.bfloat16(), latent_is_w=True),
@@ -162,7 +307,93 @@ def phase_generator(card: str) -> None:
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
-def phase_cli(card: str) -> int:
+def phase_generator_biggan(card: str) -> None:
+    import torch
+
+    from warpedganspace_torch.models import biggan
+    from warpedganspace_torch.models.api import cast_params_bf16
+    from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.ops import attn_cuda
+    from warpedganspace_torch.ops.attn import sa_attention_plain
+
+    b = ATTN_SHAPE[0]
+    G = build_gan("BigGAN", target_classes=[239], allow_random_init=True, device="cuda")
+    with torch.no_grad():
+        # The random init leaves the attention's gamma at 0, which would hide
+        # the block from every image check below: open it.
+        for block in G.net.blocks:
+            if block.attention is not None:
+                block.attention.gamma.fill_(1.0)
+    G16 = cast_params_bf16(G)
+    gen = torch.Generator().manual_seed(3)
+    z = torch.randn((b, G.dim_z), generator=gen).cuda()
+    shift = (0.15 * torch.nn.functional.normalize(torch.randn((b, G.dim_z), generator=gen),
+                                                  dim=-1)).cuda()
+    with torch.no_grad():
+        before = attn_cuda.launches
+        img = G(z, shift)
+        img16 = G16(z.bfloat16(), shift.bfloat16()).float()
+        torch.cuda.synchronize()
+        check(attn_cuda.launches == before + 2, "BigGAN's forward did not launch the attention")
+        check_images(img, (b, 3, 128, 128), "BigGAN f32")
+        check_images(img16, (b, 3, 128, 128), "BigGAN bf16")
+        p16 = psnr(img16, img)
+        ms32 = cuda_ms(lambda: G(z, shift), iters=10, warmup=2)
+        ms16 = cuda_ms(lambda: G16(z.bfloat16(), shift.bfloat16()), iters=10, warmup=2)
+        # One render batch as the traversal makes it: bf16 at the CLI's batch size.
+        zr, shiftr = (t.repeat(BIGGAN["batch"] // b, 1).bfloat16() for t in (z, shift))
+        zr = zr + 0.5 * torch.randn(zr.shape, generator=gen).cuda().bfloat16()
+        img16r = G16(zr, shiftr).float()
+        check_images(img16r, (BIGGAN["batch"], 3, 128, 128), "BigGAN bf16 render batch")
+
+        # The same forward with the kernel swapped for its plain version (a
+        # check of the kernel inside the model, not a path the port takes),
+        # and with the attention closed, to show the check can see the block.
+        kernel_fn = biggan.sa_attention
+        biggan.sa_attention = sa_attention_plain
+        try:
+            before = attn_cuda.launches
+            img_plain = G(z, shift)
+            img16r_plain = G16(zr, shiftr).float()
+            check(attn_cuda.launches == before, "the swapped forward still launched the kernel")
+            ms32_plain = cuda_ms(lambda: G(z, shift), iters=10, warmup=2)
+        finally:
+            biggan.sa_attention = kernel_fn
+        pp = psnr(img, img_plain)
+        pp16 = psnr(img16r, img16r_plain)
+        Gc = copy.deepcopy(G).to("cpu")
+        pc = psnr(img[:2].cpu(), Gc(z[:2].cpu(), shift[:2].cpu()))
+        check(pc > 40.0, f"BigGAN card f32 vs CPU f32 PSNR {pc:.2f} dB <= 40")
+        for block in G.net.blocks:
+            if block.attention is not None:
+                block.attention.gamma.fill_(0.0)
+        p_closed = psnr(G(z, shift), img)
+        for block in G16.net.blocks:
+            if block.attention is not None:
+                block.attention.gamma.fill_(0.0)
+        p_closed16 = psnr(G16(zr, shiftr).float(), img16r)
+    # A broken attention output would move the image about as much as closing
+    # the block does, so the kernel path must agree far better than that.
+    check(pp > 40.0 and pp > p_closed + 20.0,
+          f"BigGAN kernel path vs plain attention PSNR {pp:.2f} dB (attention closed: "
+          f"{p_closed:.2f} dB)")
+    # In bf16 the two paths round at different places (the plain version rounds
+    # the softmax weights to bf16, the kernel keeps them in f32).
+    check(pp16 > 40.0 and pp16 > p_closed16 + 10.0,
+          f"BigGAN bf16 render batch, kernel path vs plain attention PSNR {pp16:.2f} dB "
+          f"(attention closed: {p_closed16:.2f} dB)")
+    print(f"[generator] BigGAN-128 class 239, B={b} on {card}: f32 {ms32:.2f} ms/batch "
+          f"({ms32_plain:.2f} with the plain attention), bf16 {ms16:.2f} ms/batch; "
+          f"bf16-vs-f32 PSNR {p16:.2f} dB; kernel-vs-plain-attention PSNR {pp:.2f} dB "
+          f"(attention closed: {p_closed:.2f} dB); bf16 render batch of {BIGGAN['batch']}: "
+          f"{pp16:.2f} dB (attention closed: {p_closed16:.2f} dB); "
+          f"card-vs-CPU f32 PSNR {pc:.2f} dB")
+
+
+def phase_cli(card: str, cfg: dict) -> dict:
+    """One main path: ``sample_gan`` makes a one-code pool, then
+    ``traverse_latent_space`` walks a fabricated experiment at bf16. Returns
+    each kernel's launches on that path."""
     import numpy as np
     import torch
     from PIL import Image
@@ -170,9 +401,11 @@ def phase_cli(card: str) -> int:
     from warpedganspace_torch.cli import sample_gan, traverse_latent_space
     from warpedganspace_torch.models.gan_load import build_gan
     from warpedganspace_torch.models.support_sets import SupportSets
-    from warpedganspace_torch.ops import rbf_cuda
+    from warpedganspace_torch.ops import attn_cuda, rbf_cuda
     from warpedganspace_torch.traverse.engine import traverse_paths
 
+    gan, k, d, steps, eps = cfg["gan"], cfg["k"], cfg["d"], cfg["steps"], cfg["eps"]
+    biggan = gan == "BigGAN"
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="wgs_smoke_") as tmp:
@@ -180,78 +413,155 @@ def phase_cli(card: str) -> int:
         try:
             exp = osp.join("experiments", "complete", "smoke_exp")
             os.makedirs(osp.join(exp, "models"))
-            S = SupportSets(K_SMOKE, N_DIP, D, learn_gammas=True,
+            S = SupportSets(k, cfg["dipoles"], d, learn_gammas=True,
                             generator=torch.Generator().manual_seed(0))
             torch.save(S.to_torch_state_dict(), osp.join(exp, "models", "support_sets.pt"))
+            args_json = {"gan_type": gan, "num_support_sets": k,
+                         "num_support_dipoles": cfg["dipoles"], "learn_alphas": False,
+                         "learn_gammas": True, "gamma": None}
+            if biggan:
+                args_json["biggan_target_classes"] = [239]
+                sample_argv = ["--biggan-target-classes", "239"]
+                pool_dir = "BigGAN-239"
+            else:
+                args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
+                sample_argv = []
+                pool_dir = gan
             with open(osp.join(exp, "args.json"), "w") as f:
-                json.dump({"gan_type": "StyleGAN2", "num_support_sets": K_SMOKE,
-                           "num_support_dipoles": N_DIP, "learn_alphas": False,
-                           "learn_gammas": True, "gamma": None, "shift_in_w_space": True,
-                           "stylegan2_resolution": 1024}, f)
+                json.dump(args_json, f)
 
-            rbf_cuda.launches = 0  # count only the main path's launches
+            rbf_cuda.launches = attn_cuda.launches = 0  # count only this path's launches
             t0 = time.perf_counter()
-            sample_gan.main(["-g", "StyleGAN2", "--num-samples", "1", "--pool", "smoke"])
+            sample_gan.main(["-g", gan, "--num-samples", "1", "--pool", cfg["pool"]]
+                            + sample_argv)
             t1 = time.perf_counter()
             traverse_latent_space.main([
-                "--exp", exp, "--pool", "smoke", "--shift-steps", str(STEPS),
-                "--eps", str(EPS), "--batch-size", str(BATCH), "--dtype", "bfloat16", "--gif"])
+                "--exp", exp, "--pool", cfg["pool"], "--shift-steps", str(steps),
+                "--eps", str(eps), "--batch-size", str(cfg["batch"]), "--dtype", "bfloat16"]
+                + (["--gif"] if cfg["gif"] else []))
             t2 = time.perf_counter()
-            launches = rbf_cuda.launches
+            launches = {"rbf_warp": rbf_cuda.launches, "sa_attention": attn_cuda.launches}
 
-            n_frames = 2 * STEPS + 1
-            out_dir = osp.join(exp, "results", "smoke",
-                               f"{2 * STEPS}_{EPS}_{round(2 * STEPS * EPS, 3)}")
-            hashes = sorted(d for d in os.listdir(out_dir) if d != "paths_gifs")
+            n_frames = 2 * steps + 1
+            out_dir = osp.join(exp, "results", cfg["pool"],
+                               f"{2 * steps}_{eps}_{round(2 * steps * eps, 3)}")
+            hashes = sorted(h for h in os.listdir(out_dir) if h != "paths_gifs")
             check(len(hashes) == 1, f"expected one latent code dir, got {hashes}")
             code_dir = osp.join(out_dir, hashes[0])
-            jpgs = [osp.join(code_dir, "paths_images", f"path_{k:03d}", f"{t:06d}.jpg")
-                    for k in range(K_SMOKE) for t in range(n_frames)]
+            jpgs = [osp.join(code_dir, "paths_images", f"path_{p:03d}", f"{t:06d}.jpg")
+                    for p in range(k) for t in range(n_frames)]
             check(all(osp.isfile(p) for p in jpgs), "missing traversal frames")
             check(osp.isfile(osp.join(code_dir, "original_image.jpg")), "no original_image.jpg")
-            gifs = [osp.join(out_dir, "paths_gifs", f"path_{k:03d}.gif") for k in range(K_SMOKE)]
-            check(all(osp.isfile(p) for p in gifs), "missing GIFs")
+            if cfg["gif"]:
+                gifs = [osp.join(out_dir, "paths_gifs", f"path_{p:03d}.gif") for p in range(k)]
+                check(all(osp.isfile(p) for p in gifs), "missing GIFs")
             codes = torch.load(osp.join(code_dir, "paths_latent_codes.pt")).numpy()
-            check(codes.shape == (K_SMOKE, n_frames, D), f"codes shape {codes.shape}")
+            check(codes.shape == (k, n_frames, d), f"codes shape {codes.shape}")
             check(bool(np.isfinite(codes).all()), "non-finite latent codes")
             first = np.asarray(Image.open(jpgs[0]), dtype=np.float32)
             last = np.asarray(Image.open(jpgs[n_frames - 1]), dtype=np.float32)
-            check(first.shape == (1024, 1024, 3), f"frame shape {first.shape}")
-            check(first.std() > 0 and float(np.abs(first - last).mean()) > 0,
-                  "constant or unchanging frames")
-            check(launches >= STEPS, f"warp kernel launched {launches} times, < {STEPS} steps")
+            other = np.asarray(Image.open(jpgs[-1]), dtype=np.float32)
+            check(first.shape == (cfg["res"], cfg["res"], 3), f"frame shape {first.shape}")
+            check(first.std() > 0 and float(np.abs(first - last).mean()) > 0
+                  and float(np.abs(first - other).mean()) > 0, "constant or unchanging frames")
+            check(launches["rbf_warp"] >= steps,
+                  f"warp kernel launched {launches['rbf_warp']} times, < {steps} steps")
+            if biggan:  # one launch per generator forward: the render batches and the sample
+                forwards = math.ceil(k * n_frames / cfg["batch"])
+                check(launches["sa_attention"] >= forwards,
+                      f"attention kernel launched {launches['sa_attention']} times, "
+                      f"< {forwards} render batches")
 
             # The stored codes against the plain warp on the same code and sets.
-            z = torch.load(osp.join("experiments", "latent_codes", "StyleGAN2", "smoke",
+            z = torch.load(osp.join("experiments", "latent_codes", pool_dir, cfg["pool"],
                                     hashes[0], "latent_code.pt")).cuda()
-            G = build_gan("StyleGAN2", stylegan2_resolution=1024, shift_in_w_space=True,
-                          device="cuda")
+            if not biggan:
+                G = build_gan(gan, stylegan2_resolution=cfg["res"], shift_in_w_space=True,
+                              device="cuda")
+                with torch.no_grad():
+                    z = G.get_w(z)
             with torch.no_grad():
-                ref, _ = traverse_paths(S.cuda(), G.get_w(z), EPS, STEPS, backend="torch")
+                ref, _ = traverse_paths(S.cuda(), z, eps, steps, backend="torch")
             err = float(np.abs(codes - ref[0].cpu().numpy()).max())
-            # 20 f32 steps of unit directions, the kernel's sums in another order.
+            # f32 steps of unit directions, the kernel's sums in another order.
             check(err <= 1e-3, f"traversal codes vs plain warp max abs {err:.3g}")
         finally:
             os.chdir(cwd)
-    n = K_SMOKE * n_frames
-    print(f"[cli] sample_gan {t1 - t0:.2f} s; traverse_latent_space K={K_SMOKE} "
-          f"steps={STEPS} bf16 batch {BATCH}: {n} frames + {K_SMOKE} GIFs in {t2 - t1:.2f} s "
-          f"({n / (t2 - t1):.2f} frames/s, JPEG and GIF writing included) on {card}; "
-          f"warp launches {launches}; codes vs plain warp max abs {err:.3g}")
+    n = k * n_frames
+    print(f"[cli] {gan}: sample_gan {t1 - t0:.2f} s; traverse_latent_space K={k} "
+          f"steps={steps} bf16 batch {cfg['batch']}: {n} frames"
+          f"{' + ' + str(k) + ' GIFs' if cfg['gif'] else ''} in {t2 - t1:.2f} s "
+          f"({n / (t2 - t1):.2f} frames/s, JPEG{' and GIF' if cfg['gif'] else ''} writing "
+          f"included) on {card}; launches {launches}; codes vs plain warp max abs {err:.3g}")
     return launches
 
 
-def main() -> int:
+def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
+    """Where one main path's time goes (``--profile``): the path run untraced
+    for its wall time, under ``cProfile`` for the host's share by function, and
+    under ``torch.profiler`` for the device's kernels and its busy share."""
+    import cProfile
+    import contextlib
+    import io
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dict(cfg, gif=False)
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            t0 = time.perf_counter()
+            phase_cli(card, cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        return seconds, out.getvalue().strip().splitlines()[-1]
+
+    run()                                            # builds the kernels, warms cuDNN
+    seconds, line = run()
+    print(f"[untraced] {seconds:.2f} s for the whole path (checks included)\n{line}")
+    prof = cProfile.Profile()
+    prof.enable()
+    seconds_c, _ = run()
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(rows + 16)
+    print(f"[cProfile] {seconds_c:.2f} s\n{text.getvalue()}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        seconds_t, _ = run()
+    events = tp.key_averages()
+    # Kernel and copy rows only: the operator rows repeat their kernels' time.
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[torch.profiler] {seconds_t:.2f} s traced; device time of all kernels "
+          f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / seconds_t:.1f} % of the traced "
+          f"wall time on {card}")
+    print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
+                       max_name_column_width=70))
+
+
+def main(argv=None) -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
+    parser.add_argument("--profile", choices=("biggan", "stylegan2"),
+                        help="instead of the smoke test, say where that main path's time goes")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.profile:
+        card = card_line()
+        print(card)
+        profile_path(card, BIGGAN if args.profile == "biggan" else SG2)
+        return 0
 
-    from warpedganspace_torch.ops import _build, rbf_cuda
+    from warpedganspace_torch.ops import _build, attn_cuda, rbf_cuda
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -259,21 +569,36 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    rbf_cuda.build()
-    print(f"[build] {rbf_cuda.SOURCE}: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds.get(rbf_cuda.SOURCE, 0.0):.2f} s; 0 = already built)")
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, both started together
+        list(pool.map(lambda mod: mod.build(), (rbf_cuda, attn_cuda)))
+    print(f"[build] {rbf_cuda.SOURCE} and {attn_cuda.SOURCE} side by side: "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{_build.build_seconds.get(rbf_cuda.SOURCE, 0.0):.2f} s and "
+          f"{_build.build_seconds.get(attn_cuda.SOURCE, 0.0):.2f} s; 0 = already built)")
 
-    k = phase_kernel(card)
-    phase_generator(card)
-    launches = phase_cli(card)
+    warp = phase_warp_kernel(card)
+    attn = phase_attn_kernel(card)
+    phase_generator_stylegan2(card)
+    phase_generator_biggan(card)
+    paths = {"stylegan2": phase_cli(card, SG2), "biggan": phase_cli(card, BIGGAN)}
+    check(paths["stylegan2"]["sa_attention"] == 0, "StyleGAN2 has no attention to launch")
 
-    kernels = [{"name": "rbf_warp", "route": "cuda",
-                "source": "warpedganspace_torch/csrc/rbf_warp.cu",
-                "replaces": "warpedganspace_tpu/ops/rbf_pallas.py:108",
-                "launches": launches, "max_abs_err": k["max_abs_err"],
-                "ms": k["ms"], "plain_ms": k["plain_ms"],
-                "shape": f"K={K_PROD} 2N={2 * N_DIP} d={D} R={ROWS} f32",
-                "ms_bf16": k["ms_bf16"], "plain_ms_bf16": k["plain_ms_bf16"]}]
+    def row(kname, source, replaces, k):
+        by_path = {p: launches[kname] for p, launches in paths.items()}
+        return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k.get("library_ms"), "shape": k["shape"],
+                "ms_bf16": k["ms_bf16"], "plain_ms_bf16": k["plain_ms_bf16"]}
+
+    kernels = [row("rbf_warp", "warpedganspace_torch/csrc/rbf_warp.cu",
+                   "warpedganspace_tpu/ops/rbf_pallas.py:108", warp),
+               row("sa_attention", "warpedganspace_torch/csrc/sa_attention.cu",
+                   "warpedganspace_tpu/ops/attn_pallas.py:30", attn)]
+    for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16"):
+        kernels[1][key] = attn[key]
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -119,6 +119,92 @@ def test_frames_match(trees):
     assert worst_max <= 24, worst_max
 
 
+BK, BSTEPS, BEPS, BPOOL = 3, 2, 0.15, "biggan_pool"
+BRES_SUBDIR = osp.join("results", BPOOL, f"{2 * BSTEPS}_{BEPS}_{round(2 * BSTEPS * BEPS, 3)}")
+
+
+def _make_biggan_experiment(exp):
+    os.makedirs(osp.join(exp, "models"), exist_ok=True)
+    S = JSupportSets(num_support_sets=BK, num_support_dipoles=8, support_vectors_dim=120,
+                     learn_gammas=True)
+    save_pt(S.to_torch_state_dict(S.init(jax.random.key(11))),
+            osp.join(exp, "models", "support_sets.pt"))
+    with open(osp.join(exp, "args.json"), "w") as f:
+        json.dump({"gan_type": "BigGAN", "biggan_target_classes": [239], "num_support_sets": BK,
+                   "num_support_dipoles": 8, "learn_alphas": False, "learn_gammas": True,
+                   "gamma": None}, f)
+
+
+@pytest.fixture(scope="module")
+def biggan_trees(tmp_path_factory):
+    """The port's ``sample_gan`` makes the BigGAN pool (under ``BigGAN-239``);
+    both traversal CLIs then walk the same fabricated K=3 experiment, each
+    with its ``build_gan`` patched to one small BigGAN of the same weights."""
+    from tests.test_torch_traverse import small_biggan_bundles
+
+    root = str(tmp_path_factory.mktemp("cli_biggan"))
+    jG, G = small_biggan_bundles()
+    mp = pytest.MonkeyPatch()
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        mp.setattr(t_sample_gan, "build_gan", lambda **kw: G.to(kw["device"]))
+        mp.setattr(j_traverse, "build_gan", lambda **kw: jG)
+        mp.setattr(t_traverse, "build_gan", lambda **kw: G.to(kw["device"]))
+        t_sample_gan.main(["-g", "BigGAN", "--biggan-target-classes", "239", "--num-samples", "2",
+                           "--pool", BPOOL, "--no-cuda"])
+        for exp in ("exp_jax", "exp_torch"):
+            _make_biggan_experiment(exp)
+        argv = ["--pool", BPOOL, "--shift-steps", str(BSTEPS), "--eps", str(BEPS),
+                "--batch-size", "4"]
+        j_traverse.main(["--exp", "exp_jax"] + argv)
+        t_traverse.main(["--exp", "exp_torch", "--no-cuda"] + argv)
+    finally:
+        os.chdir(cwd)
+        mp.undo()
+    return root
+
+
+def test_biggan_cli_trees_match(biggan_trees):
+    root = biggan_trees
+    pool = osp.join(root, "experiments", "latent_codes", "BigGAN-239", BPOOL)
+    hashes = sorted(d for d in os.listdir(pool) if osp.isdir(osp.join(pool, d)))
+    assert len(hashes) == 2 and osp.isfile(osp.join(pool, "args.json"))
+    for h in hashes:
+        assert np.asarray(load_pt(osp.join(pool, h, "latent_code.pt"))).shape == (1, 120)
+        assert Image.open(osp.join(pool, h, "image.jpg")).size == (32, 32)
+
+    ref, ours = (osp.join(root, e, BRES_SUBDIR) for e in ("exp_jax", "exp_torch"))
+    files = _file_set(ours)
+    assert files == _file_set(ref)
+    n_frames = 2 * BSTEPS + 1
+    assert sum(f.endswith(".jpg") for f in files) == 2 * (BK * n_frames + 1)
+    assert sorted(os.listdir(ours)) == hashes
+    worst_mean, worst_max = 0.0, 0
+    for rel in files:
+        if rel.endswith(".pt"):
+            a = np.asarray(load_pt(osp.join(ours, rel)))
+            b = np.asarray(load_pt(osp.join(ref, rel)))
+            assert a.shape == b.shape == (BK, n_frames, 120)
+            # f32 drift over 2 normalised-gradient steps.
+            assert float(np.max(np.abs(a - b))) < 1e-4
+        else:
+            a = np.asarray(Image.open(osp.join(ours, rel)), dtype=np.int16)
+            b = np.asarray(Image.open(osp.join(ref, rel)), dtype=np.int16)
+            assert a.shape == b.shape == (32, 32, 3)
+            diff = np.abs(a - b)
+            worst_mean = max(worst_mean, float(diff.mean()))
+            worst_max = max(worst_max, int(diff.max()))
+    # The JPEG bound of tests/test_reference_oracle.py, as for StyleGAN2 above.
+    assert worst_mean < 1.0, worst_mean
+    assert worst_max <= 24, worst_max
+
+
+def test_biggan_needs_target_classes():
+    with pytest.raises(SystemExit):
+        t_sample_gan.main(["-g", "BigGAN", "--num-samples", "1", "--no-cuda"])
+
+
 def test_cuda_flag_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -146,8 +232,11 @@ def test_port_sample_gan_pool(tmp_path, monkeypatch):
 def test_build_gan_rules(tmp_path):
     from warpedganspace_torch.models.gan_load import build_gan
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_gan("SNGAN_MNIST", weights_root=str(tmp_path))
+    for gan_type in ("SNGAN_MNIST", "SNGAN_AnimeFaces", "ProgGAN"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_gan(gan_type, weights_root=str(tmp_path))
+    with pytest.raises(ValueError, match="unknown GAN type"):
+        build_gan("NoSuchGAN", weights_root=str(tmp_path))
     with pytest.raises(FileNotFoundError):
         build_gan("StyleGAN2", stylegan2_resolution=256, weights_root=str(tmp_path),
                   allow_random_init=False)

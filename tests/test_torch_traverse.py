@@ -55,6 +55,45 @@ def small_generators(resolution=32, seed=0):
     return jG, G
 
 
+def small_biggan_bundles(resolution=32, ch=16, attention="32", seed=0):
+    """One small BigGAN (a fabricated ``G_ema`` checkpoint, class 239) behind
+    the generator contract of both packages."""
+    from tests.test_torch_biggan import small_biggans
+
+    jgen, jparams, gen = small_biggans(resolution, ch, attention, seed, target_classes=(239,))
+    jG = JBundle(name="BigGAN", dim_z=120, resolution=resolution, out_channels=3,
+                 params=jparams, apply_fn=jgen.apply)
+    return jG, GeneratorBundle("BigGAN", gen, dim_z=120, resolution=resolution)
+
+
+def test_biggan_traversal_and_render_match_jax():
+    """BigGAN's shape of the engine: warp in Z (d=120), frames through the
+    class-conditional generator with its attention block."""
+    jG, G = small_biggan_bundles()
+    k, n_dip, d = 3, 8, 120
+    JS = JSupportSets(k, n_dip, d, learn_gammas=True)
+    jparams = JS.init(jax.random.key(3))
+    S = SupportSets(k, n_dip, d, learn_gammas=True).from_torch_state_dict(
+        support_sets_from_jax(jax.tree_util.tree_map(np.asarray, jparams)))
+    z = np.random.default_rng(4).standard_normal((2, d)).astype(np.float32)
+    jcodes, jshifts = j_traverse_paths(JS, jparams, z, eps=0.15, shift_steps=3)
+    codes, shifts = traverse_paths(S, torch.from_numpy(z), eps=0.15, shift_steps=3)
+    assert codes.shape == jcodes.shape == (2, k, 7, d)
+    # f32 over 3 normalised-gradient steps; the bound of the reference oracle.
+    np.testing.assert_allclose(codes.numpy(), np.asarray(jcodes), rtol=0, atol=5e-5)
+
+    flat_c = np.array(jcodes)[0].reshape(-1, d)
+    flat_s = np.array(jshifts)[0].reshape(-1, d)
+    ref = list(j_iter_rendered_u8(jG, jG.params, flat_c, flat_s, batch_size=8))
+    got = list(iter_rendered_u8(G, torch.from_numpy(flat_c), torch.from_numpy(flat_s),
+                                batch_size=8))
+    assert [s for s, _ in got] == [s for s, _ in ref] == [0, 8, 16]
+    for (_, a), (_, b) in zip(got, ref):
+        assert a.shape == np.asarray(b).shape and a.shape[1:] == (32, 32, 3)
+        # One gray level where a float difference straddles a level boundary.
+        assert np.max(np.abs(a.astype(np.int16) - np.asarray(b).astype(np.int16))) <= 1
+
+
 def test_iter_rendered_u8_matches_jax():
     jG, G = small_generators()
     rng = np.random.default_rng(2)

@@ -18,12 +18,12 @@ from hashlib import sha1
 
 import torch
 
-from warpedganspace_tpu.config import GAN_RESOLUTIONS, GAN_WEIGHTS
-from warpedganspace_tpu.utils.aux import update_progress, update_stdout
-from warpedganspace_tpu.utils.io import save_pt
+from warpedganspace_torch.config import GAN_RESOLUTIONS, GAN_WEIGHTS
 from warpedganspace_torch.core.sampling import sample_z
 from warpedganspace_torch.models.gan_load import build_gan
 from warpedganspace_torch.traverse.images import tensor2image
+from warpedganspace_torch.utils.aux import update_progress, update_stdout
+from warpedganspace_torch.utils.io import save_pt
 
 
 def build_parser():

@@ -25,8 +25,6 @@ import os.path as osp
 import numpy as np
 import torch
 
-from warpedganspace_tpu.utils.aux import update_progress, update_stdout
-from warpedganspace_tpu.utils.io import load_pt, save_pt
 from warpedganspace_torch.cli.sample_gan import select_device
 from warpedganspace_torch.models.api import cast_params_bf16
 from warpedganspace_torch.models.gan_load import build_gan
@@ -34,6 +32,8 @@ from warpedganspace_torch.models.support_sets import SupportSets
 from warpedganspace_torch.traverse.engine import iter_rendered_u8, traverse_paths
 from warpedganspace_torch.traverse.gifs import collate_traversal_gifs
 from warpedganspace_torch.traverse.writer import AsyncImageWriter
+from warpedganspace_torch.utils.aux import update_progress, update_stdout
+from warpedganspace_torch.utils.io import load_pt, save_pt
 
 
 def build_parser():

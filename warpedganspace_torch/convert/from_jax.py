@@ -20,7 +20,15 @@ def _t(x, *perm) -> torch.Tensor:
 
 def _linear(p, dst, out):
     out[dst + ".weight"] = _t(p["w"], 1, 0)          # (in, out) -> (out, in)
-    out[dst + ".bias"] = _t(p["b"])
+    if "b" in p:
+        out[dst + ".bias"] = _t(p["b"])
+
+
+def _conv(p, dst, out, bias=True):
+    """``bias``: the port's conv has one; a pytree that leaves it out gets zeros."""
+    w = out[dst + ".weight"] = _t(p["w"], 3, 2, 0, 1)    # HWIO -> OIHW
+    if bias:
+        out[dst + ".bias"] = _t(p["b"]) if "b" in p else torch.zeros(w.shape[0])
 
 
 def _mod_conv(p, dst, out):
@@ -53,6 +61,33 @@ def stylegan2_from_jax(params: dict) -> dict[str, torch.Tensor]:
         _rgb(p, f"to_rgbs.{j}", out)
     for i, n in enumerate(params["noises"]):
         out[f"noises.noise_{i}"] = _t(n, 0, 3, 1, 2)            # (1,H,W,1) -> (1,1,H,W)
+    return out
+
+
+def _ccbn(p, dst, out):
+    _linear(p["gain"], dst + ".gain", out)
+    _linear(p["bias"], dst + ".bias", out)
+    out[dst + ".mean"] = _t(p["mean"])
+    out[dst + ".var"] = _t(p["var"])
+
+
+def biggan_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``BigGANGenerator.init``/converter params -> port generator state dict."""
+    out: dict[str, torch.Tensor] = {"shared_embed": _t(params["shared_embed"])}
+    _linear(params["linear"], "linear", out)
+    for i, block in enumerate(params["blocks"]):
+        dst = f"blocks.{i}."
+        _ccbn(block["bn1"], dst + "bn1", out)
+        _ccbn(block["bn2"], dst + "bn2", out)
+        for name in ("conv1", "conv2", "conv_sc"):
+            _conv(block[name], dst + name, out)
+        if "attention" in block:
+            for name in ("theta", "phi", "g", "o"):
+                _conv(block["attention"][name], dst + "attention." + name, out, bias=False)
+            out[dst + "attention.gamma"] = _t(block["attention"]["gamma"]).reshape(())
+    for name in ("scale", "bias", "mean", "var"):
+        out["out_bn." + name] = _t(params["out_bn"][name])
+    _conv(params["out_conv"], "out_conv", out)
     return out
 
 

@@ -1,1 +1,2 @@
-"""Models: support sets, the StyleGAN2 generator, the uniform generator contract and its builders."""
+"""Models: support sets, the StyleGAN2 and BigGAN generators, the uniform
+generator contract and ``gan_load``."""

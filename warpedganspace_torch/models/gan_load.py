@@ -1,8 +1,9 @@
 """Generator builders: a frozen pretrained GAN behind the uniform contract.
 
 Counterpart of :mod:`warpedganspace_tpu.models.gan_load` (reference
-``models/gan_load.py``). This slice of the port carries StyleGAN2 (256/1024,
-shifts in Z or W); the other GAN types raise ``NotImplementedError``.
+``models/gan_load.py``). The port carries StyleGAN2 (256/1024, shifts in Z or
+W) and BigGAN (128, class-conditional); the other GAN types raise
+``NotImplementedError``.
 
 If the pretrained weight file is missing, builders raise FileNotFoundError
 unless ``allow_random_init=True`` (or the environment sets
@@ -16,16 +17,15 @@ import os.path as osp
 
 import torch
 
-from warpedganspace_tpu.config import GAN_WEIGHTS
-from warpedganspace_tpu.utils.io import load_pt
+from warpedganspace_torch.config import GAN_RESOLUTIONS, GAN_WEIGHTS
 from warpedganspace_torch.models.api import GeneratorBundle
+from warpedganspace_torch.utils.io import load_pt
 
 # Where each GAN type's port is scheduled (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
-    "SNGAN_MNIST": "Queue 1 item 3 (SNGAN)",
-    "SNGAN_AnimeFaces": "Queue 1 item 3 (SNGAN)",
-    "BigGAN": "Queue 1 item 9 (BigGAN)",
-    "ProgGAN": "Queue 1 item 10 (ProgGAN)",
+    "SNGAN_MNIST": "Queue 1 item 2 (training, with the SNGAN generators)",
+    "SNGAN_AnimeFaces": "Queue 1 item 2 (training, with the SNGAN generators)",
+    "ProgGAN": "Queue 1 item 1 (ProgGAN serving)",
 }
 
 
@@ -63,6 +63,24 @@ def build_stylegan2(pretrained_gan_weights: str, resolution: int,
                            resolution=resolution, shift_in_w_space=shift_in_w_space)
 
 
+def build_biggan(pretrained_gan_weights: str, target_classes,
+                 allow_random_init: bool | None = None, device=None) -> GeneratorBundle:
+    """BigGAN 128^2 class-conditional, frozen, on ``device``. When the caller
+    gives no ``y``, the generator draws a class per batch element from
+    ``target_classes`` (see :mod:`warpedganspace_torch.models.biggan`)."""
+    from warpedganspace_torch.convert.biggan import load_reference_state_dict
+    from warpedganspace_torch.models.biggan import BigGANGenerator
+
+    sd = _load_state_dict(pretrained_gan_weights, _allow_random(allow_random_init))
+    gen = BigGANGenerator.from_config(target_classes=target_classes,
+                                      generator=torch.Generator().manual_seed(0))
+    if sd is not None:
+        load_reference_state_dict(gen, sd)
+    gen.requires_grad_(False).eval()
+    return GeneratorBundle("BigGAN", gen.to(device), dim_z=gen.dim_z,
+                           resolution=gen.resolution)
+
+
 def build_gan(gan_type: str, target_classes=None, stylegan2_resolution: int = 1024,
               shift_in_w_space: bool = False, weights_root: str = ".",
               allow_random_init: bool | None = None, device=None) -> GeneratorBundle:
@@ -71,6 +89,9 @@ def build_gan(gan_type: str, target_classes=None, stylegan2_resolution: int = 10
         path = osp.join(weights_root, GAN_WEIGHTS[gan_type]["weights"][stylegan2_resolution])
         return build_stylegan2(path, stylegan2_resolution, shift_in_w_space,
                                allow_random_init, device=device)
+    if gan_type == "BigGAN":
+        path = osp.join(weights_root, GAN_WEIGHTS[gan_type]["weights"][GAN_RESOLUTIONS[gan_type]])
+        return build_biggan(path, target_classes, allow_random_init, device=device)
     if gan_type in _NOT_PORTED:
         raise NotImplementedError(
             f"{gan_type} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[gan_type]}")

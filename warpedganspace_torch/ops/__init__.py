@@ -1,1 +1,2 @@
-"""Compute ops: the RBF warp (plain and the CUDA kernel), upfirdn2d, fused bias + leaky ReLU."""
+"""Compute ops: the RBF warp and the SA attention (each plain and as a CUDA
+kernel), upfirdn2d, fused bias + leaky ReLU."""

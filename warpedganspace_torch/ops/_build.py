@@ -40,10 +40,8 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per content hash) and load it."""
-    if source in _LIBS:
-        return _LIBS[source]
+def _compile(source: str) -> str:
+    """Compile ``csrc/<source>`` unless its library is there; return the library's path."""
     src_path = osp.join(CSRC_DIR, source)
     with open(src_path, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -63,5 +61,12 @@ def load_library(source: str) -> ctypes.CDLL:
         if proc.stderr.strip():
             print(proc.stderr.strip())
         os.replace(tmp, lib_path)
-    _LIBS[source] = ctypes.CDLL(lib_path)
+    return lib_path
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per content hash) and load it."""
+    if source not in _LIBS:
+        _LIBS[source] = ctypes.CDLL(_compile(source))
     return _LIBS[source]
+

@@ -11,6 +11,8 @@ import os.path as osp
 
 from PIL import Image, ImageDraw
 
+from warpedganspace_torch.utils.aux import update_progress
+
 
 def concat_pair(
     img_file_orig: str,
@@ -56,8 +58,6 @@ def collate_traversal_gifs(
 ):
     """Build paths_gifs/path_<k>.gif from the rendered traversal tree under
     ``out_dir`` (one sub-directory per latent-code hash)."""
-    from warpedganspace_tpu.utils.aux import update_progress
-
     img_ids = sorted(
         d
         for d in os.listdir(out_dir)
