@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile biggan    # instead: where that path's time goes
+    python3 chip_smoke.py --profile proggan   # instead: where that path's time goes
+                                              # (also: biggan, stylegan2)
 
 Phases, each of which must pass; any failure ends the run with a non-zero
 exit and no result line:
@@ -13,25 +14,35 @@ exit and no result line:
    (plain, kernel, kernel, plain):
    - the RBF warp at the production shape (K=200 sets, 2N=1024 support
      vectors, d=512, R=64 rows = 32 codes x +-) in f32 and with bf16 set
-     storage, and at the shapes the two traversals below give it;
+     storage, and at the shapes the three traversals below give it;
    - the SA attention at BigGAN-128's shape (B=16, N=4096, M=1024, dk=24,
      dv=96) in f32 and bf16, at the two shapes the BigGAN path below gives it
      (a bf16 render batch of 64, one f32 sample) and at a ragged shape, with
      ``F.scaled_dot_product_attention`` timed beside it as a yardstick the
      port never calls;
+   - ProgGAN's fused tail section at the three full-width sections of the
+     1024^2 generator (128 -> 64 channels at 256^2, 64 -> 32 at 512^2,
+     32 -> 16 at 1024^2 with the RGB head; B=4) in f32 and bf16, at the shapes
+     the ProgGAN path below gives it (a bf16 render batch of 16, one f32
+     sample), at a border-only and at a ragged odd shape, with WScale scales
+     != 1 and random biases; no one PyTorch call computes a section;
 4. generators with random weights from a seed: StyleGAN2-1024 in W space
-   (B=4) and BigGAN-128 at full width (class 239, B=16), each in f32 and bf16
-   and in f32 on the card against f32 on the CPU; BigGAN also with the
-   attention kernel swapped for its plain version, in f32 and on a bf16 render
-   batch of 64;
+   (B=4), BigGAN-128 at full width (class 239, B=16) and ProgGAN-1024 at full
+   width (B=4), each in f32 and bf16 and in f32 on the card against f32 on
+   the CPU; BigGAN also with the attention kernel swapped for its plain
+   version, in f32 and on a bf16 render batch of 64; ProgGAN also with the
+   tail kernel swapped for its plain version and for two deliberately wrong
+   tails, to show the comparison would see them;
 5. the port's main paths through its CLIs, ``sample_gan`` then
-   ``traverse_latent_space``: a K=8, D=512 StyleGAN2-1024 W-space experiment
-   for 20 steps each way at bf16 with GIFs, and the K=120, D=256 BigGAN-128
-   class-239 experiment for 10 steps each way at bf16 (2,520 frames). Each
-   kernel's launch count is set to 0 just before a path and read just after:
-   the warp must show one launch per step on both, the attention one launch
-   per generator forward on BigGAN's. The stored codes are checked against the
-   plain warp.
+   ``traverse_latent_space``: a K=4, D=512 StyleGAN2-1024 W-space experiment
+   for 10 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
+   class-239 experiment for 10 steps each way at bf16 (2,520 frames), and the
+   K=200, D=512 ProgGAN-1024 Z-space experiment for 5 steps each way at bf16
+   (2,200 frames of 1024^2). Each kernel's launch count is set to 0 just
+   before a path and read just after: the warp must show one launch per step
+   on all three, the attention one launch per generator forward on BigGAN's,
+   the tail three launches per generator forward on ProgGAN's. The stored
+   codes are checked against the plain warp.
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
@@ -52,21 +63,29 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 K_PROD, N_DIP, D, ROWS = 200, 512, 512, 64   # production warp shape
-# The two traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
-SG2 = dict(gan="StyleGAN2", k=8, dipoles=512, d=512, steps=20, eps=0.2, batch=16, res=1024,
+# The three traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
+SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=10, eps=0.2, batch=16, res=1024,
            gif=True, pool="smoke")
 BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=10, eps=0.15, batch=64, res=128,
               gif=False, pool="smoke_biggan")
+PROGGAN = dict(gan="ProgGAN", k=200, dipoles=512, d=512, steps=5, eps=0.15, batch=16, res=1024,
+               gif=False, pool="smoke_proggan")
+PATHS = {"stylegan2": SG2, "biggan": BIGGAN, "proggan": PROGGAN}
 ATTN_SHAPE = (16, 4096, 1024, 24, 96)        # B, N, M, dk, dv of BigGAN-128's attention, timed
 # What the BigGAN path gives the kernel: bf16 render batches (the last one is
 # padded to the batch size) and sample_gan's one f32 code.
 ATTN_RENDER = (BIGGAN["batch"],) + ATTN_SHAPE[1:]
 ATTN_SAMPLE = (1,) + ATTN_SHAPE[1:]
 ATTN_RAGGED = (2, 1000, 250, 20, 80)
+# The three sections of ProgGAN-1024's tail: (C output channels, input height = width, head).
+TAIL_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
+TAIL_B = 4                                   # batch of the timed sections and generator
 
-# NVIDIA H100 SXM data sheet: device memory rate and the f32 rate outside the tensor cores.
+# NVIDIA H100 SXM data sheet: device memory rate, the f32 rate outside the tensor
+# cores, and the dense tensor-core rate for bf16 operands with f32 accumulation.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -101,11 +120,12 @@ def psnr(img, ref) -> float:
     return float("inf") if mse == 0 else 10 * math.log10(peak ** 2 / mse)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, bf16: bool = False) -> tuple[float, str]:
     """The least time (ms) the card could take: each input read and each output
-    written once at the memory rate, or the operations at the f32 peak."""
+    written once at the memory rate, or the operations at the card's peak for
+    their operands' type (f32, or bf16 with f32 accumulation)."""
     t_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
-    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -141,7 +161,7 @@ def phase_warp_kernel(card: str) -> dict:
 
         # The traversals' own shapes: one code x +- = 2 rows, and 64 rows at BigGAN's.
         errs = {}
-        for cfg, rows in ((SG2, 2), (BIGGAN, 2), (BIGGAN, 64)):
+        for cfg, rows in ((SG2, 2), (BIGGAN, 2), (BIGGAN, 64), (PROGGAN, 2)):
             Ss = SupportSets(cfg["k"], cfg["dipoles"], cfg["d"], learn_gammas=True,
                              generator=gen).to(dev)
             zs = torch.randn((cfg["k"], rows, cfg["d"]), generator=gen).to(dev)
@@ -246,8 +266,13 @@ def phase_attn_kernel(card: str) -> dict:
     b, n, m, dk, dv = ATTN_SHAPE
     # f32 theta, phi, g read once and the output written once; two products of
     # B * N * M * (dk + dv) multiply-adds (the B * N * M exponentials are not counted).
-    bound_ms, bound_by = bound(4 * b * (n * dk + m * dk + m * dv + n * dv),
-                               2 * b * n * m * (dk + dv))
+    def attn_bound(b, elem):
+        return bound(elem * b * (n * dk + m * dk + m * dv + n * dv),
+                     2 * b * n * m * (dk + dv), bf16=elem == 2)
+
+    bound_ms, bound_by = attn_bound(b, 4)
+    bound_ms16, bound_by16 = attn_bound(b, 2)
+    bound_render, _ = attn_bound(ATTN_RENDER[0], 2)
     ms, plain_ms, lib_ms, lib_err, runs = times[torch.float32]
     ms16, plain_ms16, lib_ms16, lib_err16, _ = times[torch.bfloat16]
     res = {"max_abs_err": errs[f"{ATTN_SHAPE} float32"], "max_abs_errs": errs,
@@ -255,14 +280,158 @@ def phase_attn_kernel(card: str) -> dict:
            "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
            "ms_render_bf16": render_ms, "plain_ms_render_bf16": render_plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16,
+           "bound_ms_render_bf16": bound_render,
            "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
     print(f"[kernel] sa_attention {res['shape']} on {card}: f32 kernel {ms:.4f} ms "
           f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
           f"{runs[3]:.4f}) library SDPA {lib_ms:.4f} ms (its max abs err vs plain "
           f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
-          f"plain {plain_ms16:.4f} ms library SDPA {lib_ms16:.4f} ms (err {lib_err16:.3g}); "
+          f"plain {plain_ms16:.4f} ms library SDPA {lib_ms16:.4f} ms (err {lib_err16:.3g}), "
+          f"bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 tensor-core peak; "
           f"bf16 at the render batch B={ATTN_RENDER[0]}: kernel {render_ms:.4f} ms plain "
-          f"{render_plain_ms:.4f} ms; "
+          f"{render_plain_ms:.4f} ms bound {bound_render:.4f} ms; "
+          "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
+    return res
+
+
+def tail_problem(seed: int, b: int, c: int, h: int, w: int, head: bool, dtype):
+    """One tail section's operands on the card: unit-scale input, weights that
+    keep every conv output at unit scale, WScale scales != 1 and random biases
+    (the random init's scale 1 and bias 0 would hide a wrong WScale or a mid
+    border computed instead of zeroed)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen)).to(device="cuda", dtype=dtype)
+
+    ops = [normal(b, 2 * c, h, w),
+           normal(c, 2 * c, 3, 3, std=(18 * c) ** -0.5), normal(c, std=0.3),
+           torch.tensor([1.3], device="cuda", dtype=dtype),
+           normal(c, c, 3, 3, std=(9 * c) ** -0.5), normal(c, std=0.3),
+           torch.tensor([0.8], device="cuda", dtype=dtype)]
+    hd = None
+    if head:
+        hd = (normal(3, c, 1, 1, std=c ** -0.5), normal(3, std=0.3),
+              torch.tensor([1.1], device="cuda", dtype=dtype))
+    return ops, hd
+
+
+def tail_bound(b: int, c: int, h: int, w: int, head: bool, elem: int) -> tuple[float, str]:
+    """A section's bound: the input and the weights read once and the output
+    written once, against the LEAST arithmetic that computes it: the
+    phase-merged up-conv needs 4 taps of 2C x C per output pixel, not 9, then
+    9 taps of C x C, and 3 C for the head. With 2-byte elements the operands
+    are bf16 and the operations are held to the tensor cores' bf16 peak."""
+    r2 = 4 * h * w
+    n_w = 9 * 2 * c * c + 9 * c * c + 2 * c + 2 + ((3 * c + 4) if head else 0)
+    bytes_moved = elem * (b * 2 * c * h * w + b * (3 if head else c) * r2 + n_w)
+    flops = b * r2 * (2 * (4 * 2 * c * c + 9 * c * c) + (2 * 3 * c if head else 0))
+    return bound(bytes_moved, flops, bf16=elem == 2)
+
+
+def phase_tail_kernel(card: str) -> dict:
+    import torch
+
+    from warpedganspace_torch.ops import proggan_tail_cuda
+    from warpedganspace_torch.ops.proggan_tail import fused_section_plain
+
+    def run(ops, hd, name):
+        """Kernel against the plain version in f32 on the same (rounded) operands."""
+        before = proggan_tail_cuda.launches
+        out = proggan_tail_cuda.fused_section(*ops, head=hd)
+        torch.cuda.synchronize()
+        check(proggan_tail_cuda.launches == before + 1,
+              "the tail kernel's launch count did not move")
+        ref = fused_section_plain(*[t.float() for t in ops],
+                                  head=None if hd is None else tuple(t.float() for t in hd))
+        check(out.dtype == ops[0].dtype and out.shape == ref.shape, f"tail output at {name}")
+        check(bool(torch.isfinite(out).all()), f"non-finite tail output at {name}")
+        e = float((out.float() - ref).abs().max())
+        # f32: sums of up to 9 * 128 = 1,152 unit-scale products in another
+        # order (and merged up-conv taps). bf16: the kernel keeps f32 between
+        # its stages, so what separates it from the f32 plain version on the
+        # same rounded operands is the rounding of its output: half an ulp of
+        # values below 8, 2^-6, doubled.
+        tol = 1e-4 if out.dtype == torch.float32 else 3e-2
+        check(e <= tol, f"tail kernel vs plain at {name}: max abs {e:.3g} > {tol}")
+        return e
+
+    errs, times, sections = {}, {}, []
+    with torch.no_grad():
+        cases = [(TAIL_B, c, h, h, hd, dt) for c, h, hd in TAIL_SECTIONS
+                 for dt in (torch.float32, torch.bfloat16)]
+        # What the ProgGAN path gives it: bf16 render batches, one f32 sample.
+        cases += [(PROGGAN["batch"], c, h, h, hd, torch.bfloat16) for c, h, hd in TAIL_SECTIONS]
+        cases += [(1, c, h, h, hd, torch.float32) for c, h, hd in TAIL_SECTIONS]
+        # Border only (a 2 x 2 output), and ragged, odd, non-square.
+        for dt in (torch.float32, torch.bfloat16):
+            cases += [(3, 16, 1, 1, True, dt), (3, 64, 1, 1, False, dt),
+                      (2, 32, 9, 23, False, dt), (2, 16, 17, 5, True, dt)]
+        for b, c, h, w, hd, dt in cases:
+            name = f"B={b} C={c} {h}x{w}{' +head' if hd else ''} {str(dt).split('.')[-1]}"
+            errs[name] = run(*tail_problem(5, b, c, h, w, hd, dt), name)
+
+        for c, h, hd in TAIL_SECTIONS:
+            row = {"c": c, "in": h, "head": hd}
+            for dt, key in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+                ops, head = tail_problem(5, TAIL_B, c, h, h, hd, dt)
+                kern = lambda: proggan_tail_cuda.fused_section(*ops, head=head)  # noqa: E731
+                plain = lambda: fused_section_plain(*ops, head=head)  # noqa: E731
+                p1, k1, k2, p2 = (cuda_ms(f, iters=20, warmup=3)
+                                  for f in (plain, kern, kern, plain))
+                row["ms" + key], row["plain_ms" + key] = (k1 + k2) / 2, (p1 + p2) / 2
+                row["runs" + key] = (k1, k2, p1, p2)
+                row["bound_ms" + key], row["bound_by" + key] = tail_bound(
+                    TAIL_B, c, h, h, hd, 4 if dt == torch.float32 else 2)
+                if dt == torch.bfloat16:
+                    # How far the plain bf16 version, which rounds every
+                    # intermediate, is from the f32 one on the same operands.
+                    ref = fused_section_plain(*[t.float() for t in ops],
+                                              head=head and tuple(t.float() for t in head))
+                    row["plain_bf16_err"] = float((plain().float() - ref).abs().max())
+            # The render batch's own shape (bf16, the CLI's batch size).
+            ops, head = tail_problem(5, PROGGAN["batch"], c, h, h, hd, torch.bfloat16)
+            p1, k1, k2, p2 = (cuda_ms(f, iters=10, warmup=2) for f in (plain, kern, kern, plain))
+            row["ms_render_bf16"], row["plain_ms_render_bf16"] = (k1 + k2) / 2, (p1 + p2) / 2
+            row["bound_ms_render_bf16"], row["bound_by_render_bf16"] = tail_bound(
+                PROGGAN["batch"], c, h, h, hd, 2)
+            sections.append(row)
+            del ops, head
+
+    # One generator forward's tail is the three sections: the row's times,
+    # bound and error are theirs summed (f32, B=4).
+    f32_names = [f"B={TAIL_B} C={c} {h}x{h}{' +head' if hd else ''} float32"
+                 for c, h, hd in TAIL_SECTIONS]
+    res = {"max_abs_err": max(errs[n] for n in f32_names), "max_abs_errs": errs,
+           "sections": sections, "bound_by": sections[0]["bound_by"],
+           "bound_by_bf16": sections[0]["bound_by_bf16"],
+           "shape": f"3 sections (C=64@256^2, 32@512^2, 16@1024^2 + head), B={TAIL_B} f32, summed"}
+    check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
+          and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
+          "sections bound differently")
+    for key in ("ms", "plain_ms", "bound_ms", "ms_bf16", "plain_ms_bf16", "bound_ms_bf16",
+                "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_render_bf16"):
+        res[key] = sum(r[key] for r in sections)
+    for r in sections:
+        k1, k2, p1, p2 = r["runs"]
+        print(f"[kernel] proggan_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
+              f"{' + head' if r['head'] else ''}, B={TAIL_B} on {card}: f32 kernel "
+              f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms']:.4f} ms ({p1:.4f}, "
+              f"{p2:.4f}); bound {r['bound_ms']:.4f} ms by {r['bound_by']}; bf16 kernel "
+              f"{r['ms_bf16']:.4f} ms plain {r['plain_ms_bf16']:.4f} ms (bound "
+              f"{r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} at the bf16 tensor-core peak; "
+              f"plain bf16 vs f32 max abs {r['plain_bf16_err']:.3g}); "
+              f"bf16 at the render batch B={PROGGAN['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
+              f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
+              "no library call")
+    print(f"[kernel] proggan_tail, the three sections summed, B={TAIL_B}: f32 kernel "
+          f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound {res['bound_ms']:.4f} ms; "
+          f"bf16 kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
+          f"{res['bound_ms_bf16']:.4f} ms by {res['bound_by_bf16']}; at B={PROGGAN['batch']} bf16 "
+          f"kernel {res['ms_render_bf16']:.4f} ms bound {res['bound_ms_render_bf16']:.4f} ms; "
           "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
     return res
 
@@ -390,6 +559,111 @@ def phase_generator_biggan(card: str) -> None:
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
+def tail_with_computed_border(x, sections, out):
+    """A deliberately WRONG tail: the mid tensor's border is computed from the
+    zero-padded input instead of being the same-conv's zero padding (what a
+    tiled kernel does if it forgets to zero its halo outside the image)."""
+    import torch.nn.functional as F
+
+    from warpedganspace_torch.ops.proggan_tail import (LEAKY_SLOPE, head_plain, pixel_norm,
+                                                       wscale)
+
+    for up, same in sections:
+        x = F.interpolate(pixel_norm(x), scale_factor=2, mode="nearest")
+        x = F.leaky_relu(wscale(F.conv2d(x, up.weight, padding=2), up.scale, up.bias),
+                         LEAKY_SLOPE)
+        x = F.leaky_relu(wscale(F.conv2d(pixel_norm(x), same.weight), same.scale, same.bias),
+                         LEAKY_SLOPE)
+    return head_plain(x, out.weight, out.bias, out.scale)
+
+
+def phase_generator_proggan(card: str) -> None:
+    import torch
+
+    from warpedganspace_torch.models import proggan
+    from warpedganspace_torch.models.api import cast_params_bf16
+    from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.ops import proggan_tail_cuda
+    from warpedganspace_torch.ops.proggan_tail import proggan_tail_plain
+
+    b = TAIL_B
+    G = build_gan("ProgGAN", allow_random_init=True, device="cuda")
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        # The random init leaves every WScale at scale 1 and bias 0, which
+        # would hide a wrong scale, bias or border: perturb them.
+        for block in list(G.net.blocks) + [G.net.out]:
+            block.scale.copy_(torch.rand(1, generator=gen) * 0.45 + 0.8)
+            block.bias.copy_(0.1 * torch.randn(block.bias.shape, generator=gen))
+    G16 = cast_params_bf16(G)
+    z = torch.randn((b, G.dim_z), generator=gen).cuda()
+    shift = (0.15 * torch.nn.functional.normalize(torch.randn((b, G.dim_z), generator=gen),
+                                                  dim=-1)).cuda()
+    n_head, sections = G.net.tail_split()
+    check(n_head == 12 and len(sections) == 3, "the full-width chain must split 12 + 3 sections")
+    with torch.no_grad():
+        before = proggan_tail_cuda.launches
+        img = G(z, shift)
+        torch.cuda.synchronize()
+        check(proggan_tail_cuda.launches == before + 3,
+              "ProgGAN's forward must launch the tail kernel three times")
+        img16 = G16(z.bfloat16(), shift.bfloat16()).float()
+        torch.cuda.synchronize()
+        check(proggan_tail_cuda.launches == before + 6, "the bf16 forward's three tail launches")
+        check_images(img, (b, 3, 1024, 1024), "ProgGAN f32")
+        check_images(img16, (b, 3, 1024, 1024), "ProgGAN bf16")
+        p16 = psnr(img16, img)
+        ms32 = cuda_ms(lambda: G(z, shift), iters=10, warmup=2)
+        ms16 = cuda_ms(lambda: G16(z.bfloat16(), shift.bfloat16()), iters=10, warmup=2)
+        # The ProgGAN path's own two forwards: one f32 code, a bf16 render batch.
+        ms32_one = cuda_ms(lambda: G(z[:1]), iters=10, warmup=2)
+        zr = z.bfloat16().repeat(PROGGAN["batch"] // b, 1)
+        ms16_render = cuda_ms(lambda: G16(zr), iters=10, warmup=2)
+
+        # The same forward with the kernel swapped for its plain version (a
+        # check of the kernel inside the model, not a path the port takes),
+        # then for two wrong tails, to show that this comparison sees them.
+        kernel_fn = proggan.proggan_tail
+        try:
+            proggan.proggan_tail = proggan_tail_plain
+            before = proggan_tail_cuda.launches
+            img_plain = G(z, shift)
+            img16_plain = G16(z.bfloat16(), shift.bfloat16()).float()
+            check(proggan_tail_cuda.launches == before, "the swapped forward still launched")
+            ms32_plain = cuda_ms(lambda: G(z, shift), iters=5, warmup=1)
+            ms16_plain = cuda_ms(lambda: G16(z.bfloat16(), shift.bfloat16()), iters=5, warmup=1)
+            proggan.proggan_tail = tail_with_computed_border
+            p_border = psnr(G(z, shift), img_plain)
+            proggan.proggan_tail = proggan_tail_plain
+            last_same = sections[-1][1]
+            kept = last_same.bias.clone()
+            last_same.bias.zero_()
+            p_bias = psnr(G(z, shift), img_plain)
+            last_same.bias.copy_(kept)
+        finally:
+            proggan.proggan_tail = kernel_fn
+        pp = psnr(img, img_plain)
+        pp16 = psnr(img16, img16_plain)
+        # The card's f32 against the CPU's f32 on the same weights (TF32 off).
+        Gc = copy.deepcopy(G).to("cpu")
+        pc = psnr(img[:1].cpu(), Gc(z[:1].cpu(), shift[:1].cpu()))
+    check(pc > 40.0, f"ProgGAN card f32 vs CPU f32 PSNR {pc:.2f} dB <= 40")
+    # A tail with a computed mid border, or with one zeroed bias, moves the
+    # image by p_border and p_bias; the kernel path must agree far better.
+    check(pp > 40.0 and pp > max(p_border, p_bias) + 20.0,
+          f"ProgGAN kernel path vs plain tail PSNR {pp:.2f} dB (computed border: "
+          f"{p_border:.2f} dB, zeroed bias: {p_bias:.2f} dB)")
+    # In bf16 the two paths round at different places (the plain version
+    # rounds every intermediate, the kernel only its output).
+    check(pp16 > 40.0, f"ProgGAN bf16 kernel path vs plain tail PSNR {pp16:.2f} dB <= 40")
+    print(f"[generator] ProgGAN-1024, B={b} on {card}: f32 {ms32:.2f} ms/batch "
+          f"({ms32_plain:.2f} with the plain tail), bf16 {ms16:.2f} ms/batch ({ms16_plain:.2f}); "
+          f"f32 B=1 {ms32_one:.2f} ms, bf16 B={PROGGAN['batch']} {ms16_render:.2f} ms/batch; "
+          f"3 tail launches per forward; bf16-vs-f32 PSNR {p16:.2f} dB; kernel-vs-plain-tail "
+          f"PSNR {pp:.2f} dB f32 (computed mid border: {p_border:.2f} dB, last bias zeroed: "
+          f"{p_bias:.2f} dB), {pp16:.2f} dB bf16; card-vs-CPU f32 PSNR {pc:.2f} dB")
+
+
 def phase_cli(card: str, cfg: dict) -> dict:
     """One main path: ``sample_gan`` makes a one-code pool, then
     ``traverse_latent_space`` walks a fabricated experiment at bf16. Returns
@@ -401,11 +675,11 @@ def phase_cli(card: str, cfg: dict) -> dict:
     from warpedganspace_torch.cli import sample_gan, traverse_latent_space
     from warpedganspace_torch.models.gan_load import build_gan
     from warpedganspace_torch.models.support_sets import SupportSets
-    from warpedganspace_torch.ops import attn_cuda, rbf_cuda
+    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda
     from warpedganspace_torch.traverse.engine import traverse_paths
 
     gan, k, d, steps, eps = cfg["gan"], cfg["k"], cfg["d"], cfg["steps"], cfg["eps"]
-    biggan = gan == "BigGAN"
+    biggan, w_space = gan == "BigGAN", gan == "StyleGAN2"
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="wgs_smoke_") as tmp:
@@ -424,13 +698,15 @@ def phase_cli(card: str, cfg: dict) -> dict:
                 sample_argv = ["--biggan-target-classes", "239"]
                 pool_dir = "BigGAN-239"
             else:
-                args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
+                if w_space:
+                    args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
                 sample_argv = []
                 pool_dir = gan
             with open(osp.join(exp, "args.json"), "w") as f:
                 json.dump(args_json, f)
 
-            rbf_cuda.launches = attn_cuda.launches = 0  # count only this path's launches
+            # Count only this path's launches.
+            rbf_cuda.launches = attn_cuda.launches = proggan_tail_cuda.launches = 0
             t0 = time.perf_counter()
             sample_gan.main(["-g", gan, "--num-samples", "1", "--pool", cfg["pool"]]
                             + sample_argv)
@@ -440,7 +716,8 @@ def phase_cli(card: str, cfg: dict) -> dict:
                 "--eps", str(eps), "--batch-size", str(cfg["batch"]), "--dtype", "bfloat16"]
                 + (["--gif"] if cfg["gif"] else []))
             t2 = time.perf_counter()
-            launches = {"rbf_warp": rbf_cuda.launches, "sa_attention": attn_cuda.launches}
+            launches = {"rbf_warp": rbf_cuda.launches, "sa_attention": attn_cuda.launches,
+                        "proggan_tail": proggan_tail_cuda.launches}
 
             n_frames = 2 * steps + 1
             out_dir = osp.join(exp, "results", cfg["pool"],
@@ -466,16 +743,25 @@ def phase_cli(card: str, cfg: dict) -> dict:
                   and float(np.abs(first - other).mean()) > 0, "constant or unchanging frames")
             check(launches["rbf_warp"] >= steps,
                   f"warp kernel launched {launches['rbf_warp']} times, < {steps} steps")
-            if biggan:  # one launch per generator forward: the render batches and the sample
-                forwards = math.ceil(k * n_frames / cfg["batch"])
-                check(launches["sa_attention"] >= forwards,
+            # Generator forwards: the render batches and sample_gan's one code.
+            forwards = math.ceil(k * n_frames / cfg["batch"]) + 1
+            if biggan:  # one launch per generator forward
+                check(launches["sa_attention"] >= forwards - 1,
                       f"attention kernel launched {launches['sa_attention']} times, "
-                      f"< {forwards} render batches")
+                      f"< {forwards - 1} render batches")
+            else:
+                check(launches["sa_attention"] == 0, f"{gan} has no attention to launch")
+            if gan == "ProgGAN":  # one launch per tail section, three sections per forward
+                check(launches["proggan_tail"] == 3 * forwards,
+                      f"tail kernel launched {launches['proggan_tail']} times, not 3 x "
+                      f"{forwards} generator forwards")
+            else:
+                check(launches["proggan_tail"] == 0, f"{gan} has no fused tail to launch")
 
             # The stored codes against the plain warp on the same code and sets.
             z = torch.load(osp.join("experiments", "latent_codes", pool_dir, cfg["pool"],
                                     hashes[0], "latent_code.pt")).cuda()
-            if not biggan:
+            if w_space:
                 G = build_gan(gan, stylegan2_resolution=cfg["res"], shift_in_w_space=True,
                               device="cuda")
                 with torch.no_grad():
@@ -540,12 +826,51 @@ def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
     print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
                        max_name_column_width=70))
 
+    # The generator alone, by device kernel: f32 (sample_gan's type) and bf16
+    # (the render's), B=4, three forwards each.
+    from warpedganspace_torch.models.api import cast_params_bf16
+    from warpedganspace_torch.models.gan_load import build_gan
+
+    G = build_gan(cfg["gan"], target_classes=[239], stylegan2_resolution=cfg["res"],
+                  allow_random_init=True, device="cuda")
+    z = torch.randn((4, G.dim_z), generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.no_grad():
+        for net, zz in ((G, z), (cast_params_bf16(G), z.bfloat16())):
+            ms = cuda_ms(lambda: net(zz), iters=3, warmup=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+                for _ in range(3):
+                    net(zz)
+                torch.cuda.synchronize()
+            print(f"[generator] {cfg['gan']} B=4 {str(zz.dtype).split('.')[-1]}: {ms:.2f} ms "
+                  f"per forward on {card}; three forwards by kernel:")
+            print(tp.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
+                                          max_name_column_width=70))
+        if cfg["gan"] == "ProgGAN":
+            # The head blocks one by one in f32 (TF32 off): which of them the
+            # f32 forward's time at B=4 sits in, and the same block at B=1.
+            from warpedganspace_torch.ops.proggan_tail import block_plain
+
+            net = G.net
+            x = z[:, :, None, None]
+            for i, ((_, pad, up), blk) in enumerate(zip(net.specs, net.blocks)):
+                if i == net.tail_split()[0]:
+                    break
+                f = lambda t: block_plain(t, blk.weight, blk.bias, blk.scale,  # noqa: E731
+                                          up=up, padding=pad)
+                ms4 = cuda_ms(lambda: f(x), iters=3, warmup=1)
+                ms1 = cuda_ms(lambda: f(x[:1]), iters=3, warmup=1)
+                y = f(x)
+                print(f"[block] ProgGAN head block {i}: {tuple(x.shape[1:])} -> "
+                      f"{tuple(y.shape[1:])}{' up' if up else ''}, f32: B=4 {ms4:.3f} ms, "
+                      f"B=1 {ms1:.3f} ms on {card}")
+                x = y
+
 
 def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
-    parser.add_argument("--profile", choices=("biggan", "stylegan2"),
+    parser.add_argument("--profile", choices=tuple(PATHS),
                         help="instead of the smoke test, say where that main path's time goes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -556,10 +881,10 @@ def main(argv=None) -> int:
     if args.profile:
         card = card_line()
         print(card)
-        profile_path(card, BIGGAN if args.profile == "biggan" else SG2)
+        profile_path(card, PATHS[args.profile])
         return 0
 
-    from warpedganspace_torch.ops import _build, attn_cuda, rbf_cuda
+    from warpedganspace_torch.ops import _build, attn_cuda, proggan_tail_cuda, rbf_cuda
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -569,19 +894,21 @@ def main(argv=None) -> int:
     print(card)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, both started together
-        list(pool.map(lambda mod: mod.build(), (rbf_cuda, attn_cuda)))
-    print(f"[build] {rbf_cuda.SOURCE} and {attn_cuda.SOURCE} side by side: "
+    mods = (rbf_cuda, attn_cuda, proggan_tail_cuda)
+    with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source, all started together
+        list(pool.map(lambda mod: mod.build(), mods))
+    print(f"[build] {', '.join(m.SOURCE for m in mods)} side by side: "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.build_seconds.get(rbf_cuda.SOURCE, 0.0):.2f} s and "
-          f"{_build.build_seconds.get(attn_cuda.SOURCE, 0.0):.2f} s; 0 = already built)")
+          + ", ".join(f"{_build.build_seconds.get(m.SOURCE, 0.0):.2f} s" for m in mods)
+          + "; 0 = already built)")
 
     warp = phase_warp_kernel(card)
     attn = phase_attn_kernel(card)
+    tail = phase_tail_kernel(card)
     phase_generator_stylegan2(card)
     phase_generator_biggan(card)
-    paths = {"stylegan2": phase_cli(card, SG2), "biggan": phase_cli(card, BIGGAN)}
-    check(paths["stylegan2"]["sa_attention"] == 0, "StyleGAN2 has no attention to launch")
+    phase_generator_proggan(card)
+    paths = {name: phase_cli(card, cfg) for name, cfg in PATHS.items()}
 
     def row(kname, source, replaces, k):
         by_path = {p: launches[kname] for p, launches in paths.items()}
@@ -596,8 +923,14 @@ def main(argv=None) -> int:
                    "warpedganspace_tpu/ops/rbf_pallas.py:108", warp),
                row("sa_attention", "warpedganspace_torch/csrc/sa_attention.cu",
                    "warpedganspace_tpu/ops/attn_pallas.py:30", attn)]
-    for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16"):
+    for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16",
+                "bound_by_bf16", "bound_ms_render_bf16"):
         kernels[1][key] = attn[key]
+    kernels.append(row("proggan_tail", "warpedganspace_torch/csrc/proggan_tail.cu",
+                       "warpedganspace_tpu/ops/proggan_tail_pallas.py:173", tail))
+    for key in ("ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
+                "bound_ms_render_bf16", "sections", "max_abs_errs"):
+        kernels[2][key] = tail[key]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -66,6 +66,49 @@ def small_biggan_bundles(resolution=32, ch=16, attention="32", seed=0):
     return jG, GeneratorBundle("BigGAN", gen, dim_z=120, resolution=resolution)
 
 
+def small_proggan_bundles(seed=0):
+    """One small ProgGAN (a fabricated reference-layout checkpoint on the tiny
+    chain whose last six blocks form the fused tail, 64^2) behind the generator
+    contract of both packages. The JAX side runs its fused tail kernel in
+    interpret mode, as its render path does on its accelerator."""
+    from tests.test_torch_proggan import TINY_CH, small_proggans
+    from warpedganspace_tpu.models.proggan import ProgGANGenerator as JProgGAN
+
+    jparams, gen = small_proggans(TINY_CH, seed)
+    jgen = JProgGAN(dim_z=TINY_CH[0], tail_layout="pallas")
+    jG = JBundle(name="ProgGAN", dim_z=TINY_CH[0], resolution=64, out_channels=3,
+                 params=jparams, apply_fn=jgen.apply)
+    return jG, GeneratorBundle("ProgGAN", gen, dim_z=TINY_CH[0], resolution=64)
+
+
+def test_proggan_traversal_and_render_match_jax():
+    """ProgGAN's shape of the engine: warp in Z, frames through the generator
+    whose tail is the fused sections."""
+    jG, G = small_proggan_bundles()
+    k, n_dip, d = 3, 8, 128
+    JS = JSupportSets(k, n_dip, d, learn_gammas=True)
+    jparams = JS.init(jax.random.key(5))
+    S = SupportSets(k, n_dip, d, learn_gammas=True).from_torch_state_dict(
+        support_sets_from_jax(jax.tree_util.tree_map(np.asarray, jparams)))
+    z = np.random.default_rng(6).standard_normal((2, d)).astype(np.float32)
+    jcodes, jshifts = j_traverse_paths(JS, jparams, z, eps=0.15, shift_steps=2)
+    codes, shifts = traverse_paths(S, torch.from_numpy(z), eps=0.15, shift_steps=2)
+    assert codes.shape == jcodes.shape == (2, k, 5, d)
+    # f32 over 2 normalised-gradient steps; the bound of the reference oracle.
+    np.testing.assert_allclose(codes.numpy(), np.asarray(jcodes), rtol=0, atol=5e-5)
+
+    flat_c = np.array(jcodes)[0].reshape(-1, d)
+    flat_s = np.array(jshifts)[0].reshape(-1, d)
+    ref = list(j_iter_rendered_u8(jG, jG.params, flat_c, flat_s, batch_size=6))
+    got = list(iter_rendered_u8(G, torch.from_numpy(flat_c), torch.from_numpy(flat_s),
+                                batch_size=6))
+    assert [s for s, _ in got] == [s for s, _ in ref] == [0, 6, 12]
+    for (_, a), (_, b) in zip(got, ref):
+        assert a.shape == np.asarray(b).shape and a.shape[1:] == (64, 64, 3)
+        # One gray level where a float difference straddles a level boundary.
+        assert np.max(np.abs(a.astype(np.int16) - np.asarray(b).astype(np.int16))) <= 1
+
+
 def test_biggan_traversal_and_render_match_jax():
     """BigGAN's shape of the engine: warp in Z (d=120), frames through the
     class-conditional generator with its attention block."""

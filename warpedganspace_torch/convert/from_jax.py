@@ -91,6 +91,21 @@ def biggan_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _wscale_conv(p, dst, out):
+    out[dst + ".weight"] = _t(p["conv"]["w"], 3, 2, 0, 1)      # HWIO -> OIHW
+    out[dst + ".scale"] = _t(p["wscale_scale"]).reshape(1)
+    out[dst + ".bias"] = _t(p["wscale_bias"])
+
+
+def proggan_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``ProgGANGenerator.init``/converter params -> port generator state dict."""
+    out: dict[str, torch.Tensor] = {}
+    for i, block in enumerate(params["blocks"]):
+        _wscale_conv(block, f"blocks.{i}", out)
+    _wscale_conv(params["out"], "out", out)
+    return out
+
+
 def support_sets_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """``SupportSets.init`` params -> the reference state-dict layout that
     :meth:`SupportSets.from_torch_state_dict` reads."""

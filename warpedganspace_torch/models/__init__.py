@@ -1,2 +1,2 @@
-"""Models: support sets, the StyleGAN2 and BigGAN generators, the uniform
-generator contract and ``gan_load``."""
+"""Models: support sets, the StyleGAN2, BigGAN and ProgGAN generators, the
+uniform generator contract and ``gan_load``."""

@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`warpedganspace_tpu.models.gan_load` (reference
 ``models/gan_load.py``). The port carries StyleGAN2 (256/1024, shifts in Z or
-W) and BigGAN (128, class-conditional); the other GAN types raise
-``NotImplementedError``.
+W), BigGAN (128, class-conditional) and ProgGAN (1024, CelebA-HQ); the SNGAN
+types raise ``NotImplementedError``.
 
 If the pretrained weight file is missing, builders raise FileNotFoundError
 unless ``allow_random_init=True`` (or the environment sets
@@ -23,9 +23,8 @@ from warpedganspace_torch.utils.io import load_pt
 
 # Where each GAN type's port is scheduled (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
-    "SNGAN_MNIST": "Queue 1 item 2 (training, with the SNGAN generators)",
-    "SNGAN_AnimeFaces": "Queue 1 item 2 (training, with the SNGAN generators)",
-    "ProgGAN": "Queue 1 item 1 (ProgGAN serving)",
+    "SNGAN_MNIST": "Queue 1 item 1 (training, with the SNGAN generators)",
+    "SNGAN_AnimeFaces": "Queue 1 item 1 (training, with the SNGAN generators)",
 }
 
 
@@ -81,6 +80,23 @@ def build_biggan(pretrained_gan_weights: str, target_classes,
                            resolution=gen.resolution)
 
 
+def build_proggan(pretrained_gan_weights: str, allow_random_init: bool | None = None,
+                  device=None) -> GeneratorBundle:
+    """ProgGAN 1024^2 CelebA-HQ, frozen, on ``device``. On a CUDA device every
+    render's <=64-channel tail runs through the hand-written kernel (see
+    :mod:`warpedganspace_torch.models.proggan`)."""
+    from warpedganspace_torch.convert.proggan import load_reference_state_dict
+    from warpedganspace_torch.models.proggan import ProgGANGenerator
+
+    sd = _load_state_dict(pretrained_gan_weights, _allow_random(allow_random_init))
+    gen = ProgGANGenerator(generator=torch.Generator().manual_seed(0))
+    if sd is not None:
+        load_reference_state_dict(gen, sd)
+    gen.requires_grad_(False).eval()
+    return GeneratorBundle("ProgGAN", gen.to(device), dim_z=gen.dim_z,
+                           resolution=gen.resolution)
+
+
 def build_gan(gan_type: str, target_classes=None, stylegan2_resolution: int = 1024,
               shift_in_w_space: bool = False, weights_root: str = ".",
               allow_random_init: bool | None = None, device=None) -> GeneratorBundle:
@@ -92,6 +108,9 @@ def build_gan(gan_type: str, target_classes=None, stylegan2_resolution: int = 10
     if gan_type == "BigGAN":
         path = osp.join(weights_root, GAN_WEIGHTS[gan_type]["weights"][GAN_RESOLUTIONS[gan_type]])
         return build_biggan(path, target_classes, allow_random_init, device=device)
+    if gan_type == "ProgGAN":
+        path = osp.join(weights_root, GAN_WEIGHTS[gan_type]["weights"][GAN_RESOLUTIONS[gan_type]])
+        return build_proggan(path, allow_random_init, device=device)
     if gan_type in _NOT_PORTED:
         raise NotImplementedError(
             f"{gan_type} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[gan_type]}")

@@ -1,2 +1,2 @@
-"""Compute ops: the RBF warp and the SA attention (each plain and as a CUDA
-kernel), upfirdn2d, fused bias + leaky ReLU."""
+"""Compute ops: the RBF warp, the SA attention and ProgGAN's fused tail (each
+plain and as a CUDA kernel), upfirdn2d, fused bias + leaky ReLU."""
