@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile proggan   # instead: where that path's time goes
-                                              # (also: biggan, stylegan2)
+                                              # (also: biggan, stylegan2, train_biggan)
 
 Phases, each of which must pass; any failure ends the run with a non-zero
 exit and no result line:
@@ -20,6 +20,13 @@ exit and no result line:
      (a bf16 render batch of 64, one f32 sample) and at a ragged shape, with
      ``F.scaled_dot_product_attention`` timed beside it as a yardstick the
      port never calls;
+   - the SA attention's backward at BigGAN-128's training shape (B=32, N=4096,
+     M=1024, dk=24, dv=96) in f32 and bf16, at B=1 and at the ragged shape,
+     each gradient within a tolerance of its largest entry, with the backward
+     of ``F.scaled_dot_product_attention`` through autograd as the yardstick;
+     at each of those shapes also what the training forward saves for it, the
+     forward kernel's output and its rows' log-sum-exp, against their plain
+     versions;
    - ProgGAN's fused tail section at the three full-width sections of the
      1024^2 generator (128 -> 64 channels at 256^2, 64 -> 32 at 512^2,
      32 -> 16 at 1024^2 with the RGB head; B=4) in f32 and bf16, at the shapes
@@ -30,7 +37,10 @@ exit and no result line:
    (B=4), BigGAN-128 at full width (class 239, B=16) and ProgGAN-1024 at full
    width (B=4), each in f32 and bf16 and in f32 on the card against f32 on
    the CPU; BigGAN also with the attention kernel swapped for its plain
-   version, in f32 and on a bf16 render batch of 64; ProgGAN also with the
+   version, in f32 and on a bf16 render batch of 64, and the gradient of a
+   scalar of G(z + shift) with respect to the shift through the backward
+   kernel against the same through the plain backward (and against a backward
+   with dg zeroed, to show the comparison would see it); ProgGAN also with the
    tail kernel swapped for its plain version and for two deliberately wrong
    tails, to show the comparison would see them;
 5. the port's main paths through its CLIs, ``sample_gan`` then
@@ -42,11 +52,23 @@ exit and no result line:
    before a path and read just after: the warp must show one launch per step
    on all three, the attention one launch per generator forward on BigGAN's,
    the tail three launches per generator forward on ProgGAN's. The stored
-   codes are checked against the plain warp.
+   codes are checked against the plain warp;
+6. the training path, ``train`` then ``traverse_latent_space``: the experiment
+   of ``scripts/train/biggan.sh`` (BigGAN-128 class 239, ResNet reconstructor,
+   K=120, D=256, learn-gammas, shifts in [0.1, 0.2], batch 32, bf16 G and R)
+   at full width for 20 iterations with a checkpoint at 10 and 20, then the
+   same command with ``--max-iter 30``, which resumes at the stored iteration
+   20: 31 iterations in all, each of which must launch the attention's forward
+   kernel twice and its backward kernel once. The random init leaves the
+   attention's gamma at 0, where the backward kernel's cotangent is exactly 0
+   and any backward would train the same, so this phase wraps the CLIs'
+   ``build_gan`` to open gamma to 1. Losses must be finite, the support sets
+   and loggamma moved, the alphas not; then the port's traversal walks the
+   tree that run wrote.
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
-launches, error, times and bound, then, last, ``{"ok": true, "device": {...}}``.
+launches, error, times and bound (four kernels), then, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -77,6 +99,11 @@ ATTN_SHAPE = (16, 4096, 1024, 24, 96)        # B, N, M, dk, dv of BigGAN-128's a
 ATTN_RENDER = (BIGGAN["batch"],) + ATTN_SHAPE[1:]
 ATTN_SAMPLE = (1,) + ATTN_SHAPE[1:]
 ATTN_RAGGED = (2, 1000, 250, 20, 80)
+# The training path: the experiment of scripts/train/biggan.sh, cut in iterations.
+TRAIN = dict(gan="BigGAN", k=120, dipoles=256, d=120, batch=32, iters=20, resume_to=30,
+             log_freq=5, ckp_freq=10, steps=3, eps=0.15, render_batch=64, res=128,
+             pool="smoke_train")
+ATTN_TRAIN = (TRAIN["batch"],) + ATTN_SHAPE[1:]   # what a training step gives both kernels
 # The three sections of ProgGAN-1024's tail: (C output channels, input height = width, head).
 TAIL_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
 TAIL_B = 4                                   # batch of the timed sections and generator
@@ -295,6 +322,121 @@ def phase_attn_kernel(card: str) -> dict:
     return res
 
 
+def rel_err(got, ref) -> float:
+    """Max abs difference relative to the reference's largest entry."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def phase_attn_bwd_kernel(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from warpedganspace_torch.ops import attn_cuda
+    from warpedganspace_torch.ops.attn import sa_attention_bwd_plain, sa_attention_plain
+
+    def problem(shape, dtype):
+        theta, phi, g = attn_inputs(shape, 2, dtype)
+        ct = torch.randn((shape[0], shape[1], shape[4]),
+                         generator=torch.Generator().manual_seed(3)).to(theta)
+        return theta, phi, g, ct
+
+    errs = {}
+    fwd_tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # the forward phase's bounds
+    with torch.no_grad():
+        # Each gradient against the plain backward, relative to its largest
+        # entry. f32: sums over N=4096 or M=1024 terms in another order. bf16:
+        # against the plain version in bf16, which rounds ds and beta to bf16
+        # where the kernel keeps f32; a bf16 result.
+        for shape, dtype, tol in ((ATTN_TRAIN, torch.float32, 1e-4),
+                                  (ATTN_TRAIN, torch.bfloat16, 3e-2),
+                                  (ATTN_SAMPLE, torch.float32, 1e-4),
+                                  (ATTN_RAGGED, torch.float32, 1e-4),
+                                  (ATTN_RAGGED, torch.bfloat16, 3e-2)):
+            theta, phi, g, ct = problem(shape, dtype)
+            name = f"{shape} {str(dtype).split('.')[-1]}"
+            # What the training forward keeps for the backward: the forward
+            # kernel's output, held as in the forward's own phase, and every
+            # row's log-sum-exp against float32 logits of the same operands
+            # (values near 20: some float32 ulps of 2e-6).
+            saved = out, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+            e = float((out.float() - sa_attention_plain(theta, phi, g).float()).abs().max())
+            check(out.dtype == dtype and e <= fwd_tol[dtype],
+                  f"attention kernel with the row statistics vs plain at {name}: max abs "
+                  f"{e:.3g} > {fwd_tol[dtype]}")
+            errs[f"{name} out"] = e
+            e = float((lse - torch.logsumexp(
+                torch.bmm(theta.float(), phi.float().transpose(1, 2)), -1)).abs().max())
+            check(lse.dtype == torch.float32 and tuple(lse.shape) == shape[:2] and e <= 2e-5,
+                  f"the forward kernel's log-sum-exp at {name}: max abs {e:.3g} > 2e-5")
+            errs[f"{name} lse"] = e
+            before = attn_cuda.bwd_launches
+            got = attn_cuda.sa_attention_bwd(theta, phi, g, ct, saved=saved)
+            torch.cuda.synchronize()
+            check(attn_cuda.bwd_launches == before + 1,
+                  "the attention backward kernel's launch count did not move")
+            ref = sa_attention_bwd_plain(theta, phi, g, ct)
+            for gname, a, b, like in zip(("dtheta", "dphi", "dg"), got, ref, (theta, phi, g)):
+                check(a.dtype == dtype and a.shape == like.shape, f"{gname} at {name}")
+                check(bool(torch.isfinite(a).all()), f"non-finite {gname} at {name}")
+                e = rel_err(a, b)
+                check(e <= tol, f"attention backward kernel vs plain, {gname} at {name}: "
+                                f"{e:.3g} of the largest entry > {tol}")
+                errs[f"{name} {gname}"] = e
+            del got, ref, saved, out, lse
+
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        theta, phi, g, ct = problem(ATTN_TRAIN, dtype)
+        with torch.no_grad():
+            saved = attn_cuda.sa_attention_saved(theta, phi, g)
+            kern = lambda: attn_cuda.sa_attention_bwd(theta, phi, g, ct, saved=saved)  # noqa: E731
+            plain = lambda: sa_attention_bwd_plain(theta, phi, g, ct)  # noqa: E731
+            p1, k1, k2, p2 = (cuda_ms(f, iters=10, warmup=2) for f in (plain, kern, kern, plain))
+            ref = plain()
+        # The yardstick: the backward of one library call for the same function
+        # (one head, no scale) through autograd. Timed here, never called by the port.
+        q, k, v = (t[:, None].detach().requires_grad_() for t in (theta, phi, g))
+        out = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+        lib = lambda: torch.autograd.grad(out, (q, k, v), ct[:, None], retain_graph=True)  # noqa: E731
+        lib_err = max(rel_err(a[:, 0], b) for a, b in zip(lib(), ref))
+        times[dtype] = ((k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(lib, iters=10, warmup=2), lib_err,
+                        (k1, k2, p1, p2))
+        del out, q, k, v, ref, saved
+
+    b, n, m, dk, dv = ATTN_TRAIN
+
+    # theta, phi, g, ct, the saved output and the row statistics read once, the
+    # three gradients written once; five products of B * N * M multiply-adds
+    # over dk (three) or dv (two) (the B * N * M exponentials are not counted).
+    def bwd_bound(elem):
+        return bound(elem * b * (2 * n * dk + 2 * m * dk + 2 * m * dv + 2 * n * dv) + 4 * b * n,
+                     2 * b * n * m * (3 * dk + 2 * dv), bf16=elem == 2)
+
+    bound_ms, bound_by = bwd_bound(4)
+    bound_ms16, bound_by16 = bwd_bound(2)
+    ms, plain_ms, lib_ms, lib_err, runs = times[torch.float32]
+    ms16, plain_ms16, lib_ms16, lib_err16, _ = times[torch.bfloat16]
+    f32_name = f"{ATTN_TRAIN} float32"
+    res = {"max_abs_err": max(errs[f"{f32_name} {gname}"] for gname in ("dtheta", "dphi", "dg")),
+           "max_abs_errs": errs, "err_is": "relative to each gradient's largest entry; max abs for the forward's out, lse",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16,
+           "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+    print(f"[kernel] sa_attention_bwd {res['shape']} on {card}: f32 kernel {ms:.4f} ms "
+          f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
+          f"{runs[3]:.4f}) library SDPA backward {lib_ms:.4f} ms (its error vs plain "
+          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
+          f"plain {plain_ms16:.4f} ms library SDPA backward {lib_ms16:.4f} ms (err "
+          f"{lib_err16:.3g}), bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 "
+          "tensor-core peak; error relative to each gradient's largest entry (max abs for "
+          "the forward's out and lse) "
+          + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
+    return res
+
+
 def tail_problem(seed: int, b: int, c: int, h: int, w: int, head: bool, dtype):
     """One tail section's operands on the card: unit-scale input, weights that
     keep every conv output at unit scale, WScale scales != 1 and random biases
@@ -436,6 +578,23 @@ def phase_tail_kernel(card: str) -> dict:
     return res
 
 
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's count to 0 (just before a main path is driven)."""
+    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda
+
+    rbf_cuda.launches = attn_cuda.launches = attn_cuda.bwd_launches = 0
+    proggan_tail_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's count (just after a main path was driven)."""
+    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda
+
+    return {"rbf_warp": rbf_cuda.launches, "sa_attention": attn_cuda.launches,
+            "sa_attention_bwd": attn_cuda.bwd_launches,
+            "proggan_tail": proggan_tail_cuda.launches}
+
+
 def check_images(x, shape, name: str) -> None:
     import torch
 
@@ -476,6 +635,18 @@ def phase_generator_stylegan2(card: str) -> None:
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
+def open_attention(G, value: float = 1.0):
+    """Set every attention block's gamma (0 in the random init, where the block
+    adds nothing and its backward gets a zero cotangent)."""
+    import torch
+
+    with torch.no_grad():
+        for block in G.net.blocks:
+            if block.attention is not None:
+                block.attention.gamma.fill_(value)
+    return G
+
+
 def phase_generator_biggan(card: str) -> None:
     import torch
 
@@ -486,13 +657,10 @@ def phase_generator_biggan(card: str) -> None:
     from warpedganspace_torch.ops.attn import sa_attention_plain
 
     b = ATTN_SHAPE[0]
-    G = build_gan("BigGAN", target_classes=[239], allow_random_init=True, device="cuda")
-    with torch.no_grad():
-        # The random init leaves the attention's gamma at 0, which would hide
-        # the block from every image check below: open it.
-        for block in G.net.blocks:
-            if block.attention is not None:
-                block.attention.gamma.fill_(1.0)
+    # The random init leaves the attention's gamma at 0, which would hide the
+    # block from every image check below: open it.
+    G = open_attention(build_gan("BigGAN", target_classes=[239], allow_random_init=True,
+                                 device="cuda"))
     G16 = cast_params_bf16(G)
     gen = torch.Generator().manual_seed(3)
     z = torch.randn((b, G.dim_z), generator=gen).cuda()
@@ -533,14 +701,8 @@ def phase_generator_biggan(card: str) -> None:
         Gc = copy.deepcopy(G).to("cpu")
         pc = psnr(img[:2].cpu(), Gc(z[:2].cpu(), shift[:2].cpu()))
         check(pc > 40.0, f"BigGAN card f32 vs CPU f32 PSNR {pc:.2f} dB <= 40")
-        for block in G.net.blocks:
-            if block.attention is not None:
-                block.attention.gamma.fill_(0.0)
-        p_closed = psnr(G(z, shift), img)
-        for block in G16.net.blocks:
-            if block.attention is not None:
-                block.attention.gamma.fill_(0.0)
-        p_closed16 = psnr(G16(zr, shiftr).float(), img16r)
+        p_closed = psnr(open_attention(G, 0.0)(z, shift), img)
+        p_closed16 = psnr(open_attention(G16, 0.0)(zr, shiftr).float(), img16r)
     # A broken attention output would move the image about as much as closing
     # the block does, so the kernel path must agree far better than that.
     check(pp > 40.0 and pp > p_closed + 20.0,
@@ -557,6 +719,79 @@ def phase_generator_biggan(card: str) -> None:
           f"(attention closed: {p_closed:.2f} dB); bf16 render batch of {BIGGAN['batch']}: "
           f"{pp16:.2f} dB (attention closed: {p_closed16:.2f} dB); "
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
+
+
+def phase_generator_biggan_grad(card: str) -> None:
+    """The gradient that training needs, d(scalar of G(z + shift)) / d(shift),
+    at full width with the attention open: through the backward kernel against
+    the same through the plain backward, and against a deliberately wrong
+    backward (dg zeroed), to show that the comparison would see one."""
+    import torch
+
+    from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.ops import attn_cuda
+    from warpedganspace_torch.ops.attn import sa_attention_bwd_plain
+
+    b = 4
+    G = open_attention(build_gan("BigGAN", target_classes=[239], allow_random_init=True,
+                                 device="cuda"))
+    with torch.no_grad():
+        # The 0.02 init gives logits near 0 and a block that adds little to
+        # its input: ten times the weights, so that the block weighs in.
+        for block in G.net.blocks:
+            if block.attention is not None:
+                for conv in (block.attention.theta, block.attention.phi, block.attention.g,
+                             block.attention.o):
+                    conv.weight.mul_(10.0)
+    gen = torch.Generator().manual_seed(11)
+    z = torch.randn((b, G.dim_z), generator=gen).cuda()
+    shift0 = (0.15 * torch.nn.functional.normalize(torch.randn((b, G.dim_z), generator=gen),
+                                                   dim=-1)).cuda()
+    weight = torch.randn((b, 3, 128, 128), generator=gen).cuda()
+
+    def grad_of_shift():
+        shift = shift0.clone().requires_grad_()
+        (G(z, shift) * weight).sum().backward()
+        return shift.grad
+
+    before = attn_cuda.launches, attn_cuda.bwd_launches
+    g_kernel = grad_of_shift()
+    torch.cuda.synchronize()
+    check((attn_cuda.launches, attn_cuda.bwd_launches) == (before[0] + 1, before[1] + 1),
+          "BigGAN's forward and backward must launch each attention kernel once")
+    check(bool(torch.isfinite(g_kernel).all()) and float(g_kernel.abs().max()) > 0,
+          "the shift's gradient through the kernels is zero or not finite")
+
+    # The same forward (the kernel's, so every ReLU gate is the same) with the
+    # backward kernel swapped for the plain backward, then for a wrong one: a
+    # check of the kernel inside the model, not a path the port takes.
+    real_bwd = attn_cuda._launch_bwd
+
+    def plain_bwd(theta, phi, g, out, lse, ct):
+        return sa_attention_bwd_plain(theta, phi, g, ct)
+
+    def wrong_bwd(*args):
+        dtheta, dphi, dg = real_bwd(*args)
+        return dtheta, dphi, torch.zeros_like(dg)
+
+    try:
+        attn_cuda._launch_bwd = plain_bwd
+        before = attn_cuda.bwd_launches
+        g_plain = grad_of_shift()
+        check(attn_cuda.bwd_launches == before, "the swapped backward still launched the kernel")
+        attn_cuda._launch_bwd = wrong_bwd
+        g_wrong = grad_of_shift()
+    finally:
+        attn_cuda._launch_bwd = real_bwd
+    e, e_wrong = rel_err(g_kernel, g_plain), rel_err(g_wrong, g_plain)
+    # Only the attention's backward differs (f32 sums in another order); a
+    # wrong dg must stand far above that.
+    check(e <= 1e-4 and e_wrong > 100 * max(e, 1e-6),
+          f"shift gradient, kernel backward vs plain backward: {e:.3g} of the largest entry "
+          f"(with dg zeroed: {e_wrong:.3g})")
+    print(f"[generator] BigGAN-128 class 239, B={b}, f32, attention open, on {card}: "
+          f"d(G(z + shift) . w)/d(shift) through the backward kernel vs the plain backward: "
+          f"{e:.3g} of the largest entry; with dg zeroed {e_wrong:.3g}")
 
 
 def tail_with_computed_border(x, sections, out):
@@ -664,22 +899,92 @@ def phase_generator_proggan(card: str) -> None:
           f"{p_bias:.2f} dB), {pp16:.2f} dB bf16; card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
-def phase_cli(card: str, cfg: dict) -> dict:
-    """One main path: ``sample_gan`` makes a one-code pool, then
-    ``traverse_latent_space`` walks a fabricated experiment at bf16. Returns
-    each kernel's launches on that path."""
+def traverse_and_verify(cfg: dict, exp: str, S) -> tuple:
+    """``sample_gan`` makes a one-code pool, then ``traverse_latent_space`` walks
+    the experiment directory ``exp`` (whose support sets are ``S``) at bf16, from
+    the current directory. Every kernel's count is set to 0 just before and read
+    just after; the frames, the stored codes (against the plain warp on ``S``)
+    and the counts are checked. Returns (launches, seconds of ``sample_gan``,
+    seconds of the traversal, the codes' max abs error)."""
     import numpy as np
     import torch
     from PIL import Image
 
     from warpedganspace_torch.cli import sample_gan, traverse_latent_space
     from warpedganspace_torch.models.gan_load import build_gan
-    from warpedganspace_torch.models.support_sets import SupportSets
-    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda
     from warpedganspace_torch.traverse.engine import traverse_paths
 
     gan, k, d, steps, eps = cfg["gan"], cfg["k"], cfg["d"], cfg["steps"], cfg["eps"]
     biggan, w_space = gan == "BigGAN", gan == "StyleGAN2"
+    sample_argv = ["--biggan-target-classes", "239"] if biggan else []
+    pool_dir = "BigGAN-239" if biggan else gan
+
+    reset_launch_counts()                     # count only this path's launches
+    t0 = time.perf_counter()
+    sample_gan.main(["-g", gan, "--num-samples", "1", "--pool", cfg["pool"]] + sample_argv)
+    t1 = time.perf_counter()
+    traverse_latent_space.main([
+        "--exp", exp, "--pool", cfg["pool"], "--shift-steps", str(steps),
+        "--eps", str(eps), "--batch-size", str(cfg["batch"]), "--dtype", "bfloat16"]
+        + (["--gif"] if cfg["gif"] else []))
+    t2 = time.perf_counter()
+    launches = launch_counts()
+
+    n_frames = 2 * steps + 1
+    out_dir = osp.join(exp, "results", cfg["pool"],
+                       f"{2 * steps}_{eps}_{round(2 * steps * eps, 3)}")
+    hashes = sorted(h for h in os.listdir(out_dir) if h != "paths_gifs")
+    check(len(hashes) == 1, f"expected one latent code dir, got {hashes}")
+    code_dir = osp.join(out_dir, hashes[0])
+    jpgs = [osp.join(code_dir, "paths_images", f"path_{p:03d}", f"{t:06d}.jpg")
+            for p in range(k) for t in range(n_frames)]
+    check(all(osp.isfile(p) for p in jpgs), "missing traversal frames")
+    check(osp.isfile(osp.join(code_dir, "original_image.jpg")), "no original_image.jpg")
+    if cfg["gif"]:
+        gifs = [osp.join(out_dir, "paths_gifs", f"path_{p:03d}.gif") for p in range(k)]
+        check(all(osp.isfile(p) for p in gifs), "missing GIFs")
+    codes = torch.load(osp.join(code_dir, "paths_latent_codes.pt")).numpy()
+    check(codes.shape == (k, n_frames, d), f"codes shape {codes.shape}")
+    check(bool(np.isfinite(codes).all()), "non-finite latent codes")
+    first = np.asarray(Image.open(jpgs[0]), dtype=np.float32)
+    last = np.asarray(Image.open(jpgs[n_frames - 1]), dtype=np.float32)
+    other = np.asarray(Image.open(jpgs[-1]), dtype=np.float32)
+    check(first.shape == (cfg["res"], cfg["res"], 3), f"frame shape {first.shape}")
+    check(first.std() > 0 and float(np.abs(first - last).mean()) > 0
+          and float(np.abs(first - other).mean()) > 0, "constant or unchanging frames")
+    # Generator forwards: the render batches and sample_gan's one code.
+    forwards = math.ceil(k * n_frames / cfg["batch"]) + 1
+    # One warp launch per step; one attention launch per BigGAN forward; one
+    # tail launch per section, three sections per ProgGAN forward.
+    want = {"rbf_warp": steps, "sa_attention": forwards if biggan else 0, "sa_attention_bwd": 0,
+            "proggan_tail": 3 * forwards if gan == "ProgGAN" else 0}
+    check(launches == want, f"{gan}'s traversal of {forwards} generator forwards launched "
+                            f"{launches}, not {want}")
+
+    # The stored codes against the plain warp on the same code and sets.
+    z = torch.load(osp.join("experiments", "latent_codes", pool_dir, cfg["pool"],
+                            hashes[0], "latent_code.pt")).cuda()
+    if w_space:
+        G = build_gan(gan, stylegan2_resolution=cfg["res"], shift_in_w_space=True, device="cuda")
+        with torch.no_grad():
+            z = G.get_w(z)
+    with torch.no_grad():
+        ref, _ = traverse_paths(S.cuda(), z, eps, steps, backend="torch")
+    err = float(np.abs(codes - ref[0].cpu().numpy()).max())
+    # f32 steps of unit directions, the kernel's sums in another order.
+    check(err <= 1e-3, f"traversal codes vs plain warp max abs {err:.3g}")
+    return launches, t1 - t0, t2 - t1, err
+
+
+def phase_cli(card: str, cfg: dict) -> dict:
+    """One main path: ``sample_gan`` makes a one-code pool, then
+    ``traverse_latent_space`` walks a fabricated experiment at bf16. Returns
+    each kernel's launches on that path."""
+    import torch
+
+    from warpedganspace_torch.models.support_sets import SupportSets
+
+    gan, k, steps = cfg["gan"], cfg["k"], cfg["steps"]
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="wgs_smoke_") as tmp:
@@ -687,99 +992,165 @@ def phase_cli(card: str, cfg: dict) -> dict:
         try:
             exp = osp.join("experiments", "complete", "smoke_exp")
             os.makedirs(osp.join(exp, "models"))
-            S = SupportSets(k, cfg["dipoles"], d, learn_gammas=True,
+            S = SupportSets(k, cfg["dipoles"], cfg["d"], learn_gammas=True,
                             generator=torch.Generator().manual_seed(0))
             torch.save(S.to_torch_state_dict(), osp.join(exp, "models", "support_sets.pt"))
             args_json = {"gan_type": gan, "num_support_sets": k,
                          "num_support_dipoles": cfg["dipoles"], "learn_alphas": False,
                          "learn_gammas": True, "gamma": None}
-            if biggan:
+            if gan == "BigGAN":
                 args_json["biggan_target_classes"] = [239]
-                sample_argv = ["--biggan-target-classes", "239"]
-                pool_dir = "BigGAN-239"
-            else:
-                if w_space:
-                    args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
-                sample_argv = []
-                pool_dir = gan
+            elif gan == "StyleGAN2":
+                args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
             with open(osp.join(exp, "args.json"), "w") as f:
                 json.dump(args_json, f)
-
-            # Count only this path's launches.
-            rbf_cuda.launches = attn_cuda.launches = proggan_tail_cuda.launches = 0
-            t0 = time.perf_counter()
-            sample_gan.main(["-g", gan, "--num-samples", "1", "--pool", cfg["pool"]]
-                            + sample_argv)
-            t1 = time.perf_counter()
-            traverse_latent_space.main([
-                "--exp", exp, "--pool", cfg["pool"], "--shift-steps", str(steps),
-                "--eps", str(eps), "--batch-size", str(cfg["batch"]), "--dtype", "bfloat16"]
-                + (["--gif"] if cfg["gif"] else []))
-            t2 = time.perf_counter()
-            launches = {"rbf_warp": rbf_cuda.launches, "sa_attention": attn_cuda.launches,
-                        "proggan_tail": proggan_tail_cuda.launches}
-
-            n_frames = 2 * steps + 1
-            out_dir = osp.join(exp, "results", cfg["pool"],
-                               f"{2 * steps}_{eps}_{round(2 * steps * eps, 3)}")
-            hashes = sorted(h for h in os.listdir(out_dir) if h != "paths_gifs")
-            check(len(hashes) == 1, f"expected one latent code dir, got {hashes}")
-            code_dir = osp.join(out_dir, hashes[0])
-            jpgs = [osp.join(code_dir, "paths_images", f"path_{p:03d}", f"{t:06d}.jpg")
-                    for p in range(k) for t in range(n_frames)]
-            check(all(osp.isfile(p) for p in jpgs), "missing traversal frames")
-            check(osp.isfile(osp.join(code_dir, "original_image.jpg")), "no original_image.jpg")
-            if cfg["gif"]:
-                gifs = [osp.join(out_dir, "paths_gifs", f"path_{p:03d}.gif") for p in range(k)]
-                check(all(osp.isfile(p) for p in gifs), "missing GIFs")
-            codes = torch.load(osp.join(code_dir, "paths_latent_codes.pt")).numpy()
-            check(codes.shape == (k, n_frames, d), f"codes shape {codes.shape}")
-            check(bool(np.isfinite(codes).all()), "non-finite latent codes")
-            first = np.asarray(Image.open(jpgs[0]), dtype=np.float32)
-            last = np.asarray(Image.open(jpgs[n_frames - 1]), dtype=np.float32)
-            other = np.asarray(Image.open(jpgs[-1]), dtype=np.float32)
-            check(first.shape == (cfg["res"], cfg["res"], 3), f"frame shape {first.shape}")
-            check(first.std() > 0 and float(np.abs(first - last).mean()) > 0
-                  and float(np.abs(first - other).mean()) > 0, "constant or unchanging frames")
-            check(launches["rbf_warp"] >= steps,
-                  f"warp kernel launched {launches['rbf_warp']} times, < {steps} steps")
-            # Generator forwards: the render batches and sample_gan's one code.
-            forwards = math.ceil(k * n_frames / cfg["batch"]) + 1
-            if biggan:  # one launch per generator forward
-                check(launches["sa_attention"] >= forwards - 1,
-                      f"attention kernel launched {launches['sa_attention']} times, "
-                      f"< {forwards - 1} render batches")
-            else:
-                check(launches["sa_attention"] == 0, f"{gan} has no attention to launch")
-            if gan == "ProgGAN":  # one launch per tail section, three sections per forward
-                check(launches["proggan_tail"] == 3 * forwards,
-                      f"tail kernel launched {launches['proggan_tail']} times, not 3 x "
-                      f"{forwards} generator forwards")
-            else:
-                check(launches["proggan_tail"] == 0, f"{gan} has no fused tail to launch")
-
-            # The stored codes against the plain warp on the same code and sets.
-            z = torch.load(osp.join("experiments", "latent_codes", pool_dir, cfg["pool"],
-                                    hashes[0], "latent_code.pt")).cuda()
-            if w_space:
-                G = build_gan(gan, stylegan2_resolution=cfg["res"], shift_in_w_space=True,
-                              device="cuda")
-                with torch.no_grad():
-                    z = G.get_w(z)
-            with torch.no_grad():
-                ref, _ = traverse_paths(S.cuda(), z, eps, steps, backend="torch")
-            err = float(np.abs(codes - ref[0].cpu().numpy()).max())
-            # f32 steps of unit directions, the kernel's sums in another order.
-            check(err <= 1e-3, f"traversal codes vs plain warp max abs {err:.3g}")
+            launches, t_sample, t_traverse, err = traverse_and_verify(cfg, exp, S)
         finally:
             os.chdir(cwd)
-    n = k * n_frames
-    print(f"[cli] {gan}: sample_gan {t1 - t0:.2f} s; traverse_latent_space K={k} "
+    n = k * (2 * steps + 1)
+    print(f"[cli] {gan}: sample_gan {t_sample:.2f} s; traverse_latent_space K={k} "
           f"steps={steps} bf16 batch {cfg['batch']}: {n} frames"
-          f"{' + ' + str(k) + ' GIFs' if cfg['gif'] else ''} in {t2 - t1:.2f} s "
-          f"({n / (t2 - t1):.2f} frames/s, JPEG{' and GIF' if cfg['gif'] else ''} writing "
+          f"{' + ' + str(k) + ' GIFs' if cfg['gif'] else ''} in {t_traverse:.2f} s "
+          f"({n / t_traverse:.2f} frames/s, JPEG{' and GIF' if cfg['gif'] else ''} writing "
           f"included) on {card}; launches {launches}; codes vs plain warp max abs {err:.3g}")
     return launches
+
+
+def train_argv(cfg: dict, max_iter: int) -> list:
+    """The experiment of scripts/train/biggan.sh, cut to ``max_iter`` iterations."""
+    return ["--gan-type", cfg["gan"], "--biggan-target-classes", "239",
+            "--reconstructor-type", "ResNet", "-K", str(cfg["k"]), "-D", str(cfg["dipoles"]),
+            "--learn-gammas", "--min-shift-magnitude", "0.1", "--max-shift-magnitude", "0.2",
+            "--batch-size", str(cfg["batch"]), "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
+            "--log-freq", str(cfg["log_freq"]), "--ckp-freq", str(cfg["ckp_freq"]),
+            "--max-iter", str(max_iter)]
+
+
+def phase_train(card: str, cfg: dict) -> dict:
+    """The training path: ``train`` for ``cfg['iters']`` iterations, the same
+    command again with a larger ``--max-iter`` (a resume at the stored
+    iteration), then ``sample_gan`` and ``traverse_latent_space`` on the tree
+    that run wrote. Returns each kernel's launches on that path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from warpedganspace_torch.cli import sample_gan, train, traverse_latent_space
+    from warpedganspace_torch.models import gan_load
+    from warpedganspace_torch.models.support_sets import SupportSets
+
+    k, d, steps = cfg["k"], cfg["d"], cfg["steps"]
+    exp_name = f"BigGAN-239-ResNet-K{k}-D{cfg['dipoles']}-LearnGammas-eps0.1_0.2"
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+
+    def build_open(**kw):
+        # Random weights leave the attention's gamma at 0, where its backward
+        # gets a zero cotangent and any backward kernel would train the same.
+        return open_attention(gan_load.build_gan(**kw))
+
+    cwd = os.getcwd()
+    patched = (train, traverse_latent_space, sample_gan)
+    with tempfile.TemporaryDirectory(prefix="wgs_smoke_train_") as tmp:
+        os.chdir(tmp)
+        for mod in patched:
+            mod.build_gan = build_open
+        try:
+            reset_launch_counts()                     # count only this path's launches
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):     # the progress block redraws itself
+                first = train.main(train_argv(cfg, cfg["iters"]))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                second = train.main(train_argv(cfg, cfg["resume_to"]))
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(f"Start training from iteration {cfg['iters']}" in log.getvalue(),
+                  "the second run did not resume at the stored iteration")
+            check("Adam moments reset" not in log.getvalue(),
+                  "the resumed run could not read its own optimizer sidecar")
+            # The resumed run repeats the stored iteration, as the reference does.
+            n_iters = cfg["iters"] + (cfg["resume_to"] - cfg["iters"] + 1)
+            train_launches = launch_counts()
+            check(train_launches["sa_attention"] == 2 * n_iters
+                  and train_launches["sa_attention_bwd"] == n_iters,
+                  f"{n_iters} training iterations must launch the attention forward "
+                  f"{2 * n_iters} times and its backward {n_iters} times, got {train_launches}")
+            check(train_launches["rbf_warp"] == 0 and train_launches["proggan_tail"] == 0,
+                  f"training launches neither the warp kernel nor the tail: {train_launches}")
+
+            wip = osp.join("experiments", "wip", exp_name)
+            exp = osp.join("experiments", "complete", exp_name)
+            models = ("support_sets_init.pt", "checkpoint.pt", "optimizer_state.npz",
+                      "support_sets.pt", "reconstructor.pt")
+            check(all(osp.isfile(osp.join(wip, "models", f)) for f in models)
+                  and all(osp.isfile(osp.join(wip, f))
+                          for f in ("args.json", "command.sh", "stats.json")),
+                  "the training tree misses a file")
+            check(osp.isfile(osp.join(exp, "models", "support_sets.pt"))
+                  and not osp.isfile(osp.join(exp, "models", "checkpoint.pt")),
+                  "the completed tree must hold support_sets.pt and no checkpoint.pt")
+            ckpt = torch.load(osp.join(wip, "models", "checkpoint.pt"))
+            check(ckpt["iter"] == cfg["resume_to"], f"checkpoint of iteration {ckpt['iter']}")
+            with open(osp.join(wip, "stats.json")) as f:
+                stats = json.load(f)
+            check(set(stats) == {str(i) for i in range(cfg["log_freq"], cfg["resume_to"] + 1,
+                                                       cfg["log_freq"])},
+                  f"stats.json holds windows {sorted(stats)}")
+            check(all(math.isfinite(v) for row in stats.values() for v in row.values()),
+                  "non-finite training statistics")
+            init = torch.load(osp.join(wip, "models", "support_sets_init.pt"))
+            final = torch.load(osp.join(wip, "models", "support_sets.pt"))
+            moved = {key: float((final[key] - init[key]).abs().max()) for key in init}
+            check(moved["SUPPORT_SETS"] > 0 and moved["LOGGAMMA"] > 0 and moved["ALPHAS"] == 0
+                  and all(bool(torch.isfinite(t).all()) for t in final.values()),
+                  f"after training the sets and loggamma must have moved, alphas not: {moved}")
+            check(tuple(final["SUPPORT_SETS"].shape) == (k, 2 * cfg["dipoles"] * d),
+                  "support sets' shape")
+            R_sd = torch.load(osp.join(wip, "models", "reconstructor.pt"))
+            check(all(bool(torch.isfinite(t.float()).all()) for t in R_sd.values())
+                  and float(R_sd["features_extractor.bn1.running_mean"].abs().max()) > 0,
+                  "the reconstructor's weights or refreshed statistics")
+
+            # Step time after warm-up: the first run's log windows but its first
+            # (kernel build, cuDNN's first calls), on the host's clock around
+            # windows that each end in a device-to-host copy; and the same
+            # without the windows in which a checkpoint was written.
+            windows = first.window_times[1:]
+            step_s = sum(w[1] for w in windows) / sum(w[0] for w in windows)
+            clean = [w for w in windows if not w[2]]
+            clean_s = sum(w[1] for w in clean) / sum(w[0] for w in clean)
+
+            # The traversal of the completed tree, held to what every served
+            # path is held to, its codes against the plain warp on that tree's
+            # sets: those of the first run's end, since a later run finds the
+            # completed tree in place and leaves it, as the reference does.
+            done = torch.load(osp.join(exp, "models", "support_sets.pt"))
+            check(float((done["SUPPORT_SETS"] - init["SUPPORT_SETS"]).abs().max()) > 0,
+                  "the completed tree's support sets are the initial ones")
+            S = SupportSets(k, cfg["dipoles"], d, learn_gammas=True).from_torch_state_dict(done)
+            trav_launches, _, t_traverse, err = traverse_and_verify(
+                dict(cfg, batch=cfg["render_batch"], gif=False), exp, S)
+        finally:
+            for mod in patched:
+                mod.build_gan = gan_load.build_gan
+            os.chdir(cwd)
+    last = stats[str(cfg["resume_to"])]
+    print(f"[train] {cfg['gan']}-128 class 239, K={k} D={cfg['dipoles']} learn-gammas, batch "
+          f"{cfg['batch']}, bf16 G and R, attention open, on {card}: {cfg['iters']} iterations in "
+          f"{t1 - t0:.2f} s (generator build and first calls included), resumed at "
+          f"{cfg['iters']} and ran to {cfg['resume_to']} in {t2 - t1:.2f} s; launches "
+          f"{train_launches} over {n_iters} iterations; last window: total loss "
+          f"{last['total_loss']:.4f}, accuracy {last['accuracy']:.3f}; moved {moved}; then "
+          f"traverse_latent_space of the trained tree: {k * (2 * steps + 1)} frames in "
+          f"{t_traverse:.2f} s, launches {trav_launches}, codes vs plain warp max abs {err:.3g}")
+    print(f"[train] mean step time after warm-up {1e3 * clean_s:.2f} ms over "
+          f"{sum(w[0] for w in clean)} iterations = {1 / clean_s:.2f} steps/s = "
+          f"{cfg['batch'] / clean_s:.1f} images/s on {card} (log windows without a checkpoint; "
+          f"{1e3 * step_s:.2f} ms over all {sum(w[0] for w in windows)} iterations after the "
+          f"first window, one checkpoint of S, R and both Adams included)")
+    return {name: train_launches[name] + trav_launches[name] for name in train_launches}
 
 
 def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
@@ -866,11 +1237,118 @@ def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
                 x = y
 
 
+def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
+    """Where a training step's time goes (``--profile train_biggan``): the step
+    of the experiment of scripts/train/biggan.sh at full width, attention open,
+    timed on the host's clock around synchronised windows, then traced by
+    ``torch.profiler`` on host and device for the device's kernels, and on the
+    device alone (which slows the host far less) for its busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.models.reconstructor import Reconstructor
+    from warpedganspace_torch.models.support_sets import SupportSets
+    from warpedganspace_torch.ops import attn_cuda
+    from warpedganspace_torch.train.train_step import (TrainStepConfig, init_train_state,
+                                                       train_step)
+
+    cpu_type = torch.autograd.DeviceType.CPU
+
+    def device_busy(events, lo, hi):
+        """Of the device events that touch [lo, hi] on the tracer's clock (us):
+        their summed time, the length of their intervals' union, their number."""
+        spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.time_range.end > lo and e.time_range.start < hi)
+        total, busy, edge = 0.0, 0.0, lo
+        for start, end in spans:
+            total += end - start
+            busy += max(0.0, end - max(start, edge))
+            edge = max(edge, end)
+        return total, busy, len(spans)
+
+    for g_dtype, r_dtype in (("bfloat16", "bfloat16"), ("float32", "float32")):
+        G = open_attention(build_gan(cfg["gan"], target_classes=[239], allow_random_init=True,
+                                     device="cuda"))
+        gen = torch.Generator().manual_seed(0)
+        S = SupportSets(cfg["k"], cfg["dipoles"], cfg["d"], learn_gammas=True, generator=gen)
+        R = Reconstructor("ResNet", dim=cfg["k"], generator=gen)
+        state = init_train_state(G, S, R, TrainStepConfig(
+            batch_size=cfg["batch"], num_support_sets=cfg["k"], min_shift_magnitude=0.1,
+            max_shift_magnitude=0.2, generator_dtype=g_dtype, reconstructor_dtype=r_dtype))
+        for it in range(1, 6):
+            train_step(state, it)
+        torch.cuda.synchronize()
+        n = 20
+        t0 = time.perf_counter()
+        for it in range(6, 6 + n):
+            train_step(state, it)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n
+        torch.cuda.reset_peak_memory_stats()
+        # Three steps inside the trace before the ten that are read: the
+        # tracer's own start-up falls on them, outside the marked window.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            for it in range(27, 30):
+                train_step(state, it)
+            torch.cuda.synchronize()
+            attn_cuda.launches = attn_cuda.bwd_launches = 0
+            t0 = time.perf_counter()
+            with record_function("traced_window"):
+                for it in range(30, 40):
+                    train_step(state, it)
+                torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        # The tracer repeats every host-side mark that holds kernels (this one,
+        # the optimizers' steps) as a device-side range under the mark's name:
+        # those are no kernels and are left out.
+        host_names = {e.name for e in tp.events() if e.device_type == cpu_type}
+        window = next(e for e in tp.events() if e.name == "traced_window"
+                      and e.device_type == cpu_type).time_range
+        kernels_us, busy_us, n_spans = device_busy(
+            [e for e in tp.events() if e.name not in host_names], window.start, window.end)
+        window_us = window.end - window.start
+        events = tp.key_averages()
+        # Ten more steps with only the device traced: the host records nothing
+        # per operator, so the loop is slowed less (it still is: compare the
+        # printed times). Its window is from the first kernel's start to the
+        # last one's end.
+        with profile(activities=[ProfilerActivity.CUDA]) as tq:
+            t0 = time.perf_counter()
+            for it in range(40, 50):
+                train_step(state, it)
+            torch.cuda.synchronize()
+            light_s = time.perf_counter() - t0
+        light = [e for e in tq.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(len(light) > 0, "the device-only trace holds no device event")
+        lo = min(e.time_range.start for e in light)
+        hi = max(e.time_range.end for e in light)
+        l_kernels_us, l_busy_us, l_spans = device_busy(light, lo, hi)
+        print(f"[train step] G {g_dtype}, R {r_dtype}, batch {cfg['batch']} on {card}: "
+              f"{1e3 * step_s:.2f} ms per step untraced ({1 / step_s:.2f} steps/s, "
+              f"{cfg['batch'] / step_s:.1f} images/s); 10 steps traced on host and device, after "
+              f"3 traced warm-up steps, in {traced_s:.3f} s ({window_us / 1e6:.3f} s on the "
+              f"tracer's clock) with {kernels_us / 1e6:.3f} s of device kernels and copies in "
+              f"{n_spans} launches: the device was busy {100 * busy_us / window_us:.1f} % of that "
+              f"window; 10 steps with only the device traced in {light_s:.3f} s "
+              f"({(hi - lo) / 1e6:.3f} s from the first kernel's start to the last one's end) with "
+              f"{l_kernels_us / 1e6:.3f} s of kernels and copies in {l_spans} launches: the device "
+              f"was busy {100 * l_busy_us / (hi - lo):.1f} % of that window; attention launches "
+              f"{attn_cuda.launches} forward, {attn_cuda.bwd_launches} backward in 20 steps; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; the table "
+              "below is of the 13 steps traced on host and device (its traced_window row is the "
+              "mark, no kernel)")
+        print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
+                           max_name_column_width=80))
+        del state, G, S, R
+
+
 def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
-    parser.add_argument("--profile", choices=tuple(PATHS),
+    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan",),
                         help="instead of the smoke test, say where that main path's time goes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -881,7 +1359,10 @@ def main(argv=None) -> int:
     if args.profile:
         card = card_line()
         print(card)
-        profile_path(card, PATHS[args.profile])
+        if args.profile == "train_biggan":
+            profile_train(card, TRAIN)
+        else:
+            profile_path(card, PATHS[args.profile])
         return 0
 
     from warpedganspace_torch.ops import _build, attn_cuda, proggan_tail_cuda, rbf_cuda
@@ -894,24 +1375,29 @@ def main(argv=None) -> int:
     print(card)
 
     t0 = time.perf_counter()
-    mods = (rbf_cuda, attn_cuda, proggan_tail_cuda)
-    with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source, all started together
-        list(pool.map(lambda mod: mod.build(), mods))
-    print(f"[build] {', '.join(m.SOURCE for m in mods)} side by side: "
+    builds = {rbf_cuda.SOURCE: rbf_cuda.build, attn_cuda.SOURCE: attn_cuda.build,
+              attn_cuda.BWD_SOURCE: attn_cuda.build_bwd,
+              proggan_tail_cuda.SOURCE: proggan_tail_cuda.build}
+    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, all started together
+        list(pool.map(lambda build: build(), builds.values()))
+    print(f"[build] {', '.join(builds)} side by side: "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
-          + ", ".join(f"{_build.build_seconds.get(m.SOURCE, 0.0):.2f} s" for m in mods)
+          + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s" for src in builds)
           + "; 0 = already built)")
 
     warp = phase_warp_kernel(card)
     attn = phase_attn_kernel(card)
+    attn_bwd = phase_attn_bwd_kernel(card)
     tail = phase_tail_kernel(card)
     phase_generator_stylegan2(card)
     phase_generator_biggan(card)
+    phase_generator_biggan_grad(card)
     phase_generator_proggan(card)
     paths = {name: phase_cli(card, cfg) for name, cfg in PATHS.items()}
+    paths["train_biggan"] = phase_train(card, TRAIN)
 
     def row(kname, source, replaces, k):
-        by_path = {p: launches[kname] for p, launches in paths.items()}
+        by_path = {p: launches.get(kname, 0) for p, launches in paths.items()}
         return {"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -926,11 +1412,15 @@ def main(argv=None) -> int:
     for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16",
                 "bound_by_bf16", "bound_ms_render_bf16"):
         kernels[1][key] = attn[key]
+    kernels.append(row("sa_attention_bwd", "warpedganspace_torch/csrc/sa_attention_bwd.cu",
+                       "warpedganspace_tpu/ops/attn_pallas.py:106", attn_bwd))
+    for key in ("library_ms_bf16", "bound_ms_bf16", "bound_by_bf16", "max_abs_errs", "err_is"):
+        kernels[2][key] = attn_bwd[key]
     kernels.append(row("proggan_tail", "warpedganspace_torch/csrc/proggan_tail.cu",
                        "warpedganspace_tpu/ops/proggan_tail_pallas.py:173", tail))
     for key in ("ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
                 "bound_ms_render_bf16", "sections", "max_abs_errs"):
-        kernels[2][key] = tail[key]
+        kernels[3][key] = tail[key]
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,7 @@ import torch
 
 from warpedganspace_tpu.ops.attn_pallas import _jnp_attention, _kernel_fits, sa_attention_fusable
 from warpedganspace_torch.ops import attn_cuda
-from warpedganspace_torch.ops.attn import sa_attention_plain
+from warpedganspace_torch.ops.attn import sa_attention_bwd_plain, sa_attention_plain
 
 torch.set_num_threads(1)
 
@@ -72,9 +72,11 @@ def test_no_scale_on_the_logits():
     assert sa_attention_plain(theta, phi, g).item() == pytest.approx(0.75, abs=1e-6)
 
 
-def test_gradients_match_jax():
-    """The autograd.Function's backward is the VJP of the plain version; hold
-    it to ``jax.grad`` of the JAX package's jnp attention."""
+def test_gradients_match_jax(monkeypatch):
+    """On CPU tensors autograd differentiates the plain version; hold it to
+    ``jax.grad`` of the JAX package's jnp attention. Then the
+    autograd.Function's own backward (the CUDA path's), which hands the saved
+    tensors to the backward kernel and masks what needs no gradient."""
     theta, phi, g = _inputs(3, 2, 48, 12, 8, 16)
     ct = np.random.default_rng(4).standard_normal((2, 48, 16)).astype(np.float32)
 
@@ -88,14 +90,22 @@ def test_gradients_match_jax():
     for leaf, r in zip(leaves, ref):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r), rtol=0, atol=1e-4)
 
-    # The Function itself (the CUDA path's backward), with its forward replaced
-    # by the plain version since there is no card here.
+    # The Function itself, with both launches replaced by the plain versions
+    # since there is no card here: the forward keeps (theta, phi, g, out, lse)
+    # and the backward passes them on with a contiguous cotangent.
     class _OnCPU(attn_cuda._SAAttention):
         @staticmethod
         def forward(ctx, t, p, gg):
-            ctx.save_for_backward(t, p, gg)
-            return sa_attention_plain(t, p, gg)
+            out = sa_attention_plain(t, p, gg)
+            lse = torch.logsumexp(torch.bmm(t, p.transpose(1, 2)), dim=-1)
+            ctx.save_for_backward(t, p, gg, out, lse)
+            return out
 
+    def plain_launch_bwd(t, p, gg, out, lse, cot):
+        assert cot.is_contiguous() and tuple(lse.shape) == tuple(out.shape[:2])
+        return sa_attention_bwd_plain(t, p, gg, cot)
+
+    monkeypatch.setattr(attn_cuda, "_launch_bwd", plain_launch_bwd)
     leaves2 = [torch.from_numpy(x).requires_grad_(i != 1) for i, x in enumerate((theta, phi, g))]
     (_OnCPU.apply(*leaves2) * torch.from_numpy(ct)).sum().backward()
     assert leaves2[1].grad is None

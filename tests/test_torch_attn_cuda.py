@@ -1,4 +1,5 @@
-"""The CUDA attention kernel against its plain PyTorch version, on the card.
+"""The CUDA attention kernels (forward and backward) against their plain PyTorch
+versions, on the card.
 
 These cases need an NVIDIA card with ``nvcc``; elsewhere they skip. The file
 imports no JAX, so on a machine without it run it on its own, past the suite's
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from warpedganspace_torch.ops import attn_cuda
-from warpedganspace_torch.ops.attn import sa_attention_plain
+from warpedganspace_torch.ops.attn import sa_attention_bwd_plain, sa_attention_plain
 
 torch.set_num_threads(1)
 
@@ -98,12 +99,131 @@ def test_limits_raise(cuda):
 
 
 def test_backward_is_plain_vjp(cuda):
+    """Autograd through the wrapper launches the backward kernel, and the
+    gradients are those of the plain version."""
     leaves1 = [t.requires_grad_() for t in _problem(4, 2, 70, 30, 6, 10, cuda)]
     leaves2 = [t.detach().clone().requires_grad_() for t in leaves1]
+    before = attn_cuda.launches, attn_cuda.bwd_launches
     torch.cos(attn_cuda.sa_attention(*leaves1)).sum().backward()
+    torch.cuda.synchronize()
+    assert (attn_cuda.launches, attn_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
     torch.cos(sa_attention_plain(*leaves2)).sum().backward()
     for a, b in zip(leaves1, leaves2):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,dk,dv", [
+    (32, 4096, 1024, 24, 96),    # BigGAN-128 training, batch 32
+    (2, 1000, 250, 20, 80),      # ragged everywhere
+    (2, 301, 130, 12, 200),      # ragged N, dv past one column tile: only the first writes lse
+    (1, 1, 1, 1, 1),             # one key: lse is the logit
+])
+def test_saved_out_and_lse(cuda, dtype, b, n, m, dk, dv):
+    """What the backward keeps: the forward kernel's output with the row
+    statistics asked for, and every row's log-sum-exp in float32."""
+    theta, phi, g = _problem(7, b, n, m, dk, dv, cuda, dtype)
+    before = attn_cuda.launches
+    out, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+    torch.cuda.synchronize()
+    assert attn_cuda.launches == before + 1
+    ref = sa_attention_plain(theta, phi, g)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
+    # The same output as without the statistics, to the bit.
+    assert torch.equal(out, attn_cuda.sa_attention(theta, phi, g))
+    want = torch.logsumexp(torch.bmm(theta.float(), phi.float().transpose(1, 2)), -1)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    # Values up to about 20: some float32 ulps of 2e-6.
+    assert float((lse - want).abs().max()) <= 2e-5
+
+
+def test_saved_lse_of_large_logits(cuda):
+    """Logits near +-200: lse is the running maximum plus a log, never an exp of them."""
+    theta, phi, g = _problem(2, 2, 200, 100, 16, 32, cuda)
+    _, lse = attn_cuda.sa_attention_saved(theta * 8, phi * 8, g)
+    want = torch.logsumexp(torch.bmm(theta * 8, (phi * 8).transpose(1, 2)), -1)
+    assert bool(torch.isfinite(lse).all())
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=2e-5)
+
+
+def _check_bwd(theta, phi, g, tol, seed=9):
+    """The backward kernel against the plain backward: each gradient within
+    ``tol`` of its largest entry."""
+    gen = torch.Generator().manual_seed(seed)
+    ct = torch.randn(theta.shape[:2] + g.shape[2:], generator=gen).to(theta)
+    before = attn_cuda.bwd_launches
+    got = attn_cuda.sa_attention_bwd(theta, phi, g, ct)
+    torch.cuda.synchronize()
+    assert attn_cuda.bwd_launches == before + 1
+    ref = sa_attention_bwd_plain(theta, phi, g, ct)
+    for name, a, b, like in zip(("dtheta", "dphi", "dg"), got, ref, (theta, phi, g)):
+        assert a.dtype == like.dtype and a.shape == like.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+        assert err <= tol, (name, err)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,dk,dv", [
+    (32, 4096, 1024, 24, 96),    # BigGAN-128 training, batch 32
+    (1, 4096, 1024, 24, 96),     # one sample
+    (2, 1000, 250, 20, 80),      # ragged everywhere
+])
+def test_backward_smoke_shapes(cuda, dtype, b, n, m, dk, dv):
+    _check_bwd(*_problem(0, b, n, m, dk, dv, cuda, dtype), TOL[dtype])
+
+
+@pytest.mark.parametrize("b,n,m,dk,dv", [
+    (1, 1, 1, 1, 1),             # one key: beta is 1 and dtheta, dphi are 0
+    (3, 5, 7, 3, 2),             # nothing a multiple of anything
+    (2, 129, 65, 5, 33),         # one row and one column past a tile
+    (1, 1024, 256, 48, 192),     # attention at 32x32 of a ch=96 model: two dg tiles of 96
+    (2, 300, 130, 12, 128),      # CPT2 = 4
+    (2, 130, 300, 40, 100),      # CPT1 = 2, CPT2 = 4, more keys than queries
+    (1, 64, 200, 192, 40),       # dk at its limit: three dphi / dtheta column tiles
+    (1, 1024, 256, 2, 8),        # ch=16 test models
+])
+def test_backward_ragged_sweep(cuda, b, n, m, dk, dv):
+    _check_bwd(*_problem(1, b, n, m, dk, dv, cuda), TOL[torch.float32])
+
+
+def test_backward_large_logits(cuda):
+    """Logits near +-200: the saved log-sum-exp keeps exp() in range."""
+    theta, phi, g = _problem(2, 2, 200, 100, 16, 32, cuda)
+    _check_bwd(theta * 8, phi * 8, g, TOL[torch.float32])
+
+
+def test_backward_is_deterministic(cuda):
+    """No atomics: two runs give the same bits."""
+    ops = _problem(5, 4, 1024, 256, 24, 96, cuda)
+    a = _check_bwd(*ops, TOL[torch.float32])
+    b = _check_bwd(*ops, TOL[torch.float32])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_backward_limits_raise(cuda):
+    theta, phi, g = _problem(3, 1, 8, 8, 96, 384, cuda)
+    ct = torch.zeros((1, 8, 384), device=cuda)
+    with pytest.raises(ValueError, match="dv <= "):
+        attn_cuda.sa_attention_bwd(theta, phi, g, ct)
+    theta, phi, g = _problem(3, 1, 8, 8, 4, 4, cuda)
+    with pytest.raises(ValueError, match="ct must be"):
+        attn_cuda.sa_attention_bwd(theta, phi, g, torch.zeros((1, 8, 5), device=cuda))
+    # A non-contiguous cotangent (the generator's transpose) is taken by autograd.
+    leaves = [t.requires_grad_() for t in (theta, phi, g)]
+    out = attn_cuda.sa_attention(*leaves)
+    out.transpose(1, 2).contiguous().transpose(1, 2).sum().backward()
+    assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+
+
+def test_no_grad_forward_saves_nothing(cuda):
+    theta, phi, g = _problem(6, 1, 64, 16, 8, 8, cuda)
+    with torch.no_grad():
+        out = attn_cuda.sa_attention(theta.requires_grad_(), phi, g)
+    assert not out.requires_grad
 
 
 def test_biggan_block_reaches_the_kernel(cuda):

@@ -6,6 +6,10 @@ then walk a fabricated K=2 experiment, each with its ``build_gan`` patched to
 one small W-space StyleGAN2 carrying the same weights. The gate is the one of
 tests/test_reference_oracle.py: the same file set, latent codes within 5e-5,
 and JPEG frames within a mean gray-level difference of 1 and a max of 24.
+
+The training CLIs follow (the last section): both ``cli.train``s with the same
+flags on one small BigGAN write the same experiment tree; the port resumes its
+own and the JAX trainer's checkpoint, and traverses the trees both trained.
 """
 import json
 import os
@@ -364,3 +368,192 @@ def test_build_gan_proggan(tmp_path, monkeypatch):
     with torch.no_grad():
         img = G(torch.from_numpy(z), torch.from_numpy(shift)).numpy()   # the bundle's call
     np.testing.assert_allclose(img, ref, rtol=6e-5, atol=6e-5)
+
+
+# ------------------------------------------------------------------ training
+TK, TD = 3, 4
+TRAIN_BASE = ["--gan-type", "BigGAN", "--biggan-target-classes", "239",
+              "--reconstructor-type", "ResNet", "-K", str(TK), "-D", str(TD), "--learn-gammas",
+              "--min-shift-magnitude", "0.1", "--max-shift-magnitude", "0.2",
+              "--batch-size", "4", "--log-freq", "2"]
+TRAIN_FLAGS = TRAIN_BASE + ["--ckp-freq", "2"]
+TRAIN_EXP = "BigGAN-239-ResNet-K3-D4-LearnGammas-eps0.1_0.2"
+# What the JAX CLI offers and the port's does not (ROADMAP.md says where each goes).
+NOT_OFFERED = {"steps_per_call", "multi_device", "remat", "profile", "pair_layout",
+               "checkpoint_backend"}
+
+
+def _shapes(tree):
+    """Nested dict of arrays -> {path: shape}; scalars map to ()."""
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}/{k}")
+        else:
+            out[path] = tuple(np.shape(x))
+    walk(tree, "")
+    return out
+
+
+@pytest.fixture(scope="module")
+def train_trees(tmp_path_factory):
+    """Both training CLIs with the same flags, each in a root of its own and
+    with its ``build_gan`` patched to one small BigGAN of the same weights."""
+    from tests.test_torch_traverse import small_biggan_bundles
+    from warpedganspace_tpu.cli import train as j_train
+    from warpedganspace_torch.cli import train as t_train
+
+    jG, G = small_biggan_bundles()
+    roots = {name: str(tmp_path_factory.mktemp(f"train_{name}")) for name in ("jax", "torch")}
+    mp = pytest.MonkeyPatch()
+    cwd = os.getcwd()
+    try:
+        mp.setattr(j_train, "build_gan", lambda **kw: jG)
+        mp.setattr(t_train, "build_gan", lambda **kw: G.to(kw["device"]))
+        os.chdir(roots["jax"])
+        j_train.main(TRAIN_FLAGS + ["--max-iter", "4"])
+        os.chdir(roots["torch"])
+        t_train.main(TRAIN_FLAGS + ["--max-iter", "4", "--no-cuda"])
+    finally:
+        os.chdir(cwd)
+        mp.undo()
+    return roots, G
+
+
+def test_train_cli_trees_match(train_trees):
+    roots, _ = train_trees
+    exps = {k: osp.join(r, "experiments") for k, r in roots.items()}
+    assert _file_set(exps["torch"]) == _file_set(exps["jax"])
+    files = _file_set(osp.join(exps["torch"], "wip", TRAIN_EXP))
+    assert files == {"args.json", "command.sh", "stats.json"} | {
+        osp.join("models", f) for f in ("support_sets_init.pt", "checkpoint.pt",
+                                        "optimizer_state.npz", "support_sets.pt",
+                                        "reconstructor.pt")}
+    assert _file_set(osp.join(exps["torch"], "complete", TRAIN_EXP)) == files - {
+        osp.join("models", "checkpoint.pt")}
+
+    for rel in ("checkpoint.pt", "support_sets.pt", "support_sets_init.pt", "reconstructor.pt"):
+        ours, ref = (_shapes(load_pt(osp.join(e, "wip", TRAIN_EXP, "models", rel)))
+                     for e in (exps["torch"], exps["jax"]))
+        assert ours == ref, rel
+    ckpt = load_pt(osp.join(exps["torch"], "wip", TRAIN_EXP, "models", "checkpoint.pt"))
+    assert ckpt["iter"] == 4 and set(ckpt) == {"iter", "support_sets", "reconstructor"}
+    assert ckpt["support_sets"]["SUPPORT_SETS"].shape == (TK, 2 * TD * 120)
+
+    def loaded(e, name):
+        with open(osp.join(e, "wip", TRAIN_EXP, name)) as f:
+            return json.load(f)
+
+    ours, ref = (loaded(e, "args.json") for e in (exps["torch"], exps["jax"]))
+    assert set(ref) - set(ours) == NOT_OFFERED and set(ours) <= set(ref)
+    assert all(ours[k] == ref[k] for k in ours if k != "cuda")
+    ours, ref = (loaded(e, "stats.json") for e in (exps["torch"], exps["jax"]))
+    assert set(ours) == set(ref) == {"2", "4"}
+    assert set(ours["4"]) == set(ref["4"]) == {"accuracy", "classification_loss",
+                                               "regression_loss", "total_loss"}
+    assert all(np.isfinite(v) for row in ours.values() for v in row.values())
+
+
+def test_train_cli_moves_what_trains(train_trees):
+    roots, _ = train_trees
+    models = osp.join(roots["torch"], "experiments", "complete", TRAIN_EXP, "models")
+    init, final = (load_pt(osp.join(models, f)) for f in ("support_sets_init.pt",
+                                                          "support_sets.pt"))
+    assert np.abs(final["SUPPORT_SETS"] - init["SUPPORT_SETS"]).max() > 0
+    assert np.abs(final["LOGGAMMA"] - init["LOGGAMMA"]).max() > 0      # --learn-gammas
+    np.testing.assert_array_equal(final["ALPHAS"], init["ALPHAS"])     # frozen
+
+
+def test_train_cli_resume_and_early_exit(train_trees, tmp_path, monkeypatch, capsys):
+    """A run that finds a checkpoint restarts at its iteration, as the
+    reference does (so that iteration runs again), with the Adam moments, the
+    BatchNorm statistics and the batch stream of the run that wrote it: it
+    ends where the same steps taken by hand in one go end. Run again, the
+    completed experiment exits at once."""
+    from warpedganspace_torch.cli import train as t_train
+    from warpedganspace_torch.models.reconstructor import Reconstructor
+    from warpedganspace_torch.models.support_sets import SupportSets
+    from warpedganspace_torch.train.train_step import (TrainStepConfig, init_train_state,
+                                                       train_step)
+
+    _, G = train_trees
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(t_train, "build_gan", lambda **kw: G.to(kw["device"]))
+    flags = TRAIN_BASE + ["--ckp-freq", "3", "--seed", "7", "--no-cuda"]
+    t_train.main(flags + ["--max-iter", "3"])
+    capsys.readouterr()
+    t_train.main(flags + ["--max-iter", "6"])
+    assert "Start training from iteration 3" in capsys.readouterr().out
+    resumed = load_pt(osp.join("experiments", "wip", TRAIN_EXP, "models", "support_sets.pt"))
+
+    init_gen = torch.Generator().manual_seed(7)
+    S = SupportSets(TK, TD, 120, learn_gammas=True, generator=init_gen)
+    R = Reconstructor("ResNet", dim=TK, generator=init_gen)
+    state = init_train_state(G, S, R, TrainStepConfig(
+        batch_size=4, num_support_sets=TK, min_shift_magnitude=0.1, max_shift_magnitude=0.2),
+        seed=7)
+    for it in (1, 2, 3, 3, 4, 5, 6):
+        train_step(state, it)
+    by_hand = S.to_torch_state_dict()
+    for key in ("SUPPORT_SETS", "LOGGAMMA"):
+        np.testing.assert_allclose(resumed[key], by_hand[key].numpy(), rtol=0, atol=1e-6)
+
+    with pytest.raises(SystemExit):
+        t_train.main(flags + ["--max-iter", "6"])
+    assert "already been completed" in capsys.readouterr().out
+
+
+def test_train_cli_resumes_the_jax_trainers_checkpoint(train_trees, monkeypatch, capsys):
+    """checkpoint.pt is the reference's format, so the port picks up the JAX
+    trainer's; that trainer's optimizer sidecar is not the port's, which warns
+    and resets the Adam moments."""
+    from warpedganspace_torch.cli import train as t_train
+
+    roots, G = train_trees
+    monkeypatch.chdir(roots["jax"])
+    monkeypatch.setattr(t_train, "build_gan", lambda **kw: G.to(kw["device"]))
+    t_train.main(TRAIN_FLAGS + ["--max-iter", "5", "--no-cuda"])
+    out = capsys.readouterr().out
+    assert "Start training from iteration 4" in out
+    assert "could not restore optimizer sidecar" in out and "Adam moments reset" in out
+    ckpt = load_pt(osp.join("experiments", "wip", TRAIN_EXP, "models", "checkpoint.pt"))
+    assert ckpt["iter"] == 4                      # --ckp-freq 2: iteration 5 wrote none
+
+
+def test_port_traverses_trained_trees(train_trees, monkeypatch):
+    """The port's traversal walks the tree the port trained, and one that the
+    JAX trainer wrote."""
+    roots, G = train_trees
+    monkeypatch.setattr(t_sample_gan, "build_gan", lambda **kw: G.to(kw["device"]))
+    monkeypatch.setattr(t_traverse, "build_gan", lambda **kw: G.to(kw["device"]))
+    for name in ("torch", "jax"):
+        monkeypatch.chdir(roots[name])
+        t_sample_gan.main(["-g", "BigGAN", "--biggan-target-classes", "239", "--num-samples", "1",
+                           "--pool", "trained", "--no-cuda"])
+        exp = osp.join("experiments", "complete", TRAIN_EXP)
+        t_traverse.main(["--exp", exp, "--pool", "trained", "--shift-steps", "2", "--eps", "0.15",
+                         "--no-cuda"])
+        out = osp.join(exp, "results", "trained", "4_0.15_0.6")
+        (code,) = os.listdir(out)
+        codes = np.asarray(load_pt(osp.join(out, code, "paths_latent_codes.pt")))
+        assert codes.shape == (TK, 5, 120) and np.isfinite(codes).all()
+        frames = [f for f in _file_set(osp.join(out, code)) if f.endswith(".jpg")]
+        assert len(frames) == TK * 5 + 1
+
+
+def test_train_cli_rules(tmp_path, monkeypatch):
+    from warpedganspace_torch.cli import train as t_train
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit):                       # -K and -D are required
+        t_train.main(["--gan-type", "BigGAN", "--biggan-target-classes", "239", "--no-cuda"])
+    with pytest.raises(SystemExit):                       # BigGAN needs its classes
+        t_train.main(["--gan-type", "BigGAN", "-K", "2", "-D", "2", "--no-cuda"])
+    with pytest.raises(SystemExit):                       # not offered by the port
+        t_train.main(TRAIN_FLAGS + ["--steps-per-call", "2", "--no-cuda"])
+    assert not osp.exists("experiments")                  # nothing was written
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_train.main(TRAIN_FLAGS + ["--max-iter", "1"])   # --cuda is the default

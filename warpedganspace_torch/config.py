@@ -1,10 +1,13 @@
 """Static registry: GAN types, resolutions, pretrained-weight artifacts.
 
 Counterpart of :mod:`warpedganspace_tpu.config` (reference ``lib/config.py``:
-GAN resolutions :20-26, local weight paths :28-64). The port keeps its own
-copy of the entries it reads, so that it imports nothing of the JAX package.
+reconstructor types, GAN resolutions :20-26, local weight paths :28-64). The
+port keeps its own copy of the entries it reads, so that it imports nothing of
+the JAX package.
 """
 from __future__ import annotations
+
+RECONSTRUCTOR_TYPES = ("ResNet", "LeNet")
 
 GAN_RESOLUTIONS = {
     "SNGAN_MNIST": 32,

@@ -113,3 +113,43 @@ def support_sets_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return {"SUPPORT_SETS": _t(sv.reshape(sv.shape[0], -1)),
             "ALPHAS": _t(params["alphas"]),
             "LOGGAMMA": _t(params["loggamma"])}
+
+
+def _bn(p, dst, out):
+    out[dst + ".weight"] = _t(p["scale"])
+    out[dst + ".bias"] = _t(p["bias"])
+    out[dst + ".running_mean"] = _t(p["mean"])
+    out[dst + ".running_var"] = _t(p["var"])
+
+
+def reconstructor_from_jax(params: dict, reconstructor_type: str) -> dict[str, torch.Tensor]:
+    """``Reconstructor.init`` params -> the reference state-dict layout that
+    :func:`warpedganspace_torch.convert.reconstructor.load_reference_state_dict` reads."""
+    out: dict[str, torch.Tensor] = {}
+    if reconstructor_type == "LeNet":
+        for i, idx in enumerate((0, 4, 8), start=1):
+            _conv(params[f"conv{i}"], f"feature_extractor.{idx}", out)
+            _bn(params[f"bn{i}"], f"feature_extractor.{idx + 1}", out)
+        for head, dst in (("cls", "path_indices"), ("reg", "shift_magnitudes")):
+            _linear(params[head + "_fc1"], dst + ".0", out)
+            _bn(params[head + "_bn"], dst + ".1", out)
+            _linear(params[head + "_fc2"], dst + ".3", out)
+        return out
+    if reconstructor_type != "ResNet":
+        raise ValueError(f"unknown reconstructor type {reconstructor_type!r}")
+    fe = "features_extractor."
+    _conv(params["conv1"], fe + "conv1", out, bias=False)
+    _bn(params["bn1"], fe + "bn1", out)
+    for li in range(1, 5):
+        for bi, block in enumerate(params[f"layer{li}"]):
+            pre = f"{fe}layer{li}.{bi}."
+            _conv(block["conv1"], pre + "conv1", out, bias=False)
+            _bn(block["bn1"], pre + "bn1", out)
+            _conv(block["conv2"], pre + "conv2", out, bias=False)
+            _bn(block["bn2"], pre + "bn2", out)
+            if "downsample" in block:
+                _conv(block["downsample"]["conv"], pre + "downsample.0", out, bias=False)
+                _bn(block["downsample"]["bn"], pre + "downsample.1", out)
+    _linear(params["cls_fc"], "path_indices", out)
+    _linear(params["reg_fc"], "shift_magnitudes", out)
+    return out

@@ -1,15 +1,17 @@
 // SA-GAN spatial attention (BigGAN's non-local block) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel warpedganspace_tpu/ops/attn_pallas.py::_attn_kernel
-// (forward only; the backward kernel _attn_bwd_kernel belongs to BigGAN training
-// and is not ported here). For every sample b and query row n:
+// (forward; the backward kernel _attn_bwd_kernel is csrc/sa_attention_bwd.cu).
+// For every sample b and query row n:
 //
 //   s_m  = theta[b, n, :] . phi[b, m, :]                 m < M, no scale
 //   out[b, n, :] = sum_m softmax_m(s) * g[b, m, :]
 //
 // with the softmax in f32 (row maximum subtracted), both products accumulated
 // in f32, inputs and output in f32 or bf16. The (B, N, M) attention matrix
-// never reaches device memory.
+// never reaches device memory. When the caller asks for it (training), each
+// row's statistic lse = max_m(s) + log(sum_m exp(s - max)) is written too, one
+// f32 per query: the backward kernel recomputes the softmax from it.
 //
 // What bounds it: at the BigGAN-128 render shape (B=16, N=4096, M=1024, dk=24,
 // dv=96) the work is 2 B N M (dk + dv) = 16.1 GFLOP and B N M = 67 M
@@ -105,7 +107,7 @@ __host__ __device__ __forceinline__ size_t smem_floats(int dkp, int cpt) {
 template <typename T, int CPT>
 __global__ void __launch_bounds__(kThreads, 2)
 sa_attention_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
-                    const T* __restrict__ g, T* __restrict__ out,
+                    const T* __restrict__ g, T* __restrict__ out, float* __restrict__ lse,
                     int qtiles, int n, int m, int dk, int dv, int dkp, int dvt) {
   extern __shared__ float4 smem4[];
   constexpr int kGStride = 32 * CPT;
@@ -233,6 +235,11 @@ sa_attention_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     __syncwarp();  // the weight tile is rewritten in the next chunk
   }
 
+  // The first column tile writes the row statistics (lane r holds row r's).
+  if (lse != nullptr && blockIdx.y == 0 && lane < kRowsPerWarp) {
+    const int gr = row0 + warp * kRowsPerWarp + lane;
+    if (gr < n) lse[(size_t)b * n + gr] = mrun + logf(lrun);
+  }
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const float l = __shfl_sync(kFull, lrun, r);
@@ -249,8 +256,8 @@ sa_attention_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
 }
 
 template <typename T, int CPT>
-cudaError_t launch_cpt(const void* theta, const void* phi, const void* g, void* out, int b,
-                       int n, int m, int dk, int dv, int ntiles, int dvt,
+cudaError_t launch_cpt(const void* theta, const void* phi, const void* g, void* out,
+                       float* lse, int b, int n, int m, int dk, int dv, int ntiles, int dvt,
                        cudaStream_t stream) {
   const int dkp = (dk + 3) / 4 * 4;
   const size_t smem = sizeof(float) * smem_floats(dkp, CPT);
@@ -261,21 +268,25 @@ cudaError_t launch_cpt(const void* theta, const void* phi, const void* g, void* 
   const dim3 grid((unsigned)b * (unsigned)qtiles, ntiles);
   sa_attention_kernel<T, CPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(theta), static_cast<const T*>(phi), static_cast<const T*>(g),
-      static_cast<T*>(out), qtiles, n, m, dk, dv, dkp, dvt);
+      static_cast<T*>(out), lse, qtiles, n, m, dk, dv, dkp, dvt);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* theta, const void* phi, const void* g, void* out, int b, int n,
-                   int m, int dk, int dv, cudaStream_t stream) {
+cudaError_t launch(const void* theta, const void* phi, const void* g, void* out, float* lse,
+                   int b, int n, int m, int dk, int dv, cudaStream_t stream) {
   // Equal column tiles of at most kMaxDvTile values.
   const int ntiles = (dv + kMaxDvTile - 1) / kMaxDvTile;
   const int dvt = (dv + ntiles - 1) / ntiles;
   switch ((dvt + 31) / 32) {
-    case 1: return launch_cpt<T, 1>(theta, phi, g, out, b, n, m, dk, dv, ntiles, dvt, stream);
-    case 2: return launch_cpt<T, 2>(theta, phi, g, out, b, n, m, dk, dv, ntiles, dvt, stream);
-    case 3: return launch_cpt<T, 3>(theta, phi, g, out, b, n, m, dk, dv, ntiles, dvt, stream);
-    default: return launch_cpt<T, 4>(theta, phi, g, out, b, n, m, dk, dv, ntiles, dvt, stream);
+    case 1: return launch_cpt<T, 1>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
+                                    stream);
+    case 2: return launch_cpt<T, 2>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
+                                    stream);
+    case 3: return launch_cpt<T, 3>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
+                                    stream);
+    default: return launch_cpt<T, 4>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
+                                    stream);
   }
 }
 
@@ -283,10 +294,11 @@ cudaError_t launch(const void* theta, const void* phi, const void* g, void* out,
 
 // C entry point (loaded with ctypes). theta is (B, n, dk), phi (B, m, dk),
 // g (B, m, dv) and out (B, n, dv), all f32 (is_bf16 == 0) or all bf16
-// (is_bf16 == 1), contiguous on one device. Returns a cudaError_t; 0 is success.
+// (is_bf16 == 1), contiguous on one device; lse is null or (B, n) f32, filled
+// with the rows' log-sum-exp. Returns a cudaError_t; 0 is success.
 extern "C" int sa_attention_launch(const void* theta, const void* phi, const void* g,
-                                   void* out, int is_bf16, int b, int n, int m, int dk,
-                                   int dv, void* stream) {
+                                   void* out, void* lse, int is_bf16, int b, int n, int m,
+                                   int dk, int dv, void* stream) {
   if (b < 0 || n < 0 || dv < 0 || m < 1 || dk < 1 || dk > kMaxDk)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0 || dv == 0) return (int)cudaSuccess;
@@ -294,9 +306,10 @@ extern "C" int sa_attention_launch(const void* theta, const void* phi, const voi
   if (blocks > 2147483647LL || (dv + kMaxDvTile - 1) / kMaxDvTile > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   const cudaError_t err = is_bf16
-      ? launch<__nv_bfloat16>(theta, phi, g, out, b, n, m, dk, dv, s)
-      : launch<float>(theta, phi, g, out, b, n, m, dk, dv, s);
+      ? launch<__nv_bfloat16>(theta, phi, g, out, l, b, n, m, dk, dv, s)
+      : launch<float>(theta, phi, g, out, l, b, n, m, dk, dv, s);
   return (int)err;
 }
 

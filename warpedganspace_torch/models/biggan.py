@@ -17,8 +17,10 @@ shared_dim=128, attention at 64x64, 128x128 output):
   (layers.py:275-326). The generator is frozen, so stored statistics are
   always used.
 - SA-GAN attention (layers.py:141-166); the softmax(theta phi^T) g chain goes
-  through :func:`warpedganspace_torch.ops.attn_cuda.sa_attention`, the
-  hand-written CUDA kernel on a CUDA device.
+  through :func:`warpedganspace_torch.ops.attn_cuda.sa_attention`: on a CUDA
+  device the hand-written forward kernel and, under autograd (training
+  differentiates the frozen generator with respect to the shift), the
+  hand-written backward kernel.
 - Output: affine BN -> ReLU -> conv3x3 -> tanh (BigGAN.py:170-174, 242-243).
 
 Spectral normalization is folded into the weights when a checkpoint is

@@ -23,8 +23,8 @@ from warpedganspace_torch.utils.io import load_pt
 
 # Where each GAN type's port is scheduled (ROADMAP.md, Queue 1).
 _NOT_PORTED = {
-    "SNGAN_MNIST": "Queue 1 item 1 (training, with the SNGAN generators)",
-    "SNGAN_AnimeFaces": "Queue 1 item 1 (training, with the SNGAN generators)",
+    "SNGAN_MNIST": "Queue 1 item 2 (SNGAN training; the trainer itself is ported)",
+    "SNGAN_AnimeFaces": "Queue 1 item 2 (SNGAN training; the trainer itself is ported)",
 }
 
 
@@ -66,7 +66,9 @@ def build_biggan(pretrained_gan_weights: str, target_classes,
                  allow_random_init: bool | None = None, device=None) -> GeneratorBundle:
     """BigGAN 128^2 class-conditional, frozen, on ``device``. When the caller
     gives no ``y``, the generator draws a class per batch element from
-    ``target_classes`` (see :mod:`warpedganspace_torch.models.biggan`)."""
+    ``target_classes`` (see :mod:`warpedganspace_torch.models.biggan`). On a
+    CUDA device its attention runs through the hand-written kernels: the
+    forward in every generator forward, the backward in every training step."""
     from warpedganspace_torch.convert.biggan import load_reference_state_dict
     from warpedganspace_torch.models.biggan import BigGANGenerator
 

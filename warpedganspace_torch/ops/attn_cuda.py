@@ -1,23 +1,34 @@
-"""SA-GAN spatial attention through the hand-written CUDA kernel.
+"""SA-GAN spatial attention through the hand-written CUDA kernels.
 
-Counterpart of :mod:`warpedganspace_tpu.ops.attn_pallas` (forward). The kernel
+Counterpart of :mod:`warpedganspace_tpu.ops.attn_pallas`. The forward kernel
 (``csrc/sa_attention.cu``) computes, for every sample b and query row n,
 
     out[b, n, :] = sum_m softmax_m(theta[b, n, :] . phi[b, m, :]) * g[b, m, :]
 
 with the softmax in float32 (running row maximum subtracted), both products
 accumulated in float32, and the (B, N, M) attention matrix never written to
-device memory. Inputs and output are float32 or bfloat16.
+device memory. The backward kernel (``csrc/sa_attention_bwd.cu``) computes
+dtheta, dphi and dg from the cotangent of ``out`` by recomputing the softmax
+from one saved float32 per query (the row's log-sum-exp); it too writes no
+(B, N, M) matrix. Inputs, outputs and gradients are float32 or bfloat16.
 
 - :func:`sa_attention` is the entry point. On CPU tensors it runs the plain
-  version :func:`warpedganspace_torch.ops.attn.sa_attention_plain`; on CUDA
-  tensors it launches the kernel or raises. The kernel takes every N, M and dv
-  (ragged edges are masked) and dk up to the limit the library reports.
-- Its backward differentiates the plain version. A backward *kernel* (the
-  counterpart of ``_attn_bwd_kernel``) belongs to BigGAN training and is not
-  part of this module yet.
+  version :func:`warpedganspace_torch.ops.attn.sa_attention_plain` (and
+  autograd differentiates that); on CUDA tensors it launches the forward
+  kernel, and its backward launches the backward kernel, or raises. Nothing on
+  a CUDA tensor's path falls back to the plain versions.
+- :func:`sa_attention_bwd` calls the backward on its own (the smoke test and
+  the card tests hold it against
+  :func:`warpedganspace_torch.ops.attn.sa_attention_bwd_plain`).
+- The forward kernel takes every N, M and dv (ragged edges are masked) and dk
+  up to the limit its library reports. The backward kernel keeps both row
+  operands in shared memory, so besides the same dk limit it has a dv limit
+  that depends on dk (dk=24 with dv=96 and dk=48 with dv=192 fit); above the
+  limits the wrapper raises.
 
-``launches`` counts kernel launches; it is a plain int the caller may reset.
+``launches`` counts forward-kernel launches and ``bwd_launches`` backward
+launches (one per call: the backward's two passes and its row-dot prologue are
+one launch of the wrapper); both are plain ints the caller may reset.
 """
 from __future__ import annotations
 
@@ -25,28 +36,43 @@ import ctypes
 
 import torch
 
-from warpedganspace_torch.ops.attn import sa_attention_plain
+from warpedganspace_torch.ops.attn import sa_attention_bwd_plain, sa_attention_plain
 
 SOURCE = "sa_attention.cu"
+BWD_SOURCE = "sa_attention_bwd.cu"
 launches = 0
+bwd_launches = 0
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the forward kernel's library."""
     from warpedganspace_torch.ops._build import load_library
 
     lib = load_library(SOURCE)
     fn = lib.sa_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.sa_attention_max_dk.argtypes = []
     lib.sa_attention_max_dk.restype = ctypes.c_int
     return lib
 
 
-def _launch(theta, phi, g):
-    """Check the operands, allocate the output and launch on the current stream."""
-    global launches
+def build_bwd() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the backward kernel's library."""
+    from warpedganspace_torch.ops._build import load_library
+
+    lib = load_library(BWD_SOURCE)
+    fn = lib.sa_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.sa_attention_bwd_max_dk.argtypes = []
+    lib.sa_attention_bwd_max_dk.restype = ctypes.c_int
+    lib.sa_attention_bwd_max_dv.argtypes = [ctypes.c_int]
+    lib.sa_attention_bwd_max_dv.restype = ctypes.c_int
+    return lib
+
+
+def _check_operands(theta, phi, g):
     if theta.dim() != 3 or phi.dim() != 3 or g.dim() != 3:
         raise ValueError("theta, phi and g must be (B, N, dk), (B, M, dk), (B, M, dv); got "
                          f"{tuple(theta.shape)}, {tuple(phi.shape)}, {tuple(g.shape)}")
@@ -66,50 +92,119 @@ def _launch(theta, phi, g):
         raise ValueError("attention operands must be contiguous")
     if m < 1 or dk < 1:
         raise ValueError(f"the attention needs at least one key and one feature, got M={m}, dk={dk}")
+    return b, n, m, dk, dv
+
+
+def _launch(theta, phi, g, want_lse: bool = False):
+    """Check the operands, allocate the output and launch on the current stream.
+
+    Returns (out, lse); lse is the (B, N) float32 log-sum-exp of every row's
+    logits when ``want_lse`` (what the backward kernel needs), else None.
+    """
+    global launches
+    b, n, m, dk, dv = _check_operands(theta, phi, g)
     lib = build()
     if dk > lib.sa_attention_max_dk():
         raise ValueError(f"the attention kernel takes dk <= {lib.sa_attention_max_dk()} "
                          f"(its shared-memory tile), got {dk}")
     out = torch.empty((b, n, dv), dtype=theta.dtype, device=theta.device)
+    lse = torch.empty((b, n), dtype=torch.float32, device=theta.device) if want_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = lib.sa_attention_launch(
             theta.data_ptr(), phi.data_ptr(), g.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if want_lse else None,
             int(theta.dtype == torch.bfloat16), b, n, m, dk, dv, stream)
     if err != 0:
         raise RuntimeError(f"sa_attention kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return out, lse
+
+
+def _launch_bwd(theta, phi, g, out, lse, ct):
+    """Launch the backward kernel on the current stream: (dtheta, dphi, dg)."""
+    global bwd_launches
+    b, n, m, dk, dv = _check_operands(theta, phi, g)
+    for name, t, shape, dtype in (("out", out, (b, n, dv), theta.dtype),
+                                  ("ct", ct, (b, n, dv), theta.dtype),
+                                  ("lse", lse, (b, n), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != theta.device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {theta.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = build_bwd()
+    if dk > lib.sa_attention_bwd_max_dk():
+        raise ValueError(f"the attention backward kernel takes dk <= "
+                         f"{lib.sa_attention_bwd_max_dk()} (its shared-memory tile), got {dk}")
+    if dv > lib.sa_attention_bwd_max_dv(dk):
+        raise ValueError(f"the attention backward kernel takes dv <= "
+                         f"{lib.sa_attention_bwd_max_dv(dk)} beside dk = {dk} (both stay in "
+                         f"shared memory), got {dv}")
+    dtheta, dphi, dg = torch.empty_like(theta), torch.empty_like(phi), torch.empty_like(g)
+    if theta.numel() == 0 or dv == 0:
+        return dtheta.zero_(), dphi.zero_(), dg.zero_()
+    rdot = torch.empty((b, n), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream(theta.device).cuda_stream
+        err = lib.sa_attention_bwd_launch(
+            theta.data_ptr(), phi.data_ptr(), g.data_ptr(), out.data_ptr(), ct.data_ptr(),
+            lse.data_ptr(), rdot.data_ptr(), dtheta.data_ptr(), dphi.data_ptr(), dg.data_ptr(),
+            int(theta.dtype == torch.bfloat16), b, n, m, dk, dv, stream)
+    if err != 0:
+        raise RuntimeError(f"sa_attention backward kernel launch failed: cudaError {err}")
+    bwd_launches += 1
+    return dtheta, dphi, dg
 
 
 class _SAAttention(torch.autograd.Function):
-    """Kernel forward; backward is the VJP of the plain version."""
+    """Kernel forward and kernel backward."""
 
     @staticmethod
     def forward(ctx, theta, phi, g):
-        ctx.save_for_backward(theta, phi, g)
-        return _launch(theta, phi, g)
+        need = any(ctx.needs_input_grad)
+        out, lse = _launch(theta, phi, g, want_lse=need)
+        if need:
+            ctx.save_for_backward(theta, phi, g, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, ct):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            out = sa_attention_plain(*leaves)
-            wanted = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, ct))
-        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+        theta, phi, g, out, lse = ctx.saved_tensors
+        # The kernel always computes all three (training needs all three).
+        grads = _launch_bwd(theta, phi, g, out, lse, ct.contiguous())
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
 
 
 def sa_attention(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """softmax(theta @ phi^T) @ g without materializing the attention matrix.
 
     theta (B, N, dk), phi (B, M, dk), g (B, M, dv) -> (B, N, dv) in
-    ``theta.dtype``; softmax in float32. CUDA tensors go through the kernel
-    (or raise), CPU tensors through the plain version.
+    ``theta.dtype``; softmax in float32. CUDA tensors go through the kernels
+    (forward and, under autograd, backward) or raise; CPU tensors through the
+    plain version.
     """
     if not theta.is_cuda:
         return sa_attention_plain(theta, phi, g)
     return _SAAttention.apply(theta, phi, g)
+
+
+def sa_attention_bwd(theta, phi, g, ct, saved=None):
+    """(dtheta, dphi, dg) of :func:`sa_attention` for the cotangent ``ct``.
+
+    On CUDA tensors this launches the backward kernel (or raises). ``saved`` is
+    the forward's ``(out, lse)`` as :func:`sa_attention_saved` returns them;
+    without it the forward kernel is launched first to make them. CPU tensors
+    go through :func:`warpedganspace_torch.ops.attn.sa_attention_bwd_plain`.
+    """
+    if not theta.is_cuda:
+        return sa_attention_bwd_plain(theta, phi, g, ct)
+    out, lse = sa_attention_saved(theta, phi, g) if saved is None else saved
+    return _launch_bwd(theta, phi, g, out, lse, ct)
+
+
+def sa_attention_saved(theta, phi, g):
+    """The forward kernel's (out, lse) on CUDA tensors: what the backward keeps."""
+    return _launch(theta, phi, g, want_lse=True)
