@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile proggan   # instead: where that path's time goes
-                                              # (also: biggan, stylegan2, train_biggan)
+                                              # (also: biggan, stylegan2, train_biggan;
+                                              # --steps N walks N steps each way)
 
 Phases, each of which must pass; any failure ends the run with a non-zero
 exit and no result line:
@@ -33,11 +34,21 @@ exit and no result line:
      the ProgGAN path below gives it (a bf16 render batch of 16, one f32
      sample), at a border-only and at a ragged odd shape, with WScale scales
      != 1 and random biases; no one PyTorch call computes a section;
+   - StyleGAN2's fused tail section at the two sections of the 1024^2
+     generator (128 -> 64 channels at 512^2 writing x2, 64 -> 32 at 1024^2
+     writing only the RGB; B=4) in f32 and bf16, at the shapes the StyleGAN2
+     path below gives it (a bf16 render batch of 16, one f32 sample), at C=16,
+     at border-only and at ragged odd shapes, x2 written and not, with noise
+     weights != 0, random biases and s, d away from 1; no one PyTorch call
+     computes a section;
 4. generators with random weights from a seed: StyleGAN2-1024 in W space
    (B=4), BigGAN-128 at full width (class 239, B=16) and ProgGAN-1024 at full
    width (B=4), each in f32 and bf16 and in f32 on the card against f32 on
-   the CPU; BigGAN also with the attention kernel swapped for its plain
-   version, in f32 and on a bf16 render batch of 64, and the gradient of a
+   the CPU; StyleGAN2 (noise weights and biases perturbed) also with the tail
+   kernel swapped for its plain version and for a tail without its noise
+   terms, to show the comparison would see it; BigGAN also with the
+   attention kernel swapped for its plain version, in f32 and on a bf16
+   render batch of 64, and the gradient of a
    scalar of G(z + shift) with respect to the shift through the backward
    kernel against the same through the plain backward (and against a backward
    with dg zeroed, to show the comparison would see it); ProgGAN also with the
@@ -45,30 +56,31 @@ exit and no result line:
    tails, to show the comparison would see them;
 5. the port's main paths through its CLIs, ``sample_gan`` then
    ``traverse_latent_space``: a K=4, D=512 StyleGAN2-1024 W-space experiment
-   for 10 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
+   for 5 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
    class-239 experiment for 10 steps each way at bf16 (2,520 frames), and the
    K=200, D=512 ProgGAN-1024 Z-space experiment for 5 steps each way at bf16
    (2,200 frames of 1024^2). Each kernel's launch count is set to 0 just
    before a path and read just after: the warp must show one launch per step
    on all three, the attention one launch per generator forward on BigGAN's,
-   the tail three launches per generator forward on ProgGAN's. The stored
-   codes are checked against the plain warp;
+   ProgGAN's tail three launches per generator forward on ProgGAN's and
+   StyleGAN2's tail two per generator forward on StyleGAN2's, each 0 on the
+   other paths. The stored codes are checked against the plain warp;
 6. the training path, ``train`` then ``traverse_latent_space``: the experiment
    of ``scripts/train/biggan.sh`` (BigGAN-128 class 239, ResNet reconstructor,
    K=120, D=256, learn-gammas, shifts in [0.1, 0.2], batch 32, bf16 G and R)
    at full width for 20 iterations with a checkpoint at 10 and 20, then the
    same command with ``--max-iter 30``, which resumes at the stored iteration
    20: 31 iterations in all, each of which must launch the attention's forward
-   kernel twice and its backward kernel once. The random init leaves the
-   attention's gamma at 0, where the backward kernel's cotangent is exactly 0
-   and any backward would train the same, so this phase wraps the CLIs'
-   ``build_gan`` to open gamma to 1. Losses must be finite, the support sets
-   and loggamma moved, the alphas not; then the port's traversal walks the
-   tree that run wrote.
+   kernel twice and its backward kernel once, and neither tail kernel. The
+   random init leaves the attention's gamma at 0, where the backward kernel's
+   cotangent is exactly 0 and any backward would train the same, so this
+   phase wraps the CLIs' ``build_gan`` to open gamma to 1. Losses must be
+   finite, the support sets and loggamma moved, the alphas not; then the
+   port's traversal walks the tree that run wrote.
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
-launches, error, times and bound (four kernels), then, last, ``{"ok": true, "device": {...}}``.
+launches, error, times and bound (five kernels), then, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -86,7 +98,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 K_PROD, N_DIP, D, ROWS = 200, 512, 512, 64   # production warp shape
 # The three traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
-SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=10, eps=0.2, batch=16, res=1024,
+SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=5, eps=0.2, batch=16, res=1024,
            gif=True, pool="smoke")
 BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=10, eps=0.15, batch=64, res=128,
               gif=False, pool="smoke_biggan")
@@ -107,6 +119,9 @@ ATTN_TRAIN = (TRAIN["batch"],) + ATTN_SHAPE[1:]   # what a training step gives b
 # The three sections of ProgGAN-1024's tail: (C output channels, input height = width, head).
 TAIL_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
 TAIL_B = 4                                   # batch of the timed sections and generator
+# The two sections of StyleGAN2-1024's tail (config-f): (C output channels,
+# input height = width, whether x2 goes on to a next block).
+SG2_SECTIONS = ((64, 256, True), (32, 512, False))
 
 # NVIDIA H100 SXM data sheet: device memory rate, the f32 rate outside the tensor
 # cores, and the dense tensor-core rate for bf16 operands with f32 accumulation.
@@ -578,21 +593,172 @@ def phase_tail_kernel(card: str) -> dict:
     return res
 
 
+def sg2_problem(seed: int, b: int, c: int, h: int, w: int, dtype):
+    """One StyleGAN2 tail section's operands on the card: unit-scale input,
+    weights that keep each conv output at a scale of one half (every output
+    stays below 8), and every other operand away from the random init (noise
+    weights != 0, random biases, s and d away from 1), which would hide a
+    dropped term or a mid border computed instead of zeroed."""
+    import torch
+
+    # Drawn on the card: the render batch's input is 268 M values.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(shape, generator=gen, device="cuda")
+
+    ops = [rnd(b, 2 * c, h, w), rnd(c, 2 * c, 3, 3, std=0.5 * (18 * c) ** -0.5),
+           rnd(c, c, 3, 3, std=0.5 * (9 * c) ** -0.5), rnd(3, c, 1, 1, std=0.5 * c ** -0.5),
+           rnd(b, 2 * c, mean=1.0, std=0.3), rnd(b, c, mean=1.0, std=0.2),
+           rnd(b, c, mean=1.0, std=0.3), rnd(b, c, mean=1.0, std=0.2),
+           rnd(b, c, mean=1.0, std=0.3),
+           rnd(1, 1, 2 * h, 2 * w), torch.tensor(0.7, device="cuda"), rnd(c, std=0.3),
+           rnd(1, 1, 2 * h, 2 * w), torch.tensor(-0.4, device="cuda"), rnd(c, std=0.3),
+           rnd(3, std=0.3)]
+    return [t.to(dtype) for t in ops]
+
+
+def sg2_bound(b: int, c: int, h: int, w: int, want_x2: bool, elem: int) -> tuple[float, str]:
+    """A StyleGAN2 tail section's bound: the input, the weights, the vectors and
+    the noise read once and the outputs written once, against the LEAST
+    arithmetic that computes it: the stride-2 transposed conv is 9 taps of
+    2C x C per INPUT pixel (2.25 per output pixel), the blur 8 C per output
+    pixel (separable), the same-conv 9 C^2, ToRGB 3 C. The kernel's polyphase
+    up-conv does 9 taps of 2C x C per output pixel, four times the transposed
+    conv's. With 2-byte elements the operands are bf16 and the operations are
+    held to the tensor cores' bf16 peak."""
+    r2 = 4 * h * w
+    n_small = 9 * 2 * c * c + 9 * c * c + 3 * c + 2 * c + 5 + b * 6 * c + 2 * r2
+    bytes_moved = elem * (b * 2 * c * h * w + b * (3 + (c if want_x2 else 0)) * r2 + n_small)
+    flops = 2 * (b * h * w * 9 * 2 * c * c + b * r2 * (8 * c + 9 * c * c + 3 * c))
+    return bound(bytes_moved, flops, bf16=elem == 2)
+
+
+def phase_sg2_tail_kernel(card: str) -> dict:
+    import torch
+
+    from warpedganspace_torch.ops import sg2_tail_cuda
+    from warpedganspace_torch.ops.sg2_tail import fused_section_plain
+
+    def run(ops, want_x2, name):
+        """Kernel against the plain version in f32 on the same (rounded) operands."""
+        before = sg2_tail_cuda.launches
+        got = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+        torch.cuda.synchronize()
+        check(sg2_tail_cuda.launches == before + 1,
+              "the sg2 tail kernel's launch count did not move")
+        ref = fused_section_plain(*[t.float() for t in ops], want_x2=want_x2)
+        got, ref = (got, ref) if want_x2 else ((got,), (ref,))
+        e = 0.0
+        for g, r in zip(got, ref):
+            check(g.dtype == ops[0].dtype and g.shape == r.shape, f"sg2 tail output at {name}")
+            check(bool(torch.isfinite(g).all()), f"non-finite sg2 tail output at {name}")
+            e = max(e, float((g.float() - r).abs().max()))
+        # f32: sums of up to 9 * 128 products in another order, and the
+        # polyphase up-conv weights composed in f32. bf16: the kernel keeps f32
+        # between its stages, so what separates it from the f32 plain version
+        # on the same rounded operands is the rounding of its outputs: half an
+        # ulp of values below 8, 2^-6, doubled.
+        tol = 1e-4 if ops[0].dtype == torch.float32 else 3e-2
+        check(e <= tol, f"sg2 tail kernel vs plain at {name}: max abs {e:.3g} > {tol}")
+        return e
+
+    errs, sections = {}, []
+    with torch.no_grad():
+        cases = [(TAIL_B, c, h, h, x2, dt) for c, h, x2 in SG2_SECTIONS
+                 for dt in (torch.float32, torch.bfloat16)]
+        # What the StyleGAN2 path gives it: bf16 render batches, one f32 sample.
+        cases += [(SG2["batch"], c, h, h, x2, torch.bfloat16) for c, h, x2 in SG2_SECTIONS]
+        cases += [(1, c, h, h, x2, torch.float32) for c, h, x2 in SG2_SECTIONS]
+        # C=16 (channel multiplier 1), border only (2x2 and 4x4 outputs), and
+        # ragged, odd, non-square; x2 written and not.
+        for dt in (torch.float32, torch.bfloat16):
+            cases += [(2, 16, 64, 64, True, dt), (3, 16, 1, 1, False, dt), (3, 64, 2, 2, True, dt),
+                      (2, 32, 13, 7, True, dt), (2, 64, 13, 7, False, dt)]
+        for b, c, h, w, x2, dt in cases:
+            name = f"B={b} C={c} {h}x{w}{' +x2' if x2 else ''} {str(dt).split('.')[-1]}"
+            errs[name] = run(sg2_problem(6, b, c, h, w, dt), x2, name)
+
+        for c, h, x2 in SG2_SECTIONS:
+            row = {"c": c, "in": h, "want_x2": x2}
+            for dt, key in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+                ops = sg2_problem(6, TAIL_B, c, h, h, dt)
+                kern = lambda: sg2_tail_cuda.fused_section(*ops, want_x2=x2)  # noqa: E731
+                plain = lambda: fused_section_plain(*ops, want_x2=x2)  # noqa: E731
+                p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1)
+                                  for f in (plain, kern, kern, plain))
+                row["ms" + key], row["plain_ms" + key] = (k1 + k2) / 2, (p1 + p2) / 2
+                row["runs" + key] = (k1, k2, p1, p2)
+                row["bound_ms" + key], row["bound_by" + key] = sg2_bound(
+                    TAIL_B, c, h, h, x2, 4 if dt == torch.float32 else 2)
+                if dt == torch.bfloat16:
+                    # How far the plain bf16 version, which rounds every
+                    # intermediate, is from the f32 one on the same operands.
+                    ref = fused_section_plain(*[t.float() for t in ops], want_x2=x2)
+                    got = plain()
+                    got, ref = (got, ref) if x2 else ((got,), (ref,))
+                    row["plain_bf16_err"] = max(float((g.float() - r).abs().max())
+                                                for g, r in zip(got, ref))
+            # The render batch's own shape (bf16, the CLI's batch size).
+            ops = sg2_problem(6, SG2["batch"], c, h, h, torch.bfloat16)
+            p1, k1, k2, p2 = (cuda_ms(f, iters=3, warmup=1) for f in (plain, kern, kern, plain))
+            row["ms_render_bf16"], row["plain_ms_render_bf16"] = (k1 + k2) / 2, (p1 + p2) / 2
+            row["bound_ms_render_bf16"], row["bound_by_render_bf16"] = sg2_bound(
+                SG2["batch"], c, h, h, x2, 2)
+            sections.append(row)
+            del ops
+
+    # One generator forward's tail is the two sections: the row's times, bound
+    # and error are theirs summed (f32, B=4).
+    f32_names = [f"B={TAIL_B} C={c} {h}x{h}{' +x2' if x2 else ''} float32"
+                 for c, h, x2 in SG2_SECTIONS]
+    res = {"max_abs_err": max(errs[n] for n in f32_names), "max_abs_errs": errs,
+           "sections": sections, "bound_by": sections[0]["bound_by"],
+           "bound_by_bf16": sections[0]["bound_by_bf16"],
+           "shape": f"2 sections (C=64@512^2 +x2, C=32@1024^2), B={TAIL_B} f32, summed"}
+    check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
+          and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
+          "sections bound differently")
+    for key in ("ms", "plain_ms", "bound_ms", "ms_bf16", "plain_ms_bf16", "bound_ms_bf16",
+                "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_render_bf16"):
+        res[key] = sum(r[key] for r in sections)
+    for r in sections:
+        k1, k2, p1, p2 = r["runs"]
+        print(f"[kernel] sg2_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
+              f"{' + x2' if r['want_x2'] else ''}, B={TAIL_B} on {card}: f32 kernel "
+              f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms']:.4f} ms ({p1:.4f}, "
+              f"{p2:.4f}); bound {r['bound_ms']:.4f} ms by {r['bound_by']}; bf16 kernel "
+              f"{r['ms_bf16']:.4f} ms plain {r['plain_ms_bf16']:.4f} ms (bound "
+              f"{r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} at the bf16 tensor-core peak; "
+              f"plain bf16 vs f32 max abs {r['plain_bf16_err']:.3g}); "
+              f"bf16 at the render batch B={SG2['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
+              f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
+              "no library call")
+    print(f"[kernel] sg2_tail, the two sections summed, B={TAIL_B}: f32 kernel "
+          f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound {res['bound_ms']:.4f} ms; "
+          f"bf16 kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
+          f"{res['bound_ms_bf16']:.4f} ms by {res['bound_by_bf16']}; at B={SG2['batch']} bf16 "
+          f"kernel {res['ms_render_bf16']:.4f} ms plain {res['plain_ms_render_bf16']:.4f} ms "
+          f"bound {res['bound_ms_render_bf16']:.4f} ms; "
+          "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
+    return res
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's count to 0 (just before a main path is driven)."""
-    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda
+    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda, sg2_tail_cuda
 
     rbf_cuda.launches = attn_cuda.launches = attn_cuda.bwd_launches = 0
-    proggan_tail_cuda.launches = 0
+    proggan_tail_cuda.launches = sg2_tail_cuda.launches = 0
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's count (just after a main path was driven)."""
-    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda
+    from warpedganspace_torch.ops import attn_cuda, proggan_tail_cuda, rbf_cuda, sg2_tail_cuda
 
     return {"rbf_warp": rbf_cuda.launches, "sa_attention": attn_cuda.launches,
             "sa_attention_bwd": attn_cuda.bwd_launches,
-            "proggan_tail": proggan_tail_cuda.launches}
+            "proggan_tail": proggan_tail_cuda.launches, "sg2_tail": sg2_tail_cuda.launches}
 
 
 def check_images(x, shape, name: str) -> None:
@@ -603,35 +769,95 @@ def check_images(x, shape, name: str) -> None:
     check(float(x.float().std()) > 0, f"constant {name} image")
 
 
+def sg2_tail_without_noise(*operands, want_x2=True):
+    """A deliberately WRONG tail section: the plain version with both noise
+    terms dropped (what a kernel that forgets its noise epilogue computes)."""
+    import torch
+
+    from warpedganspace_torch.ops.sg2_tail import fused_section_plain
+
+    ops = list(operands)
+    ops[10], ops[13] = torch.zeros_like(ops[10]), torch.zeros_like(ops[13])
+    return fused_section_plain(*ops, want_x2=want_x2)
+
+
 def phase_generator_stylegan2(card: str) -> None:
     import torch
 
+    from warpedganspace_torch.models import stylegan2
     from warpedganspace_torch.models.api import cast_params_bf16
     from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.ops import sg2_tail_cuda
+    from warpedganspace_torch.ops.sg2_tail import fused_section_plain
 
     G = build_gan("StyleGAN2", stylegan2_resolution=1024, shift_in_w_space=True,
                   allow_random_init=True, device="cuda")
+    net = G.net
+    check(len(net.to_rgbs) - net.tail_start() == 2,
+          "StyleGAN2-1024 config-f must have two tail sections")
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        # The random init leaves every noise weight and bias at 0, which would
+        # hide a dropped noise or bias term: perturb them.
+        for blk in [net.conv1] + list(net.convs):
+            blk.noise_weight.fill_(float(0.2 + 0.1 * torch.rand(1, generator=gen)))
+            blk.act_bias.copy_(0.1 * torch.randn(blk.act_bias.shape, generator=gen))
+        for rgb in [net.to_rgb1] + list(net.to_rgbs):
+            rgb.bias.copy_(0.1 * torch.randn(3, generator=gen))
     G16 = cast_params_bf16(G)
     z = torch.randn((4, 512), generator=torch.Generator().manual_seed(1)).cuda()
     with torch.no_grad():
         w = G.get_w(z)
         shift = 0.2 * torch.nn.functional.normalize(torch.randn_like(w), dim=-1)
+        w16, shift16 = w.bfloat16(), shift.bfloat16()
+        before = sg2_tail_cuda.launches
         img = G(w, shift, latent_is_w=True)
-        img16 = G16(w.bfloat16(), shift.bfloat16(), latent_is_w=True).float()
         torch.cuda.synchronize()
+        check(sg2_tail_cuda.launches == before + 2,
+              "StyleGAN2-1024's forward must launch the tail kernel twice")
+        img16 = G16(w16, shift16, latent_is_w=True).float()
+        torch.cuda.synchronize()
+        check(sg2_tail_cuda.launches == before + 4, "the bf16 forward's two tail launches")
         check_images(img, (4, 3, 1024, 1024), "f32")
         check_images(img16, (4, 3, 1024, 1024), "bf16")
         p16 = psnr(img16, img)
         ms32 = cuda_ms(lambda: G(w, shift, latent_is_w=True), iters=5, warmup=1)
-        ms16 = cuda_ms(lambda: G16(w.bfloat16(), shift.bfloat16(), latent_is_w=True),
-                       iters=5, warmup=1)
+        ms16 = cuda_ms(lambda: G16(w16, shift16, latent_is_w=True), iters=5, warmup=1)
+
+        # The same forward with the kernel swapped for its plain version (a
+        # check of the kernel inside the model, not a path the port takes),
+        # then for a wrong tail, to show that this comparison sees it.
+        kernel_fn = stylegan2.fused_section
+        try:
+            stylegan2.fused_section = fused_section_plain
+            before = sg2_tail_cuda.launches
+            img_plain = G(w, shift, latent_is_w=True)
+            img16_plain = G16(w16, shift16, latent_is_w=True).float()
+            check(sg2_tail_cuda.launches == before, "the swapped forward still launched")
+            ms32_plain = cuda_ms(lambda: G(w, shift, latent_is_w=True), iters=5, warmup=1)
+            ms16_plain = cuda_ms(lambda: G16(w16, shift16, latent_is_w=True), iters=5, warmup=1)
+            stylegan2.fused_section = sg2_tail_without_noise
+            p_noise = psnr(G(w, shift, latent_is_w=True), img_plain)
+        finally:
+            stylegan2.fused_section = kernel_fn
+        pp = psnr(img, img_plain)
+        pp16 = psnr(img16, img16_plain)
         # The card's f32 against the CPU's f32 on the same weights (TF32 off).
-        Gc = build_gan("StyleGAN2", stylegan2_resolution=1024, shift_in_w_space=True,
-                       allow_random_init=True, device="cpu")
+        Gc = copy.deepcopy(G).to("cpu")
         pc = psnr(img[:1].cpu(), Gc(w[:1].cpu(), shift[:1].cpu(), latent_is_w=True))
     check(pc > 40.0, f"card f32 vs CPU f32 PSNR {pc:.2f} dB <= 40")
-    print(f"[generator] StyleGAN2-1024 W, B=4 on {card}: f32 {ms32:.2f} ms/batch, "
-          f"bf16 {ms16:.2f} ms/batch; bf16-vs-f32 PSNR {p16:.2f} dB; "
+    # A tail without its noise terms moves the image by p_noise; the kernel
+    # path must agree far better.
+    check(pp > 40.0 and pp > p_noise + 20.0,
+          f"StyleGAN2 kernel path vs plain tail PSNR {pp:.2f} dB (noise dropped: "
+          f"{p_noise:.2f} dB)")
+    # In bf16 the two paths round at different places (the plain version
+    # rounds every intermediate, the kernel only its outputs).
+    check(pp16 > 40.0, f"StyleGAN2 bf16 kernel path vs plain tail PSNR {pp16:.2f} dB <= 40")
+    print(f"[generator] StyleGAN2-1024 W, B=4 on {card}: f32 {ms32:.2f} ms/batch "
+          f"({ms32_plain:.2f} with the plain tail), bf16 {ms16:.2f} ms/batch ({ms16_plain:.2f}); "
+          f"2 tail launches per forward; bf16-vs-f32 PSNR {p16:.2f} dB; kernel-vs-plain-tail "
+          f"PSNR {pp:.2f} dB f32 (noise dropped: {p_noise:.2f} dB), {pp16:.2f} dB bf16; "
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
@@ -848,7 +1074,9 @@ def phase_generator_proggan(card: str) -> None:
         check_images(img, (b, 3, 1024, 1024), "ProgGAN f32")
         check_images(img16, (b, 3, 1024, 1024), "ProgGAN bf16")
         p16 = psnr(img16, img)
-        ms32 = cuda_ms(lambda: G(z, shift), iters=10, warmup=2)
+        # Few f32 calls: at B=4 cuDNN takes an FFT algorithm for one block and
+        # the forward is some 400 ms (PERF.md section 7).
+        ms32 = cuda_ms(lambda: G(z, shift), iters=3, warmup=1)
         ms16 = cuda_ms(lambda: G16(z.bfloat16(), shift.bfloat16()), iters=10, warmup=2)
         # The ProgGAN path's own two forwards: one f32 code, a bf16 render batch.
         ms32_one = cuda_ms(lambda: G(z[:1]), iters=10, warmup=2)
@@ -865,7 +1093,7 @@ def phase_generator_proggan(card: str) -> None:
             img_plain = G(z, shift)
             img16_plain = G16(z.bfloat16(), shift.bfloat16()).float()
             check(proggan_tail_cuda.launches == before, "the swapped forward still launched")
-            ms32_plain = cuda_ms(lambda: G(z, shift), iters=5, warmup=1)
+            ms32_plain = cuda_ms(lambda: G(z, shift), iters=3, warmup=1)
             ms16_plain = cuda_ms(lambda: G16(z.bfloat16(), shift.bfloat16()), iters=5, warmup=1)
             proggan.proggan_tail = tail_with_computed_border
             p_border = psnr(G(z, shift), img_plain)
@@ -955,9 +1183,11 @@ def traverse_and_verify(cfg: dict, exp: str, S) -> tuple:
     # Generator forwards: the render batches and sample_gan's one code.
     forwards = math.ceil(k * n_frames / cfg["batch"]) + 1
     # One warp launch per step; one attention launch per BigGAN forward; one
-    # tail launch per section, three sections per ProgGAN forward.
+    # tail launch per section, three sections per ProgGAN forward and two per
+    # StyleGAN2-1024 forward.
     want = {"rbf_warp": steps, "sa_attention": forwards if biggan else 0, "sa_attention_bwd": 0,
-            "proggan_tail": 3 * forwards if gan == "ProgGAN" else 0}
+            "proggan_tail": 3 * forwards if gan == "ProgGAN" else 0,
+            "sg2_tail": 2 * forwards if w_space else 0}
     check(launches == want, f"{gan}'s traversal of {forwards} generator forwards launched "
                             f"{launches}, not {want}")
 
@@ -1077,8 +1307,9 @@ def phase_train(card: str, cfg: dict) -> dict:
                   and train_launches["sa_attention_bwd"] == n_iters,
                   f"{n_iters} training iterations must launch the attention forward "
                   f"{2 * n_iters} times and its backward {n_iters} times, got {train_launches}")
-            check(train_launches["rbf_warp"] == 0 and train_launches["proggan_tail"] == 0,
-                  f"training launches neither the warp kernel nor the tail: {train_launches}")
+            check(train_launches["rbf_warp"] == 0 and train_launches["proggan_tail"] == 0
+                  and train_launches["sg2_tail"] == 0,
+                  f"training launches neither the warp kernel nor a tail: {train_launches}")
 
             wip = osp.join("experiments", "wip", exp_name)
             exp = osp.join("experiments", "complete", exp_name)
@@ -1350,6 +1581,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
     parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan",),
                         help="instead of the smoke test, say where that main path's time goes")
+    parser.add_argument("--steps", type=int, default=None,
+                        help="with --profile of a traversal: steps each way (default: the "
+                             "smoke test's)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1362,10 +1596,12 @@ def main(argv=None) -> int:
         if args.profile == "train_biggan":
             profile_train(card, TRAIN)
         else:
-            profile_path(card, PATHS[args.profile])
+            cfg = PATHS[args.profile]
+            profile_path(card, cfg if args.steps is None else dict(cfg, steps=args.steps))
         return 0
 
-    from warpedganspace_torch.ops import _build, attn_cuda, proggan_tail_cuda, rbf_cuda
+    from warpedganspace_torch.ops import (_build, attn_cuda, proggan_tail_cuda, rbf_cuda,
+                                          sg2_tail_cuda)
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -1377,7 +1613,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     builds = {rbf_cuda.SOURCE: rbf_cuda.build, attn_cuda.SOURCE: attn_cuda.build,
               attn_cuda.BWD_SOURCE: attn_cuda.build_bwd,
-              proggan_tail_cuda.SOURCE: proggan_tail_cuda.build}
+              proggan_tail_cuda.SOURCE: proggan_tail_cuda.build,
+              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build}
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, all started together
         list(pool.map(lambda build: build(), builds.values()))
     print(f"[build] {', '.join(builds)} side by side: "
@@ -1385,16 +1622,25 @@ def main(argv=None) -> int:
           + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s" for src in builds)
           + "; 0 = already built)")
 
-    warp = phase_warp_kernel(card)
-    attn = phase_attn_kernel(card)
-    attn_bwd = phase_attn_bwd_kernel(card)
-    tail = phase_tail_kernel(card)
-    phase_generator_stylegan2(card)
-    phase_generator_biggan(card)
-    phase_generator_biggan_grad(card)
-    phase_generator_proggan(card)
-    paths = {name: phase_cli(card, cfg) for name, cfg in PATHS.items()}
-    paths["train_biggan"] = phase_train(card, TRAIN)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(card, *args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    warp = timed("rbf_warp", phase_warp_kernel)
+    attn = timed("sa_attention", phase_attn_kernel)
+    attn_bwd = timed("sa_attention_bwd", phase_attn_bwd_kernel)
+    tail = timed("proggan_tail", phase_tail_kernel)
+    sg2_tail = timed("sg2_tail", phase_sg2_tail_kernel)
+    timed("generator_stylegan2", phase_generator_stylegan2)
+    timed("generator_biggan", phase_generator_biggan)
+    timed("generator_biggan_grad", phase_generator_biggan_grad)
+    timed("generator_proggan", phase_generator_proggan)
+    paths = {name: timed(f"cli_{name}", phase_cli, cfg) for name, cfg in PATHS.items()}
+    paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
 
     def row(kname, source, replaces, k):
         by_path = {p: launches.get(kname, 0) for p, launches in paths.items()}
@@ -1421,7 +1667,13 @@ def main(argv=None) -> int:
     for key in ("ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
                 "bound_ms_render_bf16", "sections", "max_abs_errs"):
         kernels[3][key] = tail[key]
-    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    kernels.append(row("sg2_tail", "warpedganspace_torch/csrc/sg2_tail.cu",
+                       "warpedganspace_tpu/ops/sg2_tail_pallas.py:315", sg2_tail))
+    for key in ("ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
+                "bound_ms_render_bf16", "sections", "max_abs_errs"):
+        kernels[4][key] = sg2_tail[key]
+    print(f"[total] {time.perf_counter() - t_start:.1f} s; by phase: "
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in seconds.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

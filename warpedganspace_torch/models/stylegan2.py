@@ -10,8 +10,21 @@ As in the JAX package, the equalized-lr scales are folded into the stored
 weights by the converters (the generator is frozen), and modulation uses the
 factorisation conv(x, w * s_b) == conv(x * s_b, w): every sample shares one
 conv weight, and demodulation is the per-(sample, out-channel) scalar
-rsqrt(sum_i s_i^2 * sum_kh,kw w^2 + 1e-8), applied to the conv's output.
-The stride-2 upsampling conv is ``conv_transpose2d`` followed by the 4x4 blur.
+rsqrt(sum_i s_i^2 * sum_kh,kw w^2 + 1e-8), applied to the conv's output
+(:func:`~warpedganspace_torch.ops.sg2_tail.modulate` and
+:func:`~warpedganspace_torch.ops.sg2_tail.modulated_conv`). The stride-2
+upsampling conv is ``conv_transpose2d`` followed by the 4x4 blur.
+
+The trailing blocks with fewer than 128 output channels (the *tail*:
+C = 64 at 512^2 and 32 at 1024^2 in config-f, none at 256^2, where the last
+block has 128) go through
+:func:`warpedganspace_torch.ops.sg2_tail_cuda.fused_section`, one call per
+block: on a CUDA device one launch of the hand-written kernel, which fuses the
+block's up-conv, same-conv and ToRGB; on the CPU the plain version of the same
+algebra. The skip chain stays outside, as in the JAX package's
+``tail_layout="pallas"`` route. Synthesis always takes the fixed noise
+buffers, so the JAX package's fallback for random or explicit noise has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -22,9 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from warpedganspace_torch.ops.fused_act import fused_leaky_relu
-from warpedganspace_torch.ops.upfirdn2d import setup_filter, upfirdn2d
-
-BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
+from warpedganspace_torch.ops.sg2_tail import (blur_kernel, modulate, modulated_conv,
+                                               tail_start)
+from warpedganspace_torch.ops.sg2_tail_cuda import fused_section
+from warpedganspace_torch.ops.upfirdn2d import upfirdn2d
 
 
 def channels_dict(channel_multiplier: int = 2) -> dict[int, int]:
@@ -63,24 +77,10 @@ class ModulatedConv2d(nn.Module):
         self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0, generator=generator)
         self.demodulate = demodulate
         self.upsample = upsample
-        if upsample:
-            self.register_buffer("blur_kernel", setup_filter(BLUR_KERNEL, gain=4.0),
-                                 persistent=False)
 
     def forward(self, x, style):
-        s = self.modulation(style)                                   # (B, in)
-        x = x * s[:, :, None, None]
-        if self.upsample:
-            x = F.conv_transpose2d(x, self.weight.transpose(0, 1), stride=2)
-        else:
-            x = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
-        if self.demodulate:
-            w2 = torch.sum(self.weight * self.weight, dim=(2, 3))    # (out, in)
-            x = x * torch.rsqrt((s * s) @ w2.t() + 1e-8)[:, :, None, None]
-        if self.upsample:
-            # Blur pad (1, 1) for a 3x3 kernel, factor 2, blur length 4.
-            x = upfirdn2d(x, self.blur_kernel, pad=(1, 1))
-        return x
+        s, d = modulate(self.weight, self.modulation(style), self.demodulate)
+        return modulated_conv(x, self.weight, s, d, upsample=self.upsample)
 
 
 class StyledConv(nn.Module):
@@ -107,14 +107,17 @@ class ToRGB(nn.Module):
         self.conv = ModulatedConv2d(in_ch, 3, 1, style_dim, demodulate=False,
                                     generator=generator)
         self.bias = nn.Parameter(torch.zeros(3))
-        self.register_buffer("blur_kernel", setup_filter(BLUR_KERNEL, gain=4.0),
-                             persistent=False)
 
     def forward(self, x, style, skip=None):
         out = self.conv(x, style) + self.bias[None, :, None, None]
         if skip is not None:
-            out = out + upfirdn2d(skip, self.blur_kernel, up=2, pad=(2, 1))
+            out = out + self.upsample_skip(skip)
         return out
+
+    @staticmethod
+    def upsample_skip(skip):
+        """The skip of the block below, blurred up to this block's resolution."""
+        return upfirdn2d(skip, blur_kernel(skip.device), up=2, pad=(2, 1))
 
 
 class StyleGAN2Generator(nn.Module):
@@ -185,13 +188,34 @@ class StyleGAN2Generator(nn.Module):
         out = self.const_input.expand(b, -1, -1, -1)
         out = self.conv1(out, latent[:, 0], noise[0])
         skip = self.to_rgb1(out, latent[:, 1])
+        lo = self.tail_start()
         i = 1
         for idx, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * idx](out, latent[:, i], noise[2 * idx + 1])
-            out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise[2 * idx + 2])
-            skip = to_rgb(out, latent[:, i + 2], skip)
+            conv_up, conv = self.convs[2 * idx], self.convs[2 * idx + 1]
+            n_up, n_same = noise[2 * idx + 1], noise[2 * idx + 2]
+            if idx < lo:
+                out = conv_up(out, latent[:, i], n_up)
+                out = conv(out, latent[:, i + 1], n_same)
+                skip = to_rgb(out, latent[:, i + 2], skip)
+            else:
+                want_x2 = idx < len(self.to_rgbs) - 1
+                s1, d1 = modulate(conv_up.conv.weight, conv_up.conv.modulation(latent[:, i]))
+                s2, d2 = modulate(conv.conv.weight, conv.conv.modulation(latent[:, i + 1]))
+                s3 = to_rgb.conv.modulation(latent[:, i + 2])
+                res = fused_section(
+                    out.contiguous(), conv_up.conv.weight, conv.conv.weight, to_rgb.conv.weight,
+                    s1, d1, s2, d2, s3, n_up, conv_up.noise_weight, conv_up.act_bias,
+                    n_same, conv.noise_weight, conv.act_bias, to_rgb.bias, want_x2=want_x2)
+                rgb, out = res if want_x2 else (res, None)
+                skip = rgb + to_rgb.upsample_skip(skip)
             i += 2
         return skip
+
+    def tail_start(self) -> int:
+        """The first synthesis block of the fused tail (``len(self.to_rgbs)``
+        when there is none): see :func:`warpedganspace_torch.ops.sg2_tail.tail_start`."""
+        return tail_start([self.convs[2 * idx].conv.weight.shape[0]
+                           for idx in range(len(self.to_rgbs))])
 
     def forward(self, styles, input_is_latent: bool = False, inject_index: int | None = None,
                 truncation: float = 1.0, truncation_latent=None):
