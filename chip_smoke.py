@@ -17,10 +17,11 @@ exit and no result line:
      vectors, d=512, R=64 rows = 32 codes x +-) in f32 and with bf16 set
      storage, and at the shapes the three traversals below give it;
    - the SA attention at BigGAN-128's shape (B=16, N=4096, M=1024, dk=24,
-     dv=96) in f32 and bf16, at the two shapes the BigGAN path below gives it
-     (a bf16 render batch of 64, one f32 sample) and at a ragged shape, with
-     ``F.scaled_dot_product_attention`` timed beside it as a yardstick the
-     port never calls;
+     dv=96) in f32 (its CUDA-core design) and bf16 (its tensor-core design),
+     at the two shapes the BigGAN path below gives it (a bf16 render batch of
+     64, one f32 sample) and at a ragged shape, with
+     ``F.scaled_dot_product_attention`` timed beside it (at B=16 and at the
+     render batch) as a yardstick the port never calls;
    - the SA attention's backward at BigGAN-128's training shape (B=32, N=4096,
      M=1024, dk=24, dv=96) in f32 and bf16, at B=1 and at the ragged shape,
      each gradient within a tolerance of its largest entry, with the backward
@@ -51,7 +52,8 @@ exit and no result line:
    render batch of 64, and the gradient of a
    scalar of G(z + shift) with respect to the shift through the backward
    kernel against the same through the plain backward (and against a backward
-   with dg zeroed, to show the comparison would see it); ProgGAN also with the
+   with dg zeroed, to show the comparison would see it), in f32 and with a
+   bf16 generator as a training step runs it; ProgGAN also with the
    tail kernel swapped for its plain version and for two deliberately wrong
    tails, to show the comparison would see them;
 5. the port's main paths through its CLIs, ``sample_gan`` then
@@ -80,7 +82,8 @@ exit and no result line:
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
-launches, error, times and bound (five kernels), then, last, ``{"ok": true, "device": {...}}``.
+launches, error, times, bound and design by operand type (five kernels), then,
+last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -304,6 +307,11 @@ def phase_attn_kernel(card: str) -> dict:
         theta, phi, g = attn_inputs(ATTN_RENDER, 2, torch.bfloat16)   # kern and plain read these
         p1, k1, k2, p2 = (cuda_ms(f, iters=20) for f in (plain, kern, kern, plain))
         render_ms, render_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        q, k, v = theta[:, None], phi[:, None], g[:, None]
+        lib_render_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                                iters=20)
+    design = {str(dt).split(".")[-1]: attn_cuda.design(dt)
+              for dt in (torch.float32, torch.bfloat16)}
 
     b, n, m, dk, dv = ATTN_SHAPE
     # f32 theta, phi, g read once and the output written once; two products of
@@ -321,18 +329,21 @@ def phase_attn_kernel(card: str) -> dict:
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
            "ms_render_bf16": render_ms, "plain_ms_render_bf16": render_plain_ms,
+           "library_ms_render_bf16": lib_render_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16,
-           "bound_ms_render_bf16": bound_render,
+           "bound_ms_render_bf16": bound_render, "design": design,
            "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
-    print(f"[kernel] sa_attention {res['shape']} on {card}: f32 kernel {ms:.4f} ms "
+    print(f"[kernel] sa_attention {res['shape']} on {card}; design f32: {design['float32']}, "
+          f"bf16: {design['bfloat16']}: f32 kernel {ms:.4f} ms "
           f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
           f"{runs[3]:.4f}) library SDPA {lib_ms:.4f} ms (its max abs err vs plain "
           f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
           f"plain {plain_ms16:.4f} ms library SDPA {lib_ms16:.4f} ms (err {lib_err16:.3g}), "
           f"bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 tensor-core peak; "
           f"bf16 at the render batch B={ATTN_RENDER[0]}: kernel {render_ms:.4f} ms plain "
-          f"{render_plain_ms:.4f} ms bound {bound_render:.4f} ms; "
+          f"{render_plain_ms:.4f} ms library SDPA {lib_render_ms:.4f} ms bound "
+          f"{bound_render:.4f} ms; "
           "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
     return res
 
@@ -362,7 +373,8 @@ def phase_attn_bwd_kernel(card: str) -> dict:
         # Each gradient against the plain backward, relative to its largest
         # entry. f32: sums over N=4096 or M=1024 terms in another order. bf16:
         # against the plain version in bf16, which rounds ds and beta to bf16
-        # where the kernel keeps f32; a bf16 result.
+        # before their products as the kernel does, but from its own softmax
+        # and rowsum; a bf16 result.
         for shape, dtype, tol in ((ATTN_TRAIN, torch.float32, 1e-4),
                                   (ATTN_TRAIN, torch.bfloat16, 3e-2),
                                   (ATTN_SAMPLE, torch.float32, 1e-4),
@@ -420,6 +432,8 @@ def phase_attn_bwd_kernel(card: str) -> dict:
         del out, q, k, v, ref, saved
 
     b, n, m, dk, dv = ATTN_TRAIN
+    design = {str(dt).split(".")[-1]: attn_cuda.bwd_design(dt)
+              for dt in (torch.float32, torch.bfloat16)}
 
     # theta, phi, g, ct, the saved output and the row statistics read once, the
     # three gradients written once; five products of B * N * M multiply-adds
@@ -438,9 +452,10 @@ def phase_attn_bwd_kernel(card: str) -> dict:
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16,
+           "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16, "design": design,
            "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
-    print(f"[kernel] sa_attention_bwd {res['shape']} on {card}: f32 kernel {ms:.4f} ms "
+    print(f"[kernel] sa_attention_bwd {res['shape']} on {card}; design f32: "
+          f"{design['float32']}, bf16: {design['bfloat16']}: f32 kernel {ms:.4f} ms "
           f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
           f"{runs[3]:.4f}) library SDPA backward {lib_ms:.4f} ms (its error vs plain "
           f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
@@ -935,7 +950,8 @@ def phase_generator_biggan(card: str) -> None:
           f"BigGAN kernel path vs plain attention PSNR {pp:.2f} dB (attention closed: "
           f"{p_closed:.2f} dB)")
     # In bf16 the two paths round at different places (the plain version rounds
-    # the softmax weights to bf16, the kernel keeps them in f32).
+    # the normalised softmax weights to bf16, the kernel the unnormalised
+    # weights of each 64-key chunk).
     check(pp16 > 40.0 and pp16 > p_closed16 + 10.0,
           f"BigGAN bf16 render batch, kernel path vs plain attention PSNR {pp16:.2f} dB "
           f"(attention closed: {p_closed16:.2f} dB)")
@@ -947,13 +963,16 @@ def phase_generator_biggan(card: str) -> None:
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
-def phase_generator_biggan_grad(card: str) -> None:
+def phase_generator_biggan_grad(card: str, dtype) -> None:
     """The gradient that training needs, d(scalar of G(z + shift)) / d(shift),
     at full width with the attention open: through the backward kernel against
     the same through the plain backward, and against a deliberately wrong
-    backward (dg zeroed), to show that the comparison would see one."""
+    backward (dg zeroed), to show that the comparison would see one. In bf16
+    the generator is the bf16 copy a training step runs, fed z and the shift
+    cast to bf16 as there."""
     import torch
 
+    from warpedganspace_torch.models.api import cast_params_bf16
     from warpedganspace_torch.models.gan_load import build_gan
     from warpedganspace_torch.ops import attn_cuda
     from warpedganspace_torch.ops.attn import sa_attention_bwd_plain
@@ -969,6 +988,8 @@ def phase_generator_biggan_grad(card: str) -> None:
                 for conv in (block.attention.theta, block.attention.phi, block.attention.g,
                              block.attention.o):
                     conv.weight.mul_(10.0)
+    if dtype == torch.bfloat16:
+        G = cast_params_bf16(G)
     gen = torch.Generator().manual_seed(11)
     z = torch.randn((b, G.dim_z), generator=gen).cuda()
     shift0 = (0.15 * torch.nn.functional.normalize(torch.randn((b, G.dim_z), generator=gen),
@@ -977,7 +998,7 @@ def phase_generator_biggan_grad(card: str) -> None:
 
     def grad_of_shift():
         shift = shift0.clone().requires_grad_()
-        (G(z, shift) * weight).sum().backward()
+        (G(z.to(dtype), shift.to(dtype)).float() * weight).sum().backward()
         return shift.grad
 
     before = attn_cuda.launches, attn_cuda.bwd_launches
@@ -1010,12 +1031,16 @@ def phase_generator_biggan_grad(card: str) -> None:
     finally:
         attn_cuda._launch_bwd = real_bwd
     e, e_wrong = rel_err(g_kernel, g_plain), rel_err(g_wrong, g_plain)
-    # Only the attention's backward differs (f32 sums in another order); a
+    # Only the attention's backward differs: in f32 by sums in another order,
+    # in bf16 also by where the two round (the attention backward's own bound
+    # is 3e-2), and every bf16 layer below rounds the difference again. A
     # wrong dg must stand far above that.
-    check(e <= 1e-4 and e_wrong > 100 * max(e, 1e-6),
-          f"shift gradient, kernel backward vs plain backward: {e:.3g} of the largest entry "
-          f"(with dg zeroed: {e_wrong:.3g})")
-    print(f"[generator] BigGAN-128 class 239, B={b}, f32, attention open, on {card}: "
+    tol, margin = (1e-4, 100) if dtype == torch.float32 else (3e-2, 10)
+    name = str(dtype).split(".")[-1]
+    check(e <= tol and e_wrong > margin * max(e, 1e-6),
+          f"shift gradient, {name}, kernel backward vs plain backward: {e:.3g} of the largest "
+          f"entry (with dg zeroed: {e_wrong:.3g})")
+    print(f"[generator] BigGAN-128 class 239, B={b}, {name}, attention open, on {card}: "
           f"d(G(z + shift) . w)/d(shift) through the backward kernel vs the plain backward: "
           f"{e:.3g} of the largest entry; with dg zeroed {e_wrong:.3g}")
 
@@ -1422,9 +1447,14 @@ def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
     # Kernel and copy rows only: the operator rows repeat their kernels' time.
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    attn = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and "sa_attention" in e.key]
+    attn_us = sum(e.self_device_time_total for e in attn)
     print(f"[torch.profiler] {seconds_t:.2f} s traced; device time of all kernels "
           f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / seconds_t:.1f} % of the traced "
-          f"wall time on {card}")
+          f"wall time on {card}; the attention kernels {attn_us / 1e3:.3f} ms in "
+          f"{sum(e.count for e in attn)} launches = {100 * attn_us / max(device_us, 1e-9):.1f} % "
+          "of the device time")
     print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
                        max_name_column_width=70))
 
@@ -1537,8 +1567,13 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
         host_names = {e.name for e in tp.events() if e.device_type == cpu_type}
         window = next(e for e in tp.events() if e.name == "traced_window"
                       and e.device_type == cpu_type).time_range
-        kernels_us, busy_us, n_spans = device_busy(
-            [e for e in tp.events() if e.name not in host_names], window.start, window.end)
+        device_events = [e for e in tp.events() if e.name not in host_names]
+        kernels_us, busy_us, n_spans = device_busy(device_events, window.start, window.end)
+        # The attention's forward and backward kernels (the backward's row-dot
+        # prologue included) in the same window.
+        attn_us, _, attn_n = device_busy(
+            [e for e in device_events if "sa_attention" in e.name or "rowdot_kernel" in e.name],
+            window.start, window.end)
         window_us = window.end - window.start
         events = tp.key_averages()
         # Ten more steps with only the device traced: the host records nothing
@@ -1562,7 +1597,9 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
               f"3 traced warm-up steps, in {traced_s:.3f} s ({window_us / 1e6:.3f} s on the "
               f"tracer's clock) with {kernels_us / 1e6:.3f} s of device kernels and copies in "
               f"{n_spans} launches: the device was busy {100 * busy_us / window_us:.1f} % of that "
-              f"window; 10 steps with only the device traced in {light_s:.3f} s "
+              f"window, the attention kernels {attn_us / 1e3:.3f} ms of it in {attn_n} launches "
+              f"({100 * attn_us / max(kernels_us, 1e-9):.1f} % of the window's kernel time); "
+              f"10 steps with only the device traced in {light_s:.3f} s "
               f"({(hi - lo) / 1e6:.3f} s from the first kernel's start to the last one's end) with "
               f"{l_kernels_us / 1e6:.3f} s of kernels and copies in {l_spans} launches: the device "
               f"was busy {100 * l_busy_us / (hi - lo):.1f} % of that window; attention launches "
@@ -1637,7 +1674,8 @@ def main(argv=None) -> int:
     sg2_tail = timed("sg2_tail", phase_sg2_tail_kernel)
     timed("generator_stylegan2", phase_generator_stylegan2)
     timed("generator_biggan", phase_generator_biggan)
-    timed("generator_biggan_grad", phase_generator_biggan_grad)
+    timed("generator_biggan_grad", phase_generator_biggan_grad, torch.float32)
+    timed("generator_biggan_grad_bf16", phase_generator_biggan_grad, torch.bfloat16)
     timed("generator_proggan", phase_generator_proggan)
     paths = {name: timed(f"cli_{name}", phase_cli, cfg) for name, cfg in PATHS.items()}
     paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
@@ -1649,14 +1687,16 @@ def main(argv=None) -> int:
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": k.get("library_ms"), "shape": k["shape"],
-                "ms_bf16": k["ms_bf16"], "plain_ms_bf16": k["plain_ms_bf16"]}
+                "ms_bf16": k["ms_bf16"], "plain_ms_bf16": k["plain_ms_bf16"],
+                "design": k.get("design", {"float32": "CUDA cores", "bfloat16": "CUDA cores"})}
 
     kernels = [row("rbf_warp", "warpedganspace_torch/csrc/rbf_warp.cu",
                    "warpedganspace_tpu/ops/rbf_pallas.py:108", warp),
                row("sa_attention", "warpedganspace_torch/csrc/sa_attention.cu",
                    "warpedganspace_tpu/ops/attn_pallas.py:30", attn)]
-    for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16",
-                "bound_by_bf16", "bound_ms_render_bf16"):
+    for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
+                "library_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
+                "bound_ms_render_bf16"):
         kernels[1][key] = attn[key]
     kernels.append(row("sa_attention_bwd", "warpedganspace_torch/csrc/sa_attention_bwd.cu",
                        "warpedganspace_tpu/ops/attn_pallas.py:106", attn_bwd))

@@ -243,3 +243,119 @@ def test_biggan_block_reaches_the_kernel(cuda):
         torch.cuda.synchronize()
     assert attn_cuda.launches == before + 1
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+# The bf16 designs run on the tensor cores, the f32 ones on the CUDA cores.
+BF16 = torch.bfloat16
+DKS = [8, 16, 20, 24, 40, 48, 192]      # one and two k16 steps, ragged, 12 steps
+DVS = [57, 80, 96, 192, 200]            # ragged, one column tile, two tiles
+
+
+def test_designs(cuda):
+    assert attn_cuda.design(BF16) == "tensor cores, mma.sync bf16"
+    assert attn_cuda.design(torch.float32) == "CUDA cores"
+    assert attn_cuda.bwd_design(BF16) == "tensor cores, mma.sync bf16"
+    assert attn_cuda.bwd_design(torch.float32) == "CUDA cores"
+
+
+@pytest.mark.parametrize("dv", DVS)
+@pytest.mark.parametrize("dk", DKS)
+def test_bf16_dk_dv_sweep(cuda, dk, dv):
+    """N=200 (not a multiple of the 64-query tile), M=150 (a partial chunk)."""
+    _check(*_problem(10, 2, 200, 150, dk, dv, cuda, BF16), TOL[BF16])
+
+
+@pytest.mark.parametrize("dv", DVS)
+@pytest.mark.parametrize("dk", DKS)
+def test_bf16_backward_dk_dv_sweep(cuda, dk, dv):
+    """Within the limit against the plain backward; above it the wrapper raises."""
+    ops = _problem(10, 2, 200, 150, dk, dv, cuda, BF16)
+    if dv > attn_cuda.build_bwd().sa_attention_bwd_max_dv(dk):
+        with pytest.raises(ValueError, match="dv <= "):
+            attn_cuda.sa_attention_bwd(*ops, torch.zeros((2, 200, dv), device=cuda, dtype=BF16))
+        return
+    _check_bwd(*ops, TOL[BF16])
+
+
+@pytest.mark.parametrize("m", [1, 63, 1000])
+def test_bf16_ragged_keys(cuda, m):
+    """M at one key, one short of a 64-key chunk and past several; N=100."""
+    ops = _problem(11, 2, 100, m, 24, 96, cuda, BF16)
+    _check(*ops, TOL[BF16])
+    if m > 1:
+        _check_bwd(*ops, TOL[BF16])
+        return
+    # One key: beta is 1 and dtheta, dphi are 0 up to the f32 sums' last bits
+    # (rowsum(ct * out) against ct . g), so they are held in absolute terms.
+    ct = torch.randn((2, 100, 96), generator=torch.Generator().manual_seed(9)).to(ops[0])
+    got = attn_cuda.sa_attention_bwd(*ops, ct)
+    ref = sa_attention_bwd_plain(*ops, ct)
+    assert float(got[0].float().abs().max()) <= 1e-4
+    assert float(got[1].float().abs().max()) <= 1e-4
+    err = float((got[2].float() - ref[2].float()).abs().max()) / float(ref[2].float().abs().max())
+    assert err <= TOL[BF16], err
+
+
+@pytest.mark.parametrize("b,n,m,dk,dv", [
+    (1, 1, 1, 1, 1),
+    (3, 5, 7, 3, 2),
+    (2, 129, 65, 5, 33),
+    (1, 1024, 256, 48, 192),
+    (2, 300, 130, 12, 128),
+    (2, 130, 300, 40, 100),
+    (1, 64, 200, 192, 40),
+    (1, 1024, 256, 2, 8),
+])
+def test_bf16_backward_ragged_sweep(cuda, b, n, m, dk, dv):
+    """The f32 ragged sweep's shapes through the bf16 design."""
+    _check_bwd(*_problem(1, b, n, m, dk, dv, cuda, BF16), TOL[BF16])
+
+
+def _misaligned(t):
+    """The same values at a base address 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_bf16_unaligned_copy_path(cuda):
+    """dk=24, dv=96 rows, but no operand 16-byte aligned: every chunk is staged
+    by element loads, forward and backward."""
+    theta, phi, g = (_misaligned(t) for t in _problem(12, 2, 300, 200, 24, 96, cuda, BF16))
+    assert theta.data_ptr() % 16 != 0 and theta.is_contiguous()
+    _check(theta, phi, g, TOL[BF16])
+    _check_bwd(theta, phi, g, TOL[BF16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_max_dv_edge(cuda, dtype):
+    """dv at the backward's limit beside dk=24 runs and matches; one step past
+    it raises, naming the limit."""
+    lim = attn_cuda.build_bwd().sa_attention_bwd_max_dv(24)
+    assert lim >= 220
+    _check_bwd(*_problem(13, 1, 130, 70, 24, lim, cuda, dtype), TOL[dtype])
+    ops = _problem(13, 1, 8, 8, 24, lim + 4, cuda, dtype)
+    with pytest.raises(ValueError, match=f"dv <= {lim}"):
+        attn_cuda.sa_attention_bwd(*ops, torch.zeros((1, 8, lim + 4), device=cuda, dtype=dtype))
+
+
+def test_bf16_backward_is_deterministic(cuda):
+    """No atomics in the tensor-core design either: two runs give the same bits."""
+    ops = _problem(5, 4, 1024, 256, 24, 96, cuda, BF16)
+    a = _check_bwd(*ops, TOL[BF16])
+    b = _check_bwd(*ops, TOL[BF16])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_bf16_large_logits(cuda):
+    """Logits near +-200 in bf16: the running maximum keeps the forward's
+    exponentials in range, the saved log-sum-exp the backward's."""
+    theta, phi, g = _problem(2, 2, 200, 100, 16, 32, cuda, BF16)
+    theta, phi = theta * 8, phi * 8
+    _check(theta, phi, g, TOL[BF16])
+    _, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+    want = torch.logsumexp(torch.bmm(theta.float(), phi.float().transpose(1, 2)), -1)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=2e-5)
+    _check_bwd(theta, phi, g, TOL[BF16])

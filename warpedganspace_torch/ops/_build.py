@@ -3,12 +3,14 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with :mod:`ctypes`. The library
 lands in ``build/warpedganspace_torch/`` at the root of the checkout, named by
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A failed build raises; nothing falls back.
+a hash of the source, the headers beside it (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as it is.
+A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import os.path as osp
@@ -43,8 +45,11 @@ def _nvcc() -> str:
 def _compile(source: str) -> str:
     """Compile ``csrc/<source>`` unless its library is there; return the library's path."""
     src_path = osp.join(CSRC_DIR, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src_path] + sorted(glob.glob(osp.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = osp.splitext(source)[0]
     lib_path = osp.join(BUILD_DIR, f"{stem}-{digest}.so")
     if not osp.isfile(lib_path):

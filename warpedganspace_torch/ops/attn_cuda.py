@@ -12,6 +12,14 @@ dtheta, dphi and dg from the cotangent of ``out`` by recomputing the softmax
 from one saved float32 per query (the row's log-sum-exp); it too writes no
 (B, N, M) matrix. Inputs, outputs and gradients are float32 or bfloat16.
 
+Each kernel has two designs, chosen inside its C launch function by the
+operands' type (:func:`design` and :func:`bwd_design` say which): bfloat16 runs
+on the tensor cores (``mma.sync`` with bf16 operands and float32
+accumulation; the softmax weights and, in the backward, ds are rounded to
+bf16 before their products, as the plain bf16 versions and the TPU kernels
+do), float32 on the CUDA cores in float32 (a float32 tensor-core product
+would be TF32, 10 mantissa bits).
+
 - :func:`sa_attention` is the entry point. On CPU tensors it runs the plain
   version :func:`warpedganspace_torch.ops.attn.sa_attention_plain` (and
   autograd differentiates that); on CUDA tensors it launches the forward
@@ -23,8 +31,9 @@ from one saved float32 per query (the row's log-sum-exp); it too writes no
 - The forward kernel takes every N, M and dv (ragged edges are masked) and dk
   up to the limit its library reports. The backward kernel keeps both row
   operands in shared memory, so besides the same dk limit it has a dv limit
-  that depends on dk (dk=24 with dv=96 and dk=48 with dv=192 fit); above the
-  limits the wrapper raises.
+  that depends on dk (dk=24 with dv=96 and dk=48 with dv=192 fit; the
+  float32 design's limit, which the bfloat16 design exceeds at every dk);
+  above the limits the wrapper raises.
 
 ``launches`` counts forward-kernel launches and ``bwd_launches`` backward
 launches (one per call: the backward's two passes and its row-dot prologue are
@@ -54,6 +63,8 @@ def build() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.sa_attention_max_dk.argtypes = []
     lib.sa_attention_max_dk.restype = ctypes.c_int
+    lib.sa_attention_design.argtypes = [ctypes.c_int]
+    lib.sa_attention_design.restype = ctypes.c_char_p
     return lib
 
 
@@ -69,7 +80,19 @@ def build_bwd() -> ctypes.CDLL:
     lib.sa_attention_bwd_max_dk.restype = ctypes.c_int
     lib.sa_attention_bwd_max_dv.argtypes = [ctypes.c_int]
     lib.sa_attention_bwd_max_dv.restype = ctypes.c_int
+    lib.sa_attention_bwd_design.argtypes = [ctypes.c_int]
+    lib.sa_attention_bwd_design.restype = ctypes.c_char_p
     return lib
+
+
+def design(dtype: torch.dtype) -> str:
+    """Which design of the forward kernel serves operands of ``dtype``."""
+    return build().sa_attention_design(int(dtype == torch.bfloat16)).decode()
+
+
+def bwd_design(dtype: torch.dtype) -> str:
+    """Which design of the backward kernel serves operands of ``dtype``."""
+    return build_bwd().sa_attention_bwd_design(int(dtype == torch.bfloat16)).decode()
 
 
 def _check_operands(theta, phi, g):
