@@ -523,10 +523,14 @@ def phase_tail_kernel(card: str) -> dict:
         check(bool(torch.isfinite(out).all()), f"non-finite tail output at {name}")
         e = float((out.float() - ref).abs().max())
         # f32: sums of up to 9 * 128 = 1,152 unit-scale products in another
-        # order (and merged up-conv taps). bf16: the kernel keeps f32 between
-        # its stages, so what separates it from the f32 plain version on the
-        # same rounded operands is the rounding of its output: half an ulp of
-        # values below 8, 2^-6, doubled.
+        # order (and merged up-conv taps). bf16, the tensor-core design: the
+        # products see the normalised input, the merged up-conv taps and the
+        # normalised mid tile rounded to bf16 (in the section with the RGB
+        # head, bf16 hi + lo pairs of them, so there only the output rounds),
+        # then the output is rounded: half an ulp of values below 8, 2^-6,
+        # plus at most about as much again from the three roundings (the CPU
+        # emulation, tests/test_torch_tail_tc_numerics.py: 0.0196 at worst
+        # without the head, 0.0156 with it).
         tol = 1e-4 if out.dtype == torch.float32 else 3e-2
         check(e <= tol, f"tail kernel vs plain at {name}: max abs {e:.3g} > {tol}")
         return e
@@ -580,6 +584,8 @@ def phase_tail_kernel(card: str) -> dict:
     res = {"max_abs_err": max(errs[n] for n in f32_names), "max_abs_errs": errs,
            "sections": sections, "bound_by": sections[0]["bound_by"],
            "bound_by_bf16": sections[0]["bound_by_bf16"],
+           "design": {str(dt).split(".")[-1]: proggan_tail_cuda.design(dt)
+                      for dt in (torch.float32, torch.bfloat16)},
            "shape": f"3 sections (C=64@256^2, 32@512^2, 16@1024^2 + head), B={TAIL_B} f32, summed"}
     check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
           and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
@@ -599,7 +605,8 @@ def phase_tail_kernel(card: str) -> dict:
               f"bf16 at the render batch B={PROGGAN['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
               f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
               "no library call")
-    print(f"[kernel] proggan_tail, the three sections summed, B={TAIL_B}: f32 kernel "
+    print(f"[kernel] proggan_tail, the three sections summed, B={TAIL_B}; design f32: "
+          f"{res['design']['float32']}, bf16: {res['design']['bfloat16']}: f32 kernel "
           f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound {res['bound_ms']:.4f} ms; "
           f"bf16 kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
           f"{res['bound_ms_bf16']:.4f} ms by {res['bound_by_bf16']}; at B={PROGGAN['batch']} bf16 "
@@ -670,10 +677,12 @@ def phase_sg2_tail_kernel(card: str) -> dict:
             check(bool(torch.isfinite(g).all()), f"non-finite sg2 tail output at {name}")
             e = max(e, float((g.float() - r).abs().max()))
         # f32: sums of up to 9 * 128 products in another order, and the
-        # polyphase up-conv weights composed in f32. bf16: the kernel keeps f32
-        # between its stages, so what separates it from the f32 plain version
-        # on the same rounded operands is the rounding of its outputs: half an
-        # ulp of values below 8, 2^-6, doubled.
+        # polyphase up-conv weights composed in f32. bf16, the tensor-core
+        # design: the products see x * s1, the composed up-conv weights and
+        # the mid tile (after * s2) rounded to bf16, x2 stays f32 for ToRGB,
+        # then the outputs are rounded: half an ulp of values below 8, 2^-6,
+        # plus at most about as much again from the three roundings (the CPU
+        # emulation, tests/test_torch_tail_tc_numerics.py: 0.0220 at worst).
         tol = 1e-4 if ops[0].dtype == torch.float32 else 3e-2
         check(e <= tol, f"sg2 tail kernel vs plain at {name}: max abs {e:.3g} > {tol}")
         return e
@@ -730,6 +739,8 @@ def phase_sg2_tail_kernel(card: str) -> dict:
     res = {"max_abs_err": max(errs[n] for n in f32_names), "max_abs_errs": errs,
            "sections": sections, "bound_by": sections[0]["bound_by"],
            "bound_by_bf16": sections[0]["bound_by_bf16"],
+           "design": {str(dt).split(".")[-1]: sg2_tail_cuda.design(dt)
+                      for dt in (torch.float32, torch.bfloat16)},
            "shape": f"2 sections (C=64@512^2 +x2, C=32@1024^2), B={TAIL_B} f32, summed"}
     check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
           and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
@@ -749,7 +760,8 @@ def phase_sg2_tail_kernel(card: str) -> dict:
               f"bf16 at the render batch B={SG2['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
               f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
               "no library call")
-    print(f"[kernel] sg2_tail, the two sections summed, B={TAIL_B}: f32 kernel "
+    print(f"[kernel] sg2_tail, the two sections summed, B={TAIL_B}; design f32: "
+          f"{res['design']['float32']}, bf16: {res['design']['bfloat16']}: f32 kernel "
           f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound {res['bound_ms']:.4f} ms; "
           f"bf16 kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
           f"{res['bound_ms_bf16']:.4f} ms by {res['bound_by_bf16']}; at B={SG2['batch']} bf16 "
@@ -1450,11 +1462,17 @@ def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
     attn = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
             and "sa_attention" in e.key]
     attn_us = sum(e.self_device_time_total for e in attn)
+    # Both tails' kernels (either design) are named section_kernel.
+    tails = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+             and "section_kernel" in e.key]
+    tails_us = sum(e.self_device_time_total for e in tails)
     print(f"[torch.profiler] {seconds_t:.2f} s traced; device time of all kernels "
           f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / seconds_t:.1f} % of the traced "
           f"wall time on {card}; the attention kernels {attn_us / 1e3:.3f} ms in "
           f"{sum(e.count for e in attn)} launches = {100 * attn_us / max(device_us, 1e-9):.1f} % "
-          "of the device time")
+          f"of the device time; the tail kernels {tails_us / 1e3:.3f} ms in "
+          f"{sum(e.count for e in tails)} launches = {100 * tails_us / max(device_us, 1e-9):.1f} % "
+          "of it")
     print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
                        max_name_column_width=70))
 

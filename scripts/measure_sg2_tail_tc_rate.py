@@ -1,0 +1,349 @@
+"""The tensor-core rate the bf16 tail kernels sustain, and where their time goes, on the card.
+
+Card counterpart of ``scripts/measure_sg2_megakernel_bound.py::_kernel``, the
+TPU rig that asked what rate the MXU sustains in the inner loop of
+StyleGAN2's 1024^2 same-conv. Here that loop runs on the tensor cores
+(``mma.sync`` m16n8k16, bf16 operands, f32 accumulation) in the bf16 design of
+``warpedganspace_torch/csrc/sg2_tail.cu``, so the question is asked of it.
+
+Builds variants of the port's ``csrc/sg2_tail.cu`` and ``csrc/proggan_tail.cu``,
+each with one part of the bf16 design taken out or changed by a textual edit
+of the source (every edit must apply exactly once), and times each with CUDA
+events in turns with the shipped design (shipped first and last). The
+variants mirror the TPU rig's four:
+
+- ``dots``: the products alone, the staging of activations and the weight
+  chunks' copies taken out: the loop's tensor-core ceiling;
+- ``build``: the staging and the mid tile's epilogue and bf16 pack, no
+  products;
+- ``full``: the shipped kernel;
+- ``inter``: each weight chunk's ``cp.async`` issued and waited on just before
+  its products, instead of two chunks ahead of them;
+
+and, beside them, ``full`` without its epilogues, without the mid tile's
+writes, without the weight copies or without the input's staging, with other
+register bounds (``__launch_bounds__``: the shipped design asks for two blocks
+an SM at C = 64, three at C = 32 and four at C = 16; the variants ask for one,
+and for one block fewer at C = 32 and 16), and the CUDA-core design
+of the same source run on bf16 operands (the design bf16 took before the
+tensor cores). Where a part is skipped rather than cut, it is skipped by a
+condition the compiler cannot decide, so no product is dropped with it. A variant that takes
+a part out computes wrong values: it measures time only.
+
+StyleGAN2 is timed at its 1024^2 section (C=32, 512^2 -> 1024^2) and its 512^2
+section (C=64, writing x2), ProgGAN at its three sections (C=64, 128^2 ->
+256^2; C=32, 256^2 -> 512^2; C=16, 512^2 -> 1024^2 with the RGB head, hi + lo
+products), all at the render batch B=16 in bf16. For each variant it prints the time and the
+sustained rate: the FLOP of the ``mma.sync`` instructions the shipped design
+issues for the section (4,096 a m16n8k16; the up-conv's 81 positions a parity
+padded to 96, the mid tile's halo recomputed), over the time, over the
+data-sheet dense bf16 peak of 989 TFLOP/s, beside the card's name and power
+limit. Nothing is calibrated against ``bench.py``: that calibration is the
+TPU's.
+
+    PYTHONPATH=. python scripts/measure_sg2_tail_tc_rate.py
+
+Needs an NVIDIA card and ``nvcc``; imports no JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import os.path as osp
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from warpedganspace_torch.ops import _build, proggan_tail_cuda, sg2_tail_cuda
+
+B = 16                                      # the render batch
+PEAK_BF16_FLOPS = 989e12                    # H100 SXM data sheet, dense bf16
+OUT_DIR = osp.join(osp.dirname(_build.BUILD_DIR), "tail_tc_rate")
+HEADERS = ("tc_bf16.cuh", "tc_conv.cuh")
+
+# Textual edits of the tensor-core designs: (old, new), each applied once.
+SG2_NO_FETCH = [("  if (j >= K::NCHUNK) return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB",
+                 "  return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB")]
+SG2_NO_STAGING = [("  tcc::stage_nchw<kThreads>(act, K::IN_ROW, x + (size_t)b * CI * hi * wi, CI, hi, "
+                   "wi, iy0, ix0,\n                            kInWin, [vs1](int ci, float v) "
+                   "{ return v * vs1[ci]; }, tid);\n", "")]
+SG2_NO_PRODUCTS = [("        tcc::mma_step(acc, a, bs + 32 * ks, 16 * K::UP_ROW);\n", ""),
+                   ("      tcc::mma_step(acc, a, bs + tt * C * K::SAME_ROW, 16 * K::SAME_ROW);\n", "")]
+SG2_INTER = [
+    ("  fetch_chunk<C>(ring, wu, wsame, 0, tid);\n  tc::cp_async_commit();\n"
+     "  fetch_chunk<C>(ring + K::SLOT, wu, wsame, 1, tid);\n  tc::cp_async_commit();\n", ""),
+    ("      tcc::cp_async_wait<1>();   // chunk j has landed (this thread's copies)\n"
+     "      __syncthreads();           // (everyone's); chunk j - 1's slot is free\n"
+     "      fetch_chunk<C>(ring + ((j + 2) % kStages) * K::SLOT, wu, wsame, j + 2, tid);\n"
+     "      tc::cp_async_commit();\n",
+     "      __syncthreads();\n      fetch_chunk<C>(ring + (j % kStages) * K::SLOT, wu, wsame, j, tid);\n"
+     "      tc::cp_async_commit();\n      tcc::cp_async_wait<0>();\n      __syncthreads();\n"),
+    ("    tcc::cp_async_wait<1>();\n    __syncthreads();   // chunk j and (at the first) the mid "
+     "tile are in shared memory\n    fetch_chunk<C>(ring + ((j + 2) % kStages) * K::SLOT, wu, "
+     "wsame, j + 2, tid);\n    tc::cp_async_commit();\n",
+     "    __syncthreads();\n    fetch_chunk<C>(ring + (j % kStages) * K::SLOT, wu, wsame, j, tid);\n"
+     "    tc::cp_async_commit();\n    tcc::cp_async_wait<0>();\n    __syncthreads();\n")]
+# A part skipped at run time by a condition the compiler cannot decide (hi is
+# never negative, always positive), so the accumulators it reads stay live and
+# no product is dropped with it.
+SG2_NO_EPILOGUES = [("        if (q >= kPos) continue;\n", "        if (q >= kPos || hi > 0) continue;\n"),
+                    ("    for (int hh = 0; hh < 2; ++hh) {\n      const int gy = y0 + kSameMT * warp + i",
+                     "    for (int hh = 0; hh < (hi > 0 ? 0 : 2); ++hh) {\n"
+                     "      const int gy = y0 + kSameMT * warp + i")]
+SG2_NO_MID_WRITES = [("          row[4 * n + tq] = tc::pack_bf16x2(v[0], v[1]);\n",
+                      "          if (hi < 0) row[4 * n + tq] = tc::pack_bf16x2(v[0], v[1]);\n")]
+MIN_BLOCKS = "template <int C>\nconstexpr int kMinBlocks = C == 64 ? 2 : (C == 32 ? 3 : 4);"
+FREE_REGISTERS = [(MIN_BLOCKS, "template <int C>\nconstexpr int kMinBlocks = 1;")]
+ONE_FEWER = [(MIN_BLOCKS, "template <int C>\nconstexpr int kMinBlocks = C == 16 ? 3 : 2;")]
+SG2_CUDA_CORES = [("is_bf16 ? tc::launch(in, rgb, x2, b, c, hi, wi, s)",
+                   "is_bf16 ? cc::launch<__nv_bfloat16>(in, rgb, x2, b, c, hi, wi, s)")]
+
+PG_NO_FETCH = [("  if (j >= K::NCHUNK) return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB",
+                "  return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB")]
+PG_NO_STAGING = [("  tcc::stage_nchw<kThreads>(act, K::IN_ROW, x + (size_t)b * CI * hi * wi, CI, hi, "
+                  "wi, iy0, ix0,\n                            kInWin, [](int, float v) { return v; }, "
+                  "tid);\n", ""),
+                 ("    for (int p = tid >> 3; p < kInPix; p += kThreads / 8) {",
+                  "    for (int p = tid >> 3; p < 0; p += kThreads / 8) {")]
+PG_NO_PRODUCTS = [("        tcc::mma_step(acc, a, bs + 32 * ks, 16 * K::UP_ROW);\n", ""),
+                  ("          tcc::mma_step(acc, a, bs + 32, 16 * K::UP_ROW);            // A hi x W lo\n", ""),
+                  ("          tcc::mma_step(acc, a, bs, 16 * K::UP_ROW);                 // A lo x W hi\n", ""),
+                  ("      tcc::mma_step(acc, a, bs + tt * C * K::SAME_ROW, 16 * K::SAME_ROW);\n", ""),
+                  ("        tcc::mma_step(acc, a, bs + tt * C * K::SAME_ROW, 16 * K::SAME_ROW);   // A lo x W\n", "")]
+PG_NO_EPILOGUES = [("      for (int hh = 0; hh < 2; ++hh) {\n        const int q = 16 * (kUpMT * grp + i)",
+                    "      for (int hh = 0; hh < (hi > 0 ? 0 : 2); ++hh) {\n"
+                    "        const int q = 16 * (kUpMT * grp + i)"),
+                   ("    for (int hh = 0; hh < 2; ++hh) {\n      const int gy = y0 + kSameMT * warp + i",
+                    "    for (int hh = 0; hh < (hi > 0 ? 0 : 2); ++hh) {\n"
+                    "      const int gy = y0 + kSameMT * warp + i")]
+PG_CUDA_CORES = [("      is_bf16 ? tc::launch(x, w_up,", "      is_bf16 ? cc::launch<__nv_bfloat16>(x, w_up,")]
+
+SG2_VARIANTS = {
+    "full": [],
+    "dots": SG2_NO_FETCH + SG2_NO_STAGING,
+    "build": SG2_NO_PRODUCTS,
+    "inter": SG2_INTER,
+    "full without epilogues": SG2_NO_EPILOGUES,
+    "full without mid-tile writes": SG2_NO_MID_WRITES,
+    "full without weight copies": SG2_NO_FETCH,
+    "full without input staging": SG2_NO_STAGING,
+    "full, registers left to the compiler": FREE_REGISTERS,
+    "full, one block fewer an SM at C = 32 and 16": ONE_FEWER,
+    "CUDA-core design on bf16": SG2_CUDA_CORES,
+}
+PG_VARIANTS = {
+    "full": [],
+    "dots": PG_NO_FETCH + PG_NO_STAGING,
+    "build": PG_NO_PRODUCTS,
+    "full without epilogues": PG_NO_EPILOGUES,
+    "full without weight copies": PG_NO_FETCH,
+    "full without input staging": PG_NO_STAGING,
+    "full, registers left to the compiler": FREE_REGISTERS,
+    "full, one block fewer an SM at C = 32 and 16": ONE_FEWER,
+    "CUDA-core design on bf16": PG_CUDA_CORES,
+}
+# (C, input side, x2 written / head): the sections timed.
+SG2_SECTIONS = ((32, 512, False), (64, 256, True))
+PG_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
+
+
+def _edit(text: str, edits) -> str:
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"edit does not apply once ({text.count(old)}): {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def _build_variant(source: str, name: str, edits) -> tuple[str, str]:
+    """Write the edited source and the headers into their own directory,
+    compile, return (library path, the compiler's report)."""
+    tag = "".join(ch if ch.isalnum() else "_" for ch in name)
+    d = osp.join(OUT_DIR, osp.splitext(source)[0], tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(osp.join(_build.CSRC_DIR, source)) as f:
+        text = _edit(f.read(), edits)
+    with open(osp.join(d, source), "w") as f:
+        f.write(text)
+    for header in HEADERS:
+        shutil.copy(osp.join(_build.CSRC_DIR, header), d)
+    lib = osp.join(d, "lib.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, osp.join(d, source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} / {name}:\n{proc.stderr}")
+    return lib, proc.stderr
+
+
+def _registers(report: str, kind: str, name: str, c: int, extra: bool) -> str:
+    """The registers ptxas reports for the instantiation a section runs: the
+    tensor-core kernel of C (and, for ProgGAN, with or without the head), or
+    the CUDA-core one on bf16."""
+    if name.startswith("CUDA-core"):
+        tmpl = f"cc14section_kernelI13__nv_bfloat16Li{c}E"
+    elif kind == "sg2_tail":
+        tmpl = f"tc14section_kernelILi{c}E"
+    else:
+        tmpl = f"tc14section_kernelILi{c}ELb{int(extra)}E"
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and tmpl in line:
+            for nxt in lines[i + 1:i + 4]:
+                if "Used" in nxt:
+                    spill = [w for w in lines[i + 1:i + 4] if "spill" in w]
+                    return (nxt.split("Used")[1].split(",")[0].strip()
+                            + (f" ({spill[0].strip()})" if spill else ""))
+    return "?"
+
+
+def cuda_ms(fn, iters=10, warmup=2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sg2_mma_flop(c: int, h: int) -> float:
+    """FLOP of the mma.sync instructions the bf16 StyleGAN2 design issues for
+    one section at B: 8 warps, each 3 m16 tiles x C/8 n8 tiles over 9 taps x
+    2C/16 k steps (up-conv) and 2 m16 tiles x C/8 n8 tiles over 9 taps x C/16
+    k steps (same-conv), per 16 x 16 output tile."""
+    tiles = B * (2 * h // 16) ** 2
+    per_tile = 8 * (c // 8) * (3 * 9 * 2 * c // 16 + 2 * 9 * c // 16)
+    return 4096.0 * per_tile * tiles
+
+
+def pg_mma_flop(c: int, h: int, head: bool) -> float:
+    """The same for the bf16 ProgGAN design: 4 merged taps x 2C/16 k steps
+    in the up-conv (three products a step with the head's hi + lo), 9 taps x
+    C/16 in the same-conv (two with the head)."""
+    tiles = B * (2 * h // 16) ** 2
+    up, same = (3, 2) if head else (1, 1)
+    per_tile = 8 * (c // 8) * (3 * 4 * 2 * c // 16 * up + 2 * 9 * c // 16 * same)
+    return 4096.0 * per_tile * tiles
+
+
+def _sg2_call(fn, c, h, want_x2, cuda_cores):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    x = rnd(B, 2 * c, h, h)
+    w_up, w_same, w_rgb = (rnd(c, 2 * c, 3, 3, std=0.5 * (18 * c) ** -0.5),
+                           rnd(c, c, 3, 3, std=0.5 * (9 * c) ** -0.5),
+                           rnd(3, c, 1, 1, std=0.5 * c ** -0.5))
+    vecs = [rnd(B, 2 * c, mean=1.0, std=0.3)] + [rnd(B, c, mean=1.0, std=0.2) for _ in range(4)]
+    n1, n2 = rnd(1, 1, 2 * h, 2 * h), rnd(1, 1, 2 * h, 2 * h)
+    nw1, nw2 = (torch.tensor([v], device="cuda", dtype=torch.bfloat16) for v in (0.7, -0.4))
+    b1, b2, rgb_b = rnd(c, std=0.3), rnd(c, std=0.3), rnd(3, std=0.3)
+    wu, ws, wr = sg2_tail_cuda.kernel_weights(
+        w_up, w_same, w_rgb, torch.float32 if cuda_cores else torch.bfloat16)
+    rgb = torch.empty((B, 3, 2 * h, 2 * h), device="cuda", dtype=torch.bfloat16)
+    x2 = torch.empty((B, c, 2 * h, 2 * h), device="cuda", dtype=torch.bfloat16) if want_x2 else None
+    keep = [x, wu, ws, wr, *vecs, n1, nw1, b1, n2, nw2, b2, rgb_b, rgb, x2]
+    ptrs = [t.data_ptr() for t in (x, wu, ws, wr, *vecs, n1, nw1, b1, n2, nw2, b2, rgb_b, rgb)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(*ptrs, None if x2 is None else x2.data_ptr(), 1, B, c, h, h, int(want_x2), stream)
+        if err != 0:
+            raise RuntimeError(f"sg2_tail variant failed to launch: cudaError {err}")
+        return keep
+    return call
+
+
+def _pg_call(fn, c, h, head, cuda_cores):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    x = rnd(B, 2 * c, h, h)
+    w_up, w_same = rnd(c, 2 * c, 3, 3, std=(18 * c) ** -0.5), rnd(c, c, 3, 3, std=(9 * c) ** -0.5)
+    b_up, b_same = rnd(c, std=0.3), rnd(c, std=0.3)
+    s_up, s_same = (torch.tensor([v], device="cuda", dtype=torch.bfloat16) for v in (1.3, 0.8))
+    hd = ((rnd(3, c, 1, 1, std=c ** -0.5), rnd(3, std=0.3),
+           torch.tensor([1.1], device="cuda", dtype=torch.bfloat16)) if head else None)
+    if not cuda_cores:
+        w_up, w_same = proggan_tail_cuda.tc_weights(w_up, w_same)
+    out = torch.empty((B, 3 if head else c, 2 * h, 2 * h), device="cuda", dtype=torch.bfloat16)
+    keep = [x, w_up, b_up, s_up, w_same, b_same, s_same, hd, out]
+    head_ptrs = [t.data_ptr() for t in hd] if hd else [None] * 3
+    ptrs = [t.data_ptr() for t in (x, w_up, b_up, s_up, w_same, b_same, s_same)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(*ptrs, *head_ptrs, out.data_ptr(), 1, B, c, h, h, stream)
+        if err != 0:
+            raise RuntimeError(f"proggan_tail variant failed to launch: cudaError {err}")
+        return keep
+    return call
+
+
+def _time(kind, variants, libs, sections, make_call, flop, card):
+    for sec in sections:
+        c, h, extra = sec
+        names = list(variants) + ["full"]            # the shipped design first and last
+        times = {}
+        for name in names:
+            fn, _ = libs[(kind, name)]
+            call = make_call(fn, c, h, extra, name.startswith("CUDA-core"))
+            call()
+            times.setdefault(name, []).append(cuda_ms(call))
+            del call
+            torch.cuda.empty_cache()
+        f = flop(*sec)
+        for name in variants:
+            ts = times[name]
+            ms = sum(ts) / len(ts)
+            rate = f / (ms * 1e-3)
+            print(f"[{kind} C={c} {h}^2 -> {2 * h}^2{' +x2' if extra and kind == 'sg2_tail' else ''}"
+                  f"{' +head' if extra and kind == 'proggan_tail' else ''} B={B} bf16] {name}: "
+                  f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}); shipped design's mma.sync "
+                  f"work {f / 1e9:.1f} GFLOP at {rate / 1e12:.1f} TFLOP/s = "
+                  f"{100 * rate / PEAK_BF16_FLOPS:.1f} % of the 989 TFLOP/s bf16 peak; "
+                  f"{_registers(libs[(kind, name)][1], kind, name, c, extra)}; on {card}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("measure_sg2_tail_tc_rate: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    jobs = [("sg2_tail", "sg2_tail.cu", k, v) for k, v in SG2_VARIANTS.items()]
+    jobs += [("proggan_tail", "proggan_tail.cu", k, v) for k, v in PG_VARIANTS.items()]
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        built = list(pool.map(lambda j: _build_variant(*j[1:]), jobs))
+    libs = {}
+    for (kind, _, name, _), (path, report) in zip(jobs, built):
+        lib = ctypes.CDLL(path)
+        if kind == "sg2_tail":
+            fn = lib.sg2_tail_section_launch
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        else:
+            fn = lib.proggan_tail_section_launch
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[(kind, name)] = (fn, report)
+    with torch.no_grad():
+        _time("sg2_tail", SG2_VARIANTS, libs, SG2_SECTIONS, _sg2_call,
+              lambda c, h, _: sg2_mma_flop(c, h), card)
+        _time("proggan_tail", PG_VARIANTS, libs, PG_SECTIONS, _pg_call, pg_mma_flop, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

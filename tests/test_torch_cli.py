@@ -557,3 +557,17 @@ def test_train_cli_rules(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_train.main(TRAIN_FLAGS + ["--max-iter", "1"])   # --cuda is the default
+
+
+@pytest.mark.parametrize("gan_type", ["SNGAN_MNIST", "SNGAN_AnimeFaces"])
+def test_train_cli_rejects_unported_types_before_writing(gan_type, tmp_path, monkeypatch):
+    """A GAN type the port does not carry raises before the experiment
+    directory exists, so the failed launch leaves no tree behind."""
+    from warpedganspace_torch.cli import train as t_train
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_train.main(["--gan-type", gan_type, "-K", "2", "-D", "2", "--reconstructor-type",
+                      "LeNet", "--no-cuda"])
+    assert not osp.exists("experiments")
+    assert os.listdir(tmp_path) == []

@@ -50,10 +50,12 @@ def _problem(seed, b, c, h, w, device, dtype=torch.float32):
 
 
 # f32: sums of up to 9 * 128 unit-scale products in another order, and the
-# polyphase up-conv weights composed in f32. bf16: the kernel keeps f32
-# between its stages where the plain version rounds every intermediate, so it
-# is held to the plain version in f32 on the same rounded operands, within the
-# rounding of its bf16 outputs (values below 8, half an ulp of 2^-5, doubled).
+# polyphase up-conv weights composed in f32. bf16: the tensor-core design
+# rounds x * s1, the composed up-conv weights and the mid tile to bf16 where
+# the plain version rounds every intermediate, so it is held to the plain
+# version in f32 on the same rounded operands within 3e-2: the outputs' half
+# ulp below 8, 2^-6, plus about as much from the intermediates
+# (tests/test_torch_tail_tc_numerics.py emulates those roundings).
 def _check(ops, want_x2):
     before = sg2_tail_cuda.launches
     got = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
@@ -102,6 +104,44 @@ def test_path_shapes(cuda, c, r, want_x2):
 ])
 def test_border_and_ragged_shapes(cuda, dtype, want_x2, c, h, w):
     _check(_problem(2, 3, c, h, w, cuda, dtype), want_x2)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+def test_bf16_repeats_are_bit_equal(cuda, want_x2):
+    """The tensor-core design sums in a fixed order: one call's bits again."""
+    ops = _problem(7, 2, 32, 13, 11, cuda, torch.bfloat16)
+    first = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    again = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    first, again = (first, again) if want_x2 else ((first,), (again,))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert sg2_tail_cuda.design(torch.bfloat16).startswith("tensor cores")
+    assert sg2_tail_cuda.design(torch.float32) == "CUDA cores"
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+def test_bf16_c16_full_1024_section(cuda, want_x2):
+    """C = 16 at a whole 512^2 -> 1024^2 section, the widest grid of tiles and
+    the narrowest products (two n8 tiles a warp)."""
+    _check(_problem(8, 1, 16, 512, 512, cuda, torch.bfloat16), want_x2)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+@pytest.mark.parametrize("h,w", [
+    (13, 11),     # 26 x 22: the last tiles' parity groups cut at the edge
+    (7, 29),      # 14 x 58: one short tile row, widths not a multiple of 8
+    (25, 3),      # 50 x 6: a single narrow tile column
+])
+def test_bf16_parity_groups_at_ragged_edges(cuda, want_x2, c, h, w):
+    _check(_problem(9, 2, c, h, w, cuda, torch.bfloat16), want_x2)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+def test_bf16_zero_input_gives_the_bias_path(cuda, want_x2):
+    """A zero image in bf16: the mid tile is the noise and bias alone."""
+    ops = _problem(10, 2, 32, 8, 8, cuda, torch.bfloat16)
+    ops[0].zero_()
+    _check(ops, want_x2)
 
 
 def test_limits_raise(cuda):

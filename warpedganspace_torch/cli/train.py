@@ -27,7 +27,7 @@ import torch
 
 from warpedganspace_torch.cli.sample_gan import select_device
 from warpedganspace_torch.config import GAN_RESOLUTIONS, GAN_WEIGHTS, RECONSTRUCTOR_TYPES
-from warpedganspace_torch.models.gan_load import build_gan
+from warpedganspace_torch.models.gan_load import build_gan, check_ported
 from warpedganspace_torch.models.reconstructor import Reconstructor
 from warpedganspace_torch.models.support_sets import SupportSets
 from warpedganspace_torch.train.trainer import Trainer
@@ -119,6 +119,7 @@ def main(argv=None):
             parser.error(f"{flag} is required")
     if args.gan_type == "BigGAN" and args.biggan_target_classes is None:
         parser.error("In case of BigGAN, a list of classes needs to be determined.")
+    check_ported(args.gan_type)
     device = select_device(args.cuda)
 
     # Create output dir and save current arguments (the args.json contract).

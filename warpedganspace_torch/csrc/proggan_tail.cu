@@ -9,12 +9,9 @@
 //   -> PixelNorm -> conv3x3 pad 1 (C -> C) -> x * s_same + b_same -> LeakyReLU(0.2)
 //   [-> PixelNorm -> conv1x1 (C -> 3) -> x * s_head + b_head]
 //
-// PixelNorm is x * rsqrt(mean_c(x^2) + 1e-8). Storage is f32 or bf16, all
-// arithmetic and every intermediate f32 (the TPU kernel rounds its mid tile to
-// the storage type; keeping it f32 is nearer to the f32 result). None of the
-// intermediates (the 4x upsampled input, the mid activation, the three
-// normalised copies) reaches device memory: a section is one read of its input
-// and one write of its output.
+// PixelNorm is x * rsqrt(mean_c(x^2) + 1e-8). None of the intermediates (the 4x
+// upsampled input, the mid activation, the normalised copies) reaches device
+// memory: a section is one read of its input and one write of its output.
 //
 // What bounds it: the least arithmetic for a section is the phase-merged
 // up-conv (4 taps of 2C x C per output pixel, see below) plus the same-conv
@@ -24,61 +21,105 @@
 // the data-sheet 67 TFLOP/s that is 0.14 ms per image, nine to eighteen times
 // the bytes' time at 3.35 TB/s: operations bound it. With bf16 storage the
 // card's peak is the tensor cores' 989 TFLOP/s (bf16 operands, f32
-// accumulation) and the bound falls to 0.009 ms per image, still operations;
-// this kernel does its arithmetic on the CUDA cores for both storage types.
+// accumulation), 0.009 ms per image, still operations.
 //
-// Layout: NCHW activations and OIHW weights, the port's model layouts. A tile
-// row of one channel is a contiguous run (16 outputs, 10 inputs) whatever C is;
-// NHWC would give runs of only C = 16..64 values and a transpose on both sides
-// of the tail.
+// Two designs, chosen in the C launch function by the storage type: f32 on
+// the CUDA cores (namespace cc), bf16 on the tensor cores (namespace tc). Both
+// take NCHW activations, the port's model layout, and a block per (image,
+// 16 x 16 output tile); nothing of the TPU kernel's fold-x lanes, selection
+// matrices or row stripes is carried over. Both recompute the same-conv's halo
+// of the 18 x 18 mid tile (1.27x) and split that tile into four parity groups
+// of 9 x 9 pixels: nearest-up followed by a 3x3 conv is, for each parity of the
+// mid pixel's row and column, a 2x2 conv on the small input with merged taps
+// (rows: an even row Y reads input row Y/2-1 with tap 0 and row Y/2 with taps
+// 1+2; an odd row reads row (Y-1)/2 with taps 0+1 and row (Y+1)/2 with tap 2;
+// columns alike), 4 taps instead of 9. Mid pixels outside the image are set to
+// ZERO, not computed: the same-conv pads the normalised mid tensor with zeros.
+// Ragged edges are masked: any Hi, Wi >= 1; tiles past the right and bottom
+// edge store nothing outside the image. Offsets are 64-bit; the limits are
+// 2^31 - 1 blocks (B x tiles) and C in {16, 32, 64}.
 //
-// Design (nothing of the TPU kernel's fold-x lanes, selection matrices or row
-// stripes is carried over).
-// - One block per (image, 16 x 16 output tile), 8 C threads. The block stages
-//   the 10 x 10 input tile (halo 1) of all 2C channels in shared memory as f32
-//   and PixelNorms it there: PixelNorm commutes with the nearest upsampling, so
-//   the upsampled tensor never exists.
-// - Up-conv on the 18 x 18 mid tile (the same-conv's halo is recomputed, 1.27x).
-//   Nearest-up followed by a 3x3 conv is, for each parity of the mid pixel's
-//   row and column, a 2x2 conv on the small input with merged taps
-//   (rows: even Y reads input row Y/2-1 with tap 0 and row Y/2 with taps 1+2;
-//   odd Y reads row (Y-1)/2 with taps 0+1 and row (Y+1)/2 with tap 2; columns
-//   alike): 4 taps instead of 9, exact. The mid tile splits into four parity
-//   groups of 9 x 9 pixels; a warp owns one (parity group, 16 output channels),
-//   27 lanes each holding 3 pixels x 16 channels in registers.
-// - Weights do not fit in shared memory (section 1's up-conv is 295 KB in f32),
-//   so they stream through it in chunks of 8 input channels: each thread
-//   fetches the 9 raw taps of one (input channel, output channel) pair straight
-//   from the OIHW tensor, merges them for the up-conv, and the next chunk's
-//   taps are already in flight in registers while the current chunk is
-//   multiplied. Weight reads in the inner loops are uniform float4 broadcasts;
-//   activation reads are conflict-free (mid rows are padded to 20 floats).
-// - Up-conv results get WScale and LeakyReLU, land in the mid tile, and are
-//   PixelNorm'd in place. Mid pixels outside the image are set to ZERO, not
-//   computed: the same-conv pads the normalised mid tensor with zeros.
-// - Same-conv from shared memory: a thread holds 4 rows x 8 channels of one
-//   output column; a warp covers 16 columns x 8 rows of one channel group.
-//   Then WScale, LeakyReLU and the store; with the head, the C channels of a
-//   pixel meet once more in shared memory for PixelNorm and the 1x1 conv.
-// - Ragged edges are masked: any Hi, Wi >= 1; tiles past the right and bottom
-//   edge store nothing outside the image. Offsets are 64-bit; the limits are
-//   2^31 - 1 blocks (B x tiles) and C in {16, 32, 64}.
-// - Tensor cores (wgmma / mma.sync), TMA and persistent blocks are later work.
+// f32 (cc): 8 C threads; all arithmetic and every intermediate f32. The block
+// stages the 10 x 10 input tile of all 2C channels as f32 and PixelNorms it
+// in place (PixelNorm commutes with the nearest upsampling). Weights stream
+// through shared memory in chunks of 8 input channels: each thread fetches
+// the 9 raw taps of one (input channel, output channel) pair from the OIHW
+// tensor, merges them for the up-conv, and the next chunk's taps are in flight
+// in registers while the current one is multiplied; weight reads in the inner
+// loops are uniform float4 broadcasts. Up-conv: a warp owns one (parity group,
+// 16 output channels), 27 lanes holding 3 pixels x 16 channels. Same-conv: a
+// thread holds 4 rows x 8 channels of one output column. With the head, the C
+// channels of a pixel meet once more in shared memory.
+//
+// bf16 (tc): both convolutions are implicit GEMMs on mma.sync m16n8k16 with
+// bf16 operands and f32 accumulation, from shared memory (tc_conv.cuh); 8
+// warps.
+// - Activations are bf16 and channel-last in shared memory, [pixel][channel]
+//   rows padded to an odd number of 16-byte units (conflict-free ldmatrix);
+//   the staging pass transposes the NCHW input, then PixelNorms each pixel in
+//   f32 and rounds it to bf16 once.
+// - Up-conv: M = the 81 positions (A, V) of a parity group (padded to 96), N =
+//   C per parity, K = 4 merged taps x 2C. Position (A, V) of every parity reads
+//   input pixels (A + a, V + b), so one A operand serves the four parities'
+//   weights. A warp owns one parity and 3 m16 tiles, all C output columns.
+//   The merged taps are prepared by the wrapper ([tap][parity][co][ci], bf16).
+// - Epilogue in the accumulator layout: WScale, LeakyReLU, then PixelNorm over
+//   the C channels of each mid pixel from a lane's partial and two quad
+//   shuffles; the mid tile is written back as bf16 channel-last in the input
+//   tile's room.
+// - Same-conv: M = the 256 output pixels (an m16 tile is one output row), N =
+//   C, K = 9 taps x C; a warp owns two output rows. The head's PixelNorm and
+//   the 1x1 conv (C -> 3) are quad sums of the accumulators in f32.
+// - Weights go through a ring of three shared slots by 16-byte cp.async, one
+//   chunk a step (a merged tap x 32 input channels for all four parities; 3 or
+//   9 taps x 16 channels of the same-conv): two chunks are in flight while one
+//   is multiplied, one block barrier a chunk.
+// - Rounding. The products see bf16 operands: the normalised input, the merged
+//   taps (sums of two or four bf16 weights, rounded once) and the normalised mid
+//   tile. A bf16 rounding of an intermediate is 2^-9 relative, and the output
+//   of a section without the head stays within ~0.02 of the f32 section on
+//   the same operands (tests/test_torch_tail_tc_numerics.py). The RGB head
+//   PixelNorms the output's C channels: at a pixel whose channels are all small
+//   it magnifies their absolute errors, and at C = 16 one rounding alone gives
+//   up to 0.05 there, over the 3e-2 bound. So the section with the head carries
+//   the normalised input, the merged taps and the mid tile as bf16 hi + lo
+//   pairs (x = hi + lo, both bf16; hi x hi + hi x lo + lo x hi in the up-conv,
+//   hi x W + lo x W in the same-conv, where the raw weights are exact): three
+//   and two products a step, and only the output's rounding is left.
+// - Shared memory: C = 64 (256^2 section): input tile 100 x 272 B = 27.2 KB,
+//   mid tile 324 x 144 B = 46.7 KB in its room, ring 3 x 20.5 KB: 108.1 KB,
+//   two blocks (16 warps) an SM. C = 32 (512^2): 14.4 and 25.9 KB, ring 3 x
+//   13.8 KB: 67.4 KB, three blocks. C = 16 with the head (1024^2, hi + lo): 14.4
+//   and 25.9 KB, ring 3 x 6.9 KB: 46.7 KB, four blocks. __launch_bounds__
+//   holds the registers to those counts (kMinBlocks; -Xptxas -v prints them).
+// - Tensor memory accelerator loads, wgmma and persistent blocks are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tc_conv.cuh"
 
 namespace {
 
 constexpr int kTile = 16;                       // output tile, rows and columns
 constexpr int kMid = kTile + 2;                 // mid tile with the same-conv's halo
+constexpr int kGroup = kMid / 2;                // a parity group of the mid tile is 9 x 9
+constexpr float kSlope = 0.2f;
+constexpr float kEps = 1e-8f;
+
+__device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : kSlope * v; }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores. The template also takes bf16 storage, the design bf16 had
+// before the tensor cores: scripts/measure_sg2_tail_tc_rate.py times it so.
+namespace cc {
+
 constexpr int kMidStride = 20;                  // floats per mid row: 4 rows apart = 16 banks
 constexpr int kMidPlane = kMid * kMidStride;    // floats per mid channel
 constexpr int kIn = kTile / 2 + 2;              // input tile with the up-conv's halo
 constexpr int kInPlane = kIn * kIn;
-constexpr int kGroup = kMid / 2;                // a parity group of the mid tile is 9 x 9
 constexpr int kKC = 8;                          // input channels per weight chunk
-constexpr float kSlope = 0.2f;
-constexpr float kEps = 1e-8f;
 static_assert(kTile == 16 && kKC == 8, "thread maps assume a 16 x 16 tile and 8-channel chunks");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -87,7 +128,6 @@ __device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
 }
-__device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : kSlope * v; }
 
 // The taps of one 3-tap axis that land on input offset a (0 or 1) for a mid
 // pixel of local parity p: local index 2u + p sits at global coordinate
@@ -416,14 +456,391 @@ cudaError_t launch(const void* x, const void* w_up, const void* b_up, const void
   }
 }
 
-}  // namespace
+}  // namespace cc
 
-// C entry point (loaded with ctypes). x is (B, 2C, hi, wi), w_up (C, 2C, 3, 3),
-// w_same (C, C, 3, 3), the biases (C), the scales one element each; with a head,
-// w_head is (3, C), b_head (3), s_head one element and out (B, 3, 2 hi, 2 wi);
-// without, the three head pointers are null and out is (B, C, 2 hi, 2 wi). All
-// f32 (is_bf16 == 0) or all bf16 (is_bf16 == 1), contiguous on one device.
-// Returns a cudaError_t; 0 is success.
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation).
+namespace tc {
+
+constexpr int kThreads = 256;                   // 8 warps
+constexpr int kInWin = kTile / 2 + 2;           // input tile with the up-conv's halo
+constexpr int kInPix = kInWin * kInWin;
+constexpr int kMidPix = kMid * kMid;
+constexpr int kPos = kGroup * kGroup;           // positions of one parity group
+constexpr int kUpMT = 3;                        // up-conv m16 tiles a warp: 2 warps x 48 rows cover 81
+constexpr int kSameMT = 2;                      // same-conv m16 tiles (output rows) a warp
+constexpr int kStages = 3;                      // weight chunks: ring of shared slots
+// Blocks an SM that __launch_bounds__ asks registers for: left alone, the
+// compiler takes 170-220 registers a thread at C = 64 (one block an SM) and
+// 108-125 at C = 16 and 32; held to 128, 85 and 64 (two, three and four
+// blocks, as many as shared memory allows), the sections ran 5-30 % faster
+// on the card though some registers spill at C = 64
+// (scripts/measure_sg2_tail_tc_rate.py).
+template <int C>
+constexpr int kMinBlocks = C == 64 ? 2 : (C == 32 ? 3 : 4);
+static_assert(kThreads / 32 == 4 * 2 && 2 * kUpMT * 16 >= kPos && 8 * kSameMT == kTile,
+              "warp maps: 4 parities x 2 row groups; 8 warps x 2 output rows");
+
+// Sizes in bytes. With the RGB head (HEAD), activations and the merged
+// up-conv weights are carried as bf16 hi + lo pairs (three products a step in
+// the up-conv, two in the same-conv): the head's PixelNorm over the output's C
+// channels turns one bf16 rounding of an intermediate into up to ~0.05 at the
+// output (see the note at the top of this file).
+template <int C, bool HEAD>
+struct Cfg {
+  static constexpr bool SPLIT = HEAD;
+  static constexpr int CI = 2 * C;
+  static constexpr int NT = C / 8;                          // n8 tiles of one product
+  static constexpr int IN_ROW = 2 * ((SPLIT ? 2 : 1) * CI + 8);   // [hi | lo | pad]
+  static constexpr int MID_ROW = 2 * ((SPLIT ? 2 : 1) * C + 8);
+  // Up-conv chunk j: merged tap t = j / UP_KB, input channels (j % UP_KB) * UPK
+  // + [0, UPK); rows (parity, co) of [hi UPK | lo UPK] or [32 hi] + 8 pad.
+  static constexpr int UPK = SPLIT ? 16 : 32;
+  static constexpr int UP_ROW = 2 * (32 + 8);
+  static constexpr int UP_KB = CI / UPK;
+  static constexpr int NUP = 4 * UP_KB;
+  // Same-conv chunk: ST taps x 16 input channels, rows (tap, co).
+  static constexpr int ST = C == 64 ? 3 : 9;
+  static constexpr int SAME_ROW = 2 * (16 + 8);
+  static constexpr int SAME_KB = C / 16;
+  static constexpr int NCHUNK = NUP + (9 / ST) * SAME_KB;
+  static constexpr int UP_SLOT = 4 * C * UP_ROW;
+  static constexpr int SAME_SLOT = ST * C * SAME_ROW;
+  static constexpr int SLOT = UP_SLOT > SAME_SLOT ? UP_SLOT : SAME_SLOT;
+  // The input tile, then the mid tile in its room.
+  static constexpr int ACT = kInPix * IN_ROW > kMidPix * MID_ROW ? kInPix * IN_ROW
+                                                                 : kMidPix * MID_ROW;
+  static constexpr int SMEM = ACT + kStages * SLOT;
+  static_assert((IN_ROW / 16) % 2 == 1 && (MID_ROW / 16) % 2 == 1 && (UP_ROW / 16) % 2 == 1 &&
+                    (SAME_ROW / 16) % 2 == 1,
+                "odd 16-byte units per row: conflict-free ldmatrix");
+};
+
+// Weight chunk j into a ring slot (nothing past the last chunk). wup is the
+// merged up-conv weight [hi, lo][tap (a, b)][parity (pi, pj)][co][ci], wsame
+// the same-conv weight [tap][co][ci].
+template <int C, bool HEAD>
+__device__ __forceinline__ void fetch_chunk(uint32_t slot, const bf16* __restrict__ wup,
+                                            const bf16* __restrict__ wsame, int j, int tid) {
+  using K = Cfg<C, HEAD>;
+  if (j >= K::NCHUNK) return;
+  if (j < K::NUP) {
+    const int t = j / K::UP_KB, kb = j - t * K::UP_KB;
+    const bf16* src = wup + (size_t)t * 4 * C * K::CI + kb * K::UPK;
+    if (K::SPLIT) {
+      tcc::fetch_rows<kThreads>(slot, K::UP_ROW, src, K::CI, 4 * C, 2, tid);
+      tcc::fetch_rows<kThreads>(slot + 32, K::UP_ROW, src + (size_t)16 * C * K::CI, K::CI,
+                                4 * C, 2, tid);
+    } else {
+      tcc::fetch_rows<kThreads>(slot, K::UP_ROW, src, K::CI, 4 * C, 4, tid);
+    }
+  } else {
+    const int s = j - K::NUP, tg = s / K::SAME_KB, kb = s - tg * K::SAME_KB;
+    tcc::fetch_rows<kThreads>(slot, K::SAME_ROW, wsame + (size_t)tg * K::ST * C * C + kb * 16, C,
+                              K::ST * C, 2, tid);
+  }
+}
+
+template <int C, bool HEAD>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<C>)
+section_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wup,
+               const bf16* __restrict__ b_up, const bf16* __restrict__ s_up,
+               const bf16* __restrict__ wsame, const bf16* __restrict__ b_same,
+               const bf16* __restrict__ s_same, const bf16* __restrict__ w_head,
+               const bf16* __restrict__ b_head, const bf16* __restrict__ s_head,
+               bf16* __restrict__ out, int hi, int wi, int tiles_x, int tiles_y) {
+  using K = Cfg<C, HEAD>;
+  constexpr int CI = K::CI, NT = K::NT;
+  constexpr bool SPLIT = K::SPLIT;
+  extern __shared__ float4 smem4[];
+  char* act = reinterpret_cast<char*>(smem4);     // input tile [pixel][ch], then mid tile
+  const uint32_t act_a = tc::smem_addr(act);
+  const uint32_t ring = act_a + K::ACT;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  int bid = blockIdx.x;
+  const int tx = bid % tiles_x;
+  bid /= tiles_x;
+  const int ty = bid % tiles_y;
+  const int b = bid / tiles_y;
+  const int h = 2 * hi, w = 2 * wi;
+  const int y0 = ty * kTile, x0 = tx * kTile;     // output tile origin, even
+  const int iy0 = y0 / 2 - 1, ix0 = x0 / 2 - 1;   // input tile origin
+
+  // The first two weight chunks travel while the input is staged.
+  fetch_chunk<C, HEAD>(ring, wup, wsame, 0, tid);
+  tc::cp_async_commit();
+  fetch_chunk<C, HEAD>(ring + K::SLOT, wup, wsame, 1, tid);
+  tc::cp_async_commit();
+
+  // 1. The input tile as it is (bf16, exact), channel-last, zero outside.
+  tcc::stage_nchw<kThreads>(act, K::IN_ROW, x + (size_t)b * CI * hi * wi, CI, hi, wi, iy0, ix0,
+                            kInWin, [](int, float v) { return v; }, tid);
+  __syncthreads();
+
+  // 2. PixelNorm over the 2C channels of each input pixel in f32, rounded to
+  // bf16 once (and the remainder to bf16 for the lo half): 8 lanes a pixel.
+  // 100 pixels, 32 a pass: a warp's four pixels are all in or all out.
+  {
+    constexpr int PER = CI / 8;
+    const int sub = tid & 7;
+    for (int p = tid >> 3; p < kInPix; p += kThreads / 8) {
+      uint32_t* v = reinterpret_cast<uint32_t*>(act + p * K::IN_ROW) + sub * (PER / 2);
+      float f[PER];
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < PER / 2; ++i) {
+        const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(v + i);
+        f[2 * i] = __low2float(pr);
+        f[2 * i + 1] = __high2float(pr);
+        ss = fmaf(f[2 * i], f[2 * i], fmaf(f[2 * i + 1], f[2 * i + 1], ss));
+      }
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+      const float inv = rsqrtf(ss * (1.f / CI) + kEps);
+#pragma unroll
+      for (int i = 0; i < PER / 2; ++i) {
+        const float n0 = f[2 * i] * inv, n1 = f[2 * i + 1] * inv;
+        const uint32_t hv = tc::pack_bf16x2(n0, n1);
+        v[i] = hv;
+        if constexpr (SPLIT) {
+          const __nv_bfloat162 hp = *reinterpret_cast<const __nv_bfloat162*>(&hv);
+          v[i + CI / 2] = tc::pack_bf16x2(n0 - __low2float(hp), n1 - __high2float(hp));
+        }
+      }
+    }
+  }
+
+  // 3. Up-conv: nearest-up + conv3x3 as, for each parity (pi, pj) of the mid
+  // pixel (2 A + pi, 2 V + pj), a 2x2 conv of input pixels (A + a, V + b) with
+  // merged taps. The A operand (positions x input channels) is the same for
+  // all four parities; warp = (parity, 3 m16 tiles of the 81 positions), all
+  // C output channels. Rows past the 81st repeat the last and are not stored.
+  const int par = warp & 3, grp = warp >> 2;
+  const int pi = par >> 1, pj = par & 1;
+  {
+    float acc[kUpMT][NT][4];
+    tcc::zero(acc);
+    uint32_t apos[kUpMT];
+#pragma unroll
+    for (int i = 0; i < kUpMT; ++i) {
+      const int q = min(16 * (kUpMT * grp + i) + tcc::a_row(lane), kPos - 1);
+      apos[i] = act_a + ((q / kGroup) * kInWin + q % kGroup) * K::IN_ROW + 2 * tcc::a_k(lane);
+    }
+    const uint32_t blane = (par * C + tcc::b_row(lane)) * K::UP_ROW + 2 * tcc::b_k(lane);
+    for (int j = 0; j < K::NUP; ++j) {
+      tcc::cp_async_wait<1>();   // chunk j has landed (this thread's copies)
+      __syncthreads();           // (everyone's); chunk j - 1's slot is free
+      fetch_chunk<C, HEAD>(ring + ((j + 2) % kStages) * K::SLOT, wup, wsame, j + 2, tid);
+      tc::cp_async_commit();
+      const int t = j / K::UP_KB, kb = j - t * K::UP_KB;
+      const int shift = ((t >> 1) * kInWin + (t & 1)) * K::IN_ROW + 2 * kb * K::UPK;
+      const uint32_t bs = ring + (j % kStages) * K::SLOT + blane;
+#pragma unroll
+      for (int ks = 0; ks < K::UPK / 16; ++ks) {
+        uint32_t a[kUpMT];
+#pragma unroll
+        for (int i = 0; i < kUpMT; ++i) a[i] = apos[i] + shift + 32 * ks;
+        tcc::mma_step(acc, a, bs + 32 * ks, 16 * K::UP_ROW);
+        if constexpr (SPLIT) {
+          tcc::mma_step(acc, a, bs + 32, 16 * K::UP_ROW);            // A hi x W lo
+#pragma unroll
+          for (int i = 0; i < kUpMT; ++i) a[i] += 2 * CI;
+          tcc::mma_step(acc, a, bs, 16 * K::UP_ROW);                 // A lo x W hi
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with the input tile: the mid tile takes its room
+
+    // Epilogue: WScale, LeakyReLU, PixelNorm over the C channels of each mid
+    // pixel (a quad's partials), bf16 into the mid tile; zero outside the image.
+    const float su = __bfloat162float(s_up[0]);
+    float bias[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      bias[n][0] = __bfloat162float(b_up[8 * n + 2 * tq]);
+      bias[n][1] = __bfloat162float(b_up[8 * n + 2 * tq + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < kUpMT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q = 16 * (kUpMT * grp + i) + gq + 8 * hh;
+        const int mi = 2 * (q / kGroup) + pi, mj = 2 * (q % kGroup) + pj;
+        const int gy = y0 - 1 + mi, gx = x0 - 1 + mj;
+        const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
+        float v[NT][2];
+        float ss = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[n][e] = leaky(fmaf(acc[i][n][2 * hh + e], su, bias[n][e]));
+            ss = fmaf(v[n][e], v[n][e], ss);
+          }
+        ss = tc::quad_sum(ss);
+        const float inv = inside ? rsqrtf(ss * (1.f / C) + kEps) : 0.f;
+        if (q < kPos) {
+          uint32_t* row = reinterpret_cast<uint32_t*>(act + (mi * kMid + mj) * K::MID_ROW);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const float n0 = v[n][0] * inv, n1 = v[n][1] * inv;
+            const uint32_t hv = tc::pack_bf16x2(n0, n1);
+            row[4 * n + tq] = hv;
+            if constexpr (SPLIT) {
+              const __nv_bfloat162 hp = *reinterpret_cast<const __nv_bfloat162*>(&hv);
+              row[C / 2 + 4 * n + tq] = tc::pack_bf16x2(n0 - __low2float(hp), n1 - __high2float(hp));
+            }
+          }
+        }
+      }
+  }
+
+  // 4. Same-conv from the mid tile: warp = output rows 2 warp, 2 warp + 1 (one
+  // m16 tile each, its 16 columns the rows of the tile), all C channels.
+  float acc[kSameMT][NT][4];
+  tcc::zero(acc);
+  uint32_t apx[kSameMT];
+#pragma unroll
+  for (int i = 0; i < kSameMT; ++i)
+    apx[i] = act_a + ((kSameMT * warp + i) * kMid + tcc::a_row(lane)) * K::MID_ROW +
+             2 * tcc::a_k(lane);
+  const uint32_t blane = tcc::b_row(lane) * K::SAME_ROW + 2 * tcc::b_k(lane);
+  for (int j = K::NUP; j < K::NCHUNK; ++j) {
+    tcc::cp_async_wait<1>();
+    __syncthreads();   // chunk j and (at the first) the mid tile are in shared memory
+    fetch_chunk<C, HEAD>(ring + ((j + 2) % kStages) * K::SLOT, wup, wsame, j + 2, tid);
+    tc::cp_async_commit();
+    const int s = j - K::NUP, tg = s / K::SAME_KB, kb = s - tg * K::SAME_KB;
+    const uint32_t bs = ring + (j % kStages) * K::SLOT + blane;
+#pragma unroll
+    for (int tt = 0; tt < K::ST; ++tt) {
+      const int tap = tg * K::ST + tt;
+      const int shift = ((tap / 3) * kMid + tap % 3) * K::MID_ROW + 32 * kb;
+      uint32_t a[kSameMT];
+#pragma unroll
+      for (int i = 0; i < kSameMT; ++i) a[i] = apx[i] + shift;
+      tcc::mma_step(acc, a, bs + tt * C * K::SAME_ROW, 16 * K::SAME_ROW);
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int i = 0; i < kSameMT; ++i) a[i] += 2 * C;
+        tcc::mma_step(acc, a, bs + tt * C * K::SAME_ROW, 16 * K::SAME_ROW);   // A lo x W
+      }
+    }
+  }
+
+  // 5. Epilogue: WScale, LeakyReLU, then the store, or PixelNorm and the 1x1
+  // RGB conv from the accumulators (a quad's partials).
+  const float s2 = __bfloat162float(s_same[0]);
+  float bias[NT][2], wh[3][NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias[n][e] = __bfloat162float(b_same[8 * n + 2 * tq + e]);
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+        wh[o][n][e] = HEAD ? __bfloat162float(w_head[o * C + 8 * n + 2 * tq + e]) : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < kSameMT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gy = y0 + kSameMT * warp + i, gx = x0 + gq + 8 * hh;
+      const bool inside = gy < h && gx < w;
+      float v[NT][2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[n][e] = leaky(fmaf(acc[i][n][2 * hh + e], s2, bias[n][e]));
+      if constexpr (!HEAD) {
+        if (inside) {
+          bf16* o = out + (((size_t)b * C) * h + gy) * w + gx;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              o[(size_t)(8 * n + 2 * tq + e) * h * w] = __float2bfloat16(v[n][e]);
+        }
+      } else {
+        float ss = 0.f, rgb[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            ss = fmaf(v[n][e], v[n][e], ss);
+#pragma unroll
+            for (int o = 0; o < 3; ++o) rgb[o] = fmaf(wh[o][n][e], v[n][e], rgb[o]);
+          }
+        ss = tc::quad_sum(ss);
+#pragma unroll
+        for (int o = 0; o < 3; ++o) rgb[o] = tc::quad_sum(rgb[o]);
+        if (inside && tq < 3) {
+          const float inv = rsqrtf(ss * (1.f / C) + kEps);
+          const float r = tq == 0 ? rgb[0] : (tq == 1 ? rgb[1] : rgb[2]);
+          out[(((size_t)b * 3 + tq) * h + gy) * w + gx] = __float2bfloat16(
+              fmaf(r * inv, __bfloat162float(s_head[0]), __bfloat162float(b_head[tq])));
+        }
+      }
+    }
+}
+
+template <int C, bool HEAD>
+cudaError_t launch_c(const void* x, const void* w_up, const void* b_up, const void* s_up,
+                     const void* w_same, const void* b_same, const void* s_same,
+                     const void* w_head, const void* b_head, const void* s_head, void* out,
+                     int b, int hi, int wi, cudaStream_t stream) {
+  constexpr int smem = Cfg<C, HEAD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(section_kernel<C, HEAD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (2 * wi + kTile - 1) / kTile;
+  const int tiles_y = (2 * hi + kTile - 1) / kTile;
+  const long long blocks = (long long)b * tiles_x * tiles_y;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  auto p = [](const void* v) { return static_cast<const bf16*>(v); };
+  section_kernel<C, HEAD><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      p(x), p(w_up), p(b_up), p(s_up), p(w_same), p(b_same), p(s_same), p(w_head), p(b_head),
+      p(s_head), static_cast<bf16*>(out), hi, wi, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w_up, const void* b_up, const void* s_up,
+                   const void* w_same, const void* b_same, const void* s_same,
+                   const void* w_head, const void* b_head, const void* s_head, void* out, int b,
+                   int c, int hi, int wi, cudaStream_t stream) {
+  const bool head = w_head != nullptr;
+#define WGS_TAIL_CASE(CC)                                                                   \
+  case CC:                                                                                  \
+    return head ? launch_c<CC, true>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head,  \
+                                      b_head, s_head, out, b, hi, wi, stream)               \
+                 : launch_c<CC, false>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, \
+                                       b_head, s_head, out, b, hi, wi, stream);
+  switch (c) {
+    WGS_TAIL_CASE(16)
+    WGS_TAIL_CASE(32)
+    WGS_TAIL_CASE(64)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef WGS_TAIL_CASE
+}
+
+}  // namespace tc
+
+// C entry point (loaded with ctypes). x is (B, 2C, hi, wi); the biases (C),
+// the scales one element each; with a head, w_head is (3, C), b_head (3),
+// s_head one element and out (B, 3, 2 hi, 2 wi); without, the three head
+// pointers are null and out is (B, C, 2 hi, 2 wi). All f32 (is_bf16 == 0) or
+// all bf16 (is_bf16 == 1), contiguous on one device. The weights: f32, w_up
+// (C, 2C, 3, 3) and w_same (C, C, 3, 3) as the model holds them (OIHW); bf16,
+// as the wrapper prepares them for the tensor cores, w_up the merged taps
+// (2, 4, 4, C, 2C) as [hi, lo][tap (a, b)][parity (pi, pj)][co][ci] and w_same
+// (9, C, C) as [tap][co][ci]. Returns a cudaError_t; 0 is success.
 extern "C" int proggan_tail_section_launch(const void* x, const void* w_up, const void* b_up,
                                            const void* s_up, const void* w_same,
                                            const void* b_same, const void* s_same,
@@ -438,9 +855,15 @@ extern "C" int proggan_tail_section_launch(const void* x, const void* w_up, cons
   if (b == 0 || hi == 0 || wi == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head,
-                                      b_head, s_head, out, b, c, hi, wi, s)
-              : launch<float>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head,
-                              s_head, out, b, c, hi, wi, s);
+      is_bf16 ? tc::launch(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head, s_head,
+                           out, b, c, hi, wi, s)
+              : cc::launch<float>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head,
+                                  s_head, out, b, c, hi, wi, s);
   return (int)err;
+}
+
+// Which design serves an operand type: the tensor cores for bf16, the CUDA
+// cores for f32.
+extern "C" const char* proggan_tail_design(int is_bf16) {
+  return is_bf16 ? "tensor cores (mma.sync m16n8k16)" : "CUDA cores";
 }

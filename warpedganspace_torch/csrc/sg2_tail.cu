@@ -14,10 +14,8 @@
 // s1 (B, 2C), d1, s2, d2, s3 (B, C) are the per-sample modulation and
 // demodulation vectors: modulation sits on the activations, so every sample of
 // the batch shares one set of weights. The noise maps (H, W) are shared by the
-// batch. Storage is f32 or bf16; all arithmetic and every intermediate are
-// f32 (the TPU kernel rounds its epilogues to the storage type). Only rgb, and
-// x2 when the caller asks for it (the next block's input), reach device
-// memory: the mid activation lives in shared memory.
+// batch. Only rgb, and x2 when the caller asks for it (the next block's input),
+// reach device memory: the mid activation lives in shared memory.
 //
 // What bounds it: the up-conv as four polyphase 3x3 convs costs 9 taps of
 // 2C x C per output pixel, the same-conv 9 taps of C x C: about 29 G
@@ -28,60 +26,100 @@
 // least arithmetic, the transposed conv's 2.25 taps of 2C x C and then the
 // depthwise blur, is a quarter of the composite's up-conv.) With bf16 storage
 // the card's peak is the tensor cores' 989 TFLOP/s (bf16 operands, f32
-// accumulation); this kernel does its arithmetic on the CUDA cores for both
-// storage types.
+// accumulation).
 //
-// Layout: NCHW activations, weights prepared by the wrapper in f32: the up-conv
-// as [2C][4 phases][9 taps][C], the same-conv as [C][9 taps][C], ToRGB [3][C].
+// Two designs, chosen in the C launch function by the storage type: f32 on
+// the CUDA cores (namespace cc), bf16 on the tensor cores (namespace tc).
 // Nothing of the TPU kernel's fold-x lanes, K-window builds, k-merged RGB or
-// row stripes is carried over.
+// row stripes is carried over. Both take NCHW activations and a block per
+// (image, 16 x 16 output tile); both stage the 12 x 12 input tile (halo 2 on
+// the input grid) of all 2C channels already multiplied by s1, and recompute
+// the same-conv's halo of the 18 x 18 mid tile (1.27x). The stride-2
+// transposed conv followed by the 4-tap blur is, for each parity (py, px) of
+// the output pixel (2u + py, 2v + px), a 3x3 conv of the input pixels (u - 1
+// .. u + 1, v - 1 .. v + 1) with its own weights (the wrapper derives them
+// from the plain transposed conv and blur), so the mid tile splits into four
+// parity groups of 9 x 9 pixels. Mid pixels outside the image are set to ZERO,
+// not computed: the same-conv zero-pads x * s2. Ragged edges are masked: any
+// Hi, Wi >= 1; tiles past the right and bottom edge store nothing outside the
+// image. Offsets are 64-bit; the limits are 2^31 - 1 blocks (B x tiles) and C
+// in {16, 32, 64}.
 //
-// Design.
-// - One block per (image, 16 x 16 output tile), 8 C threads. The block stages
-//   the 12 x 12 input tile (halo 2 on the input grid) of all 2C channels in
-//   shared memory as f32, already multiplied by s1.
-// - Up-conv on the 18 x 18 mid tile (the same-conv's halo is recomputed,
-//   1.27x). The stride-2 transposed conv followed by the 4-tap blur is, for
-//   each parity (py, px) of the output pixel (2u + py, 2v + px), a 3x3 conv
-//   of the input pixels (u - 1 .. u + 1, v - 1 .. v + 1) with its own weights
-//   (the wrapper derives them from the plain transposed conv and blur). The
-//   mid tile splits into four parity groups of 9 x 9 pixels; a warp owns one
-//   (parity group, 16 output channels), 27 lanes each holding 3 pixels x 16
-//   channels in registers and reading its 9 x 3 input window once per input
-//   channel.
-// - Weights do not fit in shared memory (the C = 64 section's composite is
-//   1.2 MB in f32), so they stream through two shared buffers in chunks of 4
-//   input channels with 16-byte cp.async copies: the next chunk is in flight
-//   while the current one is multiplied, and the same-conv's first chunk while
-//   the up-conv's epilogue runs. Weight reads in the inner loops are uniform
-//   float4 broadcasts.
-// - Up-conv epilogue: * d1, + nw1 * noise1 + b1, leaky * sqrt 2, * s2 into the
-//   mid tile, which takes the input tile's room. Mid pixels outside the image
-//   are set to ZERO, not computed: the same-conv zero-pads x * s2.
-// - Same-conv from shared memory: a thread holds 4 rows x 8 channels of one
-//   output column; a warp covers 16 columns x 8 rows of one channel group.
-//   Epilogue * d2, + nw2 * noise2 + b2, leaky * sqrt 2 is x2 (stored when
-//   asked); x2 * s3 meets the other channels of its pixel in shared memory for
-//   the 1x1 ToRGB.
-// - Ragged edges are masked: any Hi, Wi >= 1; tiles past the right and bottom
-//   edge store nothing outside the image. Offsets are 64-bit; the limits are
-//   2^31 - 1 blocks (B x tiles) and C in {16, 32, 64}.
-// - Tensor cores (mma.sync / wgmma), TMA and persistent blocks are later work.
+// f32 (cc): 8 C threads; all arithmetic and every intermediate f32. Weights
+// prepared by the wrapper in f32: the up-conv as [2C][4 phases][9 taps][C],
+// the same-conv as [C][9 taps][C], ToRGB [3][C]. They stream through two
+// shared buffers in chunks of 4 input channels with 16-byte cp.async copies
+// (the C = 64 section's composite is 1.2 MB in f32): the next chunk is in
+// flight while the current one is multiplied; weight reads in the inner loops
+// are uniform float4 broadcasts. Up-conv: a warp owns one (parity group, 16
+// output channels), 27 lanes each holding 3 pixels x 16 channels. Same-conv: a
+// thread holds 4 rows x 8 channels of one output column; x2 * s3 meets the
+// other channels of its pixel in shared memory for the 1x1 ToRGB.
+//
+// bf16 (tc): both convolutions are implicit GEMMs on mma.sync m16n8k16 with
+// bf16 operands and f32 accumulation, from shared memory (tc_conv.cuh); 8
+// warps.
+// - Activations are bf16 and channel-last in shared memory, [pixel][channel]
+//   rows padded to an odd number of 16-byte units (conflict-free ldmatrix);
+//   the staging pass transposes the NCHW input and multiplies it by s1 in
+//   f32, one rounding to bf16.
+// - Up-conv: per parity, M = the 81 positions (padded to 96), N = C, K = 9
+//   taps x 2C; a warp owns one parity and 3 m16 tiles, all C output columns,
+//   and reads the input window shifted by its parity and the tap. The
+//   composite weights are composed in f32 and rounded to bf16 once by the
+//   wrapper, laid out [tap][phase][co][ci].
+// - Epilogues in the accumulator layout, in f32: * d1, noise, bias, leaky *
+//   sqrt 2, * s2 into the mid tile (bf16, the input tile's room); then * d2,
+//   noise, bias, leaky * sqrt 2 gives x2, stored as bf16 when asked and, times
+//   s3, dotted with ToRGB's [3][C] f32 weights by a lane's partial and two
+//   quad shuffles.
+// - Same-conv: M = the 256 output pixels (an m16 tile is one output row), N =
+//   C, K = 9 taps x C; a warp owns two output rows.
+// - Weights go through a ring of three shared slots by 16-byte cp.async, one
+//   chunk a step (a polyphase tap x 32 input channels for all four phases; 3
+//   or 9 taps x 16 channels of the same-conv): two chunks are in flight while
+//   one is multiplied, one block barrier a chunk.
+// - Rounding: the products see bf16 x * s1, bf16 composite weights and the
+//   bf16 mid tile; x2 stays f32 for ToRGB. Without a normalisation between
+//   them these roundings stay within ~0.02 of the f32 section on the same
+//   operands (tests/test_torch_tail_tc_numerics.py); carrying the composites
+//   as bf16 hi + lo pairs changed nothing there.
+// - Shared memory: C = 64 (512^2 section): vectors 2.8 KB, input tile 144 x
+//   272 B = 39.2 KB, mid tile 324 x 144 B = 46.7 KB in its room, ring 3 x 20.5
+//   KB: 110.9 KB, two blocks (16 warps) an SM. C = 32 (1024^2): 1.4, 20.7 and
+//   25.9 KB, ring 3 x 13.8 KB: 68.8 KB, three blocks. __launch_bounds__ holds
+//   the registers to those counts (kMinBlocks; -Xptxas -v prints them).
+// - The up-conv does four times the products of the transposed conv it
+//   stands for; scattering the transposed conv and blurring in shared memory
+//   would do a quarter of them. TMA, wgmma and persistent blocks are later
+//   work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tc_conv.cuh"
 
 namespace {
 
 constexpr int kTile = 16;                       // output tile, rows and columns
 constexpr int kMid = kTile + 2;                 // mid tile with the same-conv's halo
+constexpr int kGroup = kMid / 2;                // a parity group of the mid tile is 9 x 9
+constexpr float kSlope = 0.2f;
+constexpr float kGain = 1.41421356237309515f;   // sqrt 2
+
+__device__ __forceinline__ float act_fn(float v) { return kGain * (v >= 0.f ? v : kSlope * v); }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores. The template also takes bf16 storage, the design bf16 had
+// before the tensor cores: scripts/measure_sg2_tail_tc_rate.py times it so.
+namespace cc {
+
 constexpr int kMidStride = 20;                  // floats per mid row: 4 rows apart = 16 banks
 constexpr int kMidPlane = kMid * kMidStride;    // floats per mid channel
 constexpr int kIn = kTile / 2 + 4;              // input tile with the up-conv's halo
 constexpr int kInPlane = kIn * kIn;
-constexpr int kGroup = kMid / 2;                // a parity group of the mid tile is 9 x 9
 constexpr int kKC = 4;                          // input channels per weight chunk
-constexpr float kSlope = 0.2f;
-constexpr float kGain = 1.41421356237309515f;   // sqrt 2
 static_assert(kTile == 16 && kGroup == 9, "thread maps assume a 16 x 16 tile");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -90,7 +128,6 @@ __device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
 }
-__device__ __forceinline__ float act(float v) { return kGain * (v >= 0.f ? v : kSlope * v); }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -285,7 +322,7 @@ section_kernel(const T* __restrict__ x, const float* __restrict__ wu,
 #pragma unroll
         for (int r = 0; r < 3; ++r)
           tile[co * kMidPlane + (2 * (rg + 3 * r) + pi) * kMidStride + 2 * v + pj] =
-              inside[r] ? act(fmaf(acc[r][q], dd, nz[r] + bb)) * ss : 0.f;
+              inside[r] ? act_fn(fmaf(acc[r][q], dd, nz[r] + bb)) * ss : 0.f;
       }
     }
   }
@@ -352,7 +389,7 @@ section_kernel(const T* __restrict__ x, const float* __restrict__ wu,
     const float dd = vd2[co], bb = vb2[co], ss = vs3[co];
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
-      const float val = act(fmaf(acc[p][q], dd, nz[p] + bb));
+      const float val = act_fn(fmaf(acc[p][q], dd, nz[p] + bb));
       if (x2 != nullptr && inside[p])
         from_f32(val, x2 + (((size_t)b * C + co) * h + y0 + 4 * rg + p) * w + gx);
       tile[co * kTile * kTile + (4 * rg + p) * kTile + ox] = val * ss;
@@ -411,16 +448,319 @@ cudaError_t launch(const void* const* in, void* rgb, void* x2, int b, int c, int
   }
 }
 
-}  // namespace
+}  // namespace cc
 
-// C entry point (loaded with ctypes). x is (B, 2C, hi, wi); wu the f32 up-conv
-// polyphase weights (2C, 4, 9, C), wsame the f32 same-conv weights (C, 3, 3,
-// C) as [ci][ky][kx][co], wrgb the f32 ToRGB weights (3, C); s1 (B, 2C), d1,
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulation).
+namespace tc {
+
+constexpr int kThreads = 256;                   // 8 warps
+constexpr int kInWin = kTile / 2 + 4;           // input tile with the up-conv's halo
+constexpr int kInPix = kInWin * kInWin;
+constexpr int kMidPix = kMid * kMid;
+constexpr int kPos = kGroup * kGroup;           // positions of one parity group
+constexpr int kUpMT = 3;                        // up-conv m16 tiles a warp: 2 warps x 48 rows cover 81
+constexpr int kSameMT = 2;                      // same-conv m16 tiles (output rows) a warp
+constexpr int kStages = 3;                      // weight chunks: ring of shared slots
+// Blocks an SM that __launch_bounds__ asks registers for: left alone, the
+// compiler takes 170-220 registers a thread at C = 64 (one block an SM) and
+// 108-125 at C = 16 and 32; held to 128, 85 and 64 (two, three and four
+// blocks, as many as shared memory allows), the sections ran 5-30 % faster
+// on the card though some registers spill at C = 64
+// (scripts/measure_sg2_tail_tc_rate.py).
+template <int C>
+constexpr int kMinBlocks = C == 64 ? 2 : (C == 32 ? 3 : 4);
+static_assert(kThreads / 32 == 4 * 2 && 2 * kUpMT * 16 >= kPos && 8 * kSameMT == kTile,
+              "warp maps: 4 parities x 2 row groups; 8 warps x 2 output rows");
+
+// Sizes in bytes.
+template <int C>
+struct Cfg {
+  static constexpr int CI = 2 * C;
+  static constexpr int NT = C / 8;                          // n8 tiles of one product
+  static constexpr int IN_ROW = 2 * (CI + 8);
+  static constexpr int MID_ROW = 2 * (C + 8);
+  // Up-conv chunk j: polyphase tap t = j / UP_KB (oy, ox), input channels
+  // (j % UP_KB) * 32 + [0, 32), rows (phase, co).
+  static constexpr int UP_ROW = 2 * (32 + 8);
+  static constexpr int UP_KB = CI / 32;
+  static constexpr int NUP = 9 * UP_KB;
+  // Same-conv chunk: ST taps x 16 input channels, rows (tap, co).
+  static constexpr int ST = C == 64 ? 3 : 9;
+  static constexpr int SAME_ROW = 2 * (16 + 8);
+  static constexpr int SAME_KB = C / 16;
+  static constexpr int NCHUNK = NUP + (9 / ST) * SAME_KB;
+  static constexpr int UP_SLOT = 4 * C * UP_ROW;
+  static constexpr int SAME_SLOT = ST * C * SAME_ROW;
+  static constexpr int SLOT = UP_SLOT > SAME_SLOT ? UP_SLOT : SAME_SLOT;
+  // The per-sample vectors (f32): s1 [2C]; d1, s2, d2, s3, b1, b2 [C]; ToRGB
+  // [3][C]; its bias [3]; the two noise weights.
+  static constexpr int VEC = (4 * (11 * C + 5) + 15) / 16 * 16;
+  // The input tile, then the mid tile in its room.
+  static constexpr int ACT = kInPix * IN_ROW > kMidPix * MID_ROW ? kInPix * IN_ROW
+                                                                 : kMidPix * MID_ROW;
+  static constexpr int SMEM = VEC + ACT + kStages * SLOT;
+  static_assert((IN_ROW / 16) % 2 == 1 && (MID_ROW / 16) % 2 == 1 && (UP_ROW / 16) % 2 == 1 &&
+                    (SAME_ROW / 16) % 2 == 1,
+                "odd 16-byte units per row: conflict-free ldmatrix");
+};
+
+// Weight chunk j into a ring slot (nothing past the last chunk). wu is the
+// polyphase up-conv weight [tap (oy, ox)][phase (py, px)][co][ci], wsame the
+// same-conv weight [tap][co][ci], both bf16.
+template <int C>
+__device__ __forceinline__ void fetch_chunk(uint32_t slot, const bf16* __restrict__ wu,
+                                            const bf16* __restrict__ wsame, int j, int tid) {
+  using K = Cfg<C>;
+  if (j >= K::NCHUNK) return;
+  if (j < K::NUP) {
+    const int t = j / K::UP_KB, kb = j - t * K::UP_KB;
+    tcc::fetch_rows<kThreads>(slot, K::UP_ROW, wu + (size_t)t * 4 * C * K::CI + kb * 32, K::CI,
+                              4 * C, 4, tid);
+  } else {
+    const int s = j - K::NUP, tg = s / K::SAME_KB, kb = s - tg * K::SAME_KB;
+    tcc::fetch_rows<kThreads>(slot, K::SAME_ROW, wsame + (size_t)tg * K::ST * C * C + kb * 16, C,
+                              K::ST * C, 2, tid);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<C>)
+section_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wu,
+               const bf16* __restrict__ wsame, const float* __restrict__ wrgb,
+               const bf16* __restrict__ s1, const bf16* __restrict__ d1,
+               const bf16* __restrict__ s2, const bf16* __restrict__ d2,
+               const bf16* __restrict__ s3, const bf16* __restrict__ n1,
+               const bf16* __restrict__ nw1, const bf16* __restrict__ b1,
+               const bf16* __restrict__ n2, const bf16* __restrict__ nw2,
+               const bf16* __restrict__ b2, const bf16* __restrict__ rgb_b,
+               bf16* __restrict__ rgb, bf16* __restrict__ x2, int hi, int wi, int tiles_x,
+               int tiles_y) {
+  using K = Cfg<C>;
+  constexpr int CI = K::CI, NT = K::NT;
+  extern __shared__ float4 smem4[];
+  float* vs1 = reinterpret_cast<float*>(smem4);   // [2C]
+  float* vd1 = vs1 + CI;                          // [C] each
+  float* vs2 = vd1 + C;
+  float* vd2 = vs2 + C;
+  float* vs3 = vd2 + C;
+  float* vb1 = vs3 + C;
+  float* vb2 = vb1 + C;
+  float* vwr = vb2 + C;                           // [3][C]
+  float* vrb = vwr + 3 * C;                       // [3]
+  float* vnw = vrb + 3;                           // [2]
+  char* act = reinterpret_cast<char*>(smem4) + K::VEC;   // input tile, then mid tile
+  const uint32_t act_a = tc::smem_addr(act);
+  const uint32_t ring = act_a + K::ACT;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  int bid = blockIdx.x;
+  const int tx = bid % tiles_x;
+  bid /= tiles_x;
+  const int ty = bid % tiles_y;
+  const int b = bid / tiles_y;
+  const int h = 2 * hi, w = 2 * wi;
+  const int y0 = ty * kTile, x0 = tx * kTile;     // output tile origin, even
+  const int iy0 = y0 / 2 - 2, ix0 = x0 / 2 - 2;   // input tile origin
+
+  // The first two weight chunks travel while the input is staged.
+  fetch_chunk<C>(ring, wu, wsame, 0, tid);
+  tc::cp_async_commit();
+  fetch_chunk<C>(ring + K::SLOT, wu, wsame, 1, tid);
+  tc::cp_async_commit();
+
+  // 1. The per-sample vectors, then the input tile times s1, rounded to bf16,
+  // channel-last, zero outside the image.
+  for (int i = tid; i < CI; i += kThreads) vs1[i] = __bfloat162float(s1[(size_t)b * CI + i]);
+  for (int i = tid; i < C; i += kThreads) {
+    const size_t bi = (size_t)b * C + i;
+    vd1[i] = __bfloat162float(d1[bi]);
+    vs2[i] = __bfloat162float(s2[bi]);
+    vd2[i] = __bfloat162float(d2[bi]);
+    vs3[i] = __bfloat162float(s3[bi]);
+    vb1[i] = __bfloat162float(b1[i]);
+    vb2[i] = __bfloat162float(b2[i]);
+  }
+  for (int i = tid; i < 3 * C; i += kThreads) vwr[i] = wrgb[i];
+  if (tid < 3) vrb[tid] = __bfloat162float(rgb_b[tid]);
+  if (tid == 0) {
+    vnw[0] = __bfloat162float(nw1[0]);
+    vnw[1] = __bfloat162float(nw2[0]);
+  }
+  __syncthreads();
+  tcc::stage_nchw<kThreads>(act, K::IN_ROW, x + (size_t)b * CI * hi * wi, CI, hi, wi, iy0, ix0,
+                            kInWin, [vs1](int ci, float v) { return v * vs1[ci]; }, tid);
+
+  // 2. Up-conv: for each parity (pi, pj) of the mid pixel (2 A + pi, 2 V + pj)
+  // (local parity 0 is an odd image row, phase py = 1), a 3x3 conv of input
+  // pixels (A + pi + oy, V + pj + ox) with that phase's polyphase weights.
+  // Warp = (parity, 3 m16 tiles of the 81 positions), all C output channels;
+  // rows past the 81st repeat the last and are not stored.
+  const int par = warp & 3, grp = warp >> 2;
+  const int pi = par >> 1, pj = par & 1;
+  {
+    float acc[kUpMT][NT][4];
+    tcc::zero(acc);
+    uint32_t apos[kUpMT];
+#pragma unroll
+    for (int i = 0; i < kUpMT; ++i) {
+      const int q = min(16 * (kUpMT * grp + i) + tcc::a_row(lane), kPos - 1);
+      apos[i] = act_a + ((q / kGroup + pi) * kInWin + q % kGroup + pj) * K::IN_ROW +
+                2 * tcc::a_k(lane);
+    }
+    const uint32_t blane = ((3 - par) * C + tcc::b_row(lane)) * K::UP_ROW + 2 * tcc::b_k(lane);
+    for (int j = 0; j < K::NUP; ++j) {
+      tcc::cp_async_wait<1>();   // chunk j has landed (this thread's copies)
+      __syncthreads();           // (everyone's); chunk j - 1's slot is free
+      fetch_chunk<C>(ring + ((j + 2) % kStages) * K::SLOT, wu, wsame, j + 2, tid);
+      tc::cp_async_commit();
+      const int t = j / K::UP_KB, kb = j - t * K::UP_KB;
+      const int shift = ((t / 3) * kInWin + t % 3) * K::IN_ROW + 64 * kb;
+      const uint32_t bs = ring + (j % kStages) * K::SLOT + blane;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t a[kUpMT];
+#pragma unroll
+        for (int i = 0; i < kUpMT; ++i) a[i] = apos[i] + shift + 32 * ks;
+        tcc::mma_step(acc, a, bs + 32 * ks, 16 * K::UP_ROW);
+      }
+    }
+    __syncthreads();   // every warp is done with the input tile: the mid tile takes its room
+
+    // Epilogue: * d1, + nw1 * noise1 + b1, leaky * sqrt 2, * s2, bf16 into the
+    // mid tile; zero outside the image.
+#pragma unroll
+    for (int i = 0; i < kUpMT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q = 16 * (kUpMT * grp + i) + gq + 8 * hh;
+        if (q >= kPos) continue;
+        const int mi = 2 * (q / kGroup) + pi, mj = 2 * (q % kGroup) + pj;
+        const int gy = y0 - 1 + mi, gx = x0 - 1 + mj;
+        const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
+        const float nz = inside ? vnw[0] * __bfloat162float(n1[(size_t)gy * w + gx]) : 0.f;
+        uint32_t* row = reinterpret_cast<uint32_t*>(act + (mi * kMid + mj) * K::MID_ROW);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int co = 8 * n + 2 * tq;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = inside ? act_fn(fmaf(acc[i][n][2 * hh + e], vd1[co + e], nz + vb1[co + e])) *
+                                vs2[co + e]
+                          : 0.f;
+          row[4 * n + tq] = tc::pack_bf16x2(v[0], v[1]);
+        }
+      }
+  }
+
+  // 3. Same-conv from the mid tile: warp = output rows 2 warp, 2 warp + 1 (one
+  // m16 tile each, its 16 columns the rows of the tile), all C channels.
+  float acc[kSameMT][NT][4];
+  tcc::zero(acc);
+  uint32_t apx[kSameMT];
+#pragma unroll
+  for (int i = 0; i < kSameMT; ++i)
+    apx[i] = act_a + ((kSameMT * warp + i) * kMid + tcc::a_row(lane)) * K::MID_ROW +
+             2 * tcc::a_k(lane);
+  const uint32_t blane = tcc::b_row(lane) * K::SAME_ROW + 2 * tcc::b_k(lane);
+  for (int j = K::NUP; j < K::NCHUNK; ++j) {
+    tcc::cp_async_wait<1>();
+    __syncthreads();   // chunk j and (at the first) the mid tile are in shared memory
+    fetch_chunk<C>(ring + ((j + 2) % kStages) * K::SLOT, wu, wsame, j + 2, tid);
+    tc::cp_async_commit();
+    const int s = j - K::NUP, tg = s / K::SAME_KB, kb = s - tg * K::SAME_KB;
+    const uint32_t bs = ring + (j % kStages) * K::SLOT + blane;
+#pragma unroll
+    for (int tt = 0; tt < K::ST; ++tt) {
+      const int tap = tg * K::ST + tt;
+      uint32_t a[kSameMT];
+#pragma unroll
+      for (int i = 0; i < kSameMT; ++i)
+        a[i] = apx[i] + ((tap / 3) * kMid + tap % 3) * K::MID_ROW + 32 * kb;
+      tcc::mma_step(acc, a, bs + tt * C * K::SAME_ROW, 16 * K::SAME_ROW);
+    }
+  }
+
+  // 4. Epilogue: * d2, + nw2 * noise2 + b2, leaky * sqrt 2 is x2 (stored when
+  // asked); ToRGB of x2 * s3 from the accumulators (a quad's partials) + bias.
+#pragma unroll
+  for (int i = 0; i < kSameMT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gy = y0 + kSameMT * warp + i, gx = x0 + gq + 8 * hh;
+      const bool inside = gy < h && gx < w;
+      const float nz = inside ? vnw[1] * __bfloat162float(n2[(size_t)gy * w + gx]) : 0.f;
+      float out[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = 8 * n + 2 * tq + e;
+          const float v = act_fn(fmaf(acc[i][n][2 * hh + e], vd2[co], nz + vb2[co]));
+          if (x2 != nullptr && inside)
+            x2[(((size_t)b * C + co) * h + gy) * w + gx] = __float2bfloat16(v);
+          const float m = v * vs3[co];
+#pragma unroll
+          for (int o = 0; o < 3; ++o) out[o] = fmaf(m, vwr[o * C + co], out[o]);
+        }
+#pragma unroll
+      for (int o = 0; o < 3; ++o) out[o] = tc::quad_sum(out[o]);
+      if (inside && tq < 3) {
+        const float r = tq == 0 ? out[0] : (tq == 1 ? out[1] : out[2]);
+        rgb[(((size_t)b * 3 + tq) * h + gy) * w + gx] = __float2bfloat16(r + vrb[tq]);
+      }
+    }
+}
+
+template <int C>
+cudaError_t launch_c(const void* const* in, void* rgb, void* x2, int b, int hi, int wi,
+                     cudaStream_t stream) {
+  constexpr int smem = Cfg<C>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(section_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (2 * wi + kTile - 1) / kTile;
+  const int tiles_y = (2 * hi + kTile - 1) / kTile;
+  const long long blocks = (long long)b * tiles_x * tiles_y;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  auto t = [&](int i) { return static_cast<const bf16*>(in[i]); };
+  section_kernel<C><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      t(0), t(1), t(2), static_cast<const float*>(in[3]), t(4), t(5), t(6), t(7), t(8), t(9),
+      t(10), t(11), t(12), t(13), t(14), t(15), static_cast<bf16*>(rgb), static_cast<bf16*>(x2),
+      hi, wi, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* const* in, void* rgb, void* x2, int b, int c, int hi, int wi,
+                   cudaStream_t stream) {
+  switch (c) {
+    case 16:
+      return launch_c<16>(in, rgb, x2, b, hi, wi, stream);
+    case 32:
+      return launch_c<32>(in, rgb, x2, b, hi, wi, stream);
+    case 64:
+      return launch_c<64>(in, rgb, x2, b, hi, wi, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+// C entry point (loaded with ctypes). x is (B, 2C, hi, wi); s1 (B, 2C), d1,
 // s2, d2, s3 (B, C); n1, n2 (2 hi, 2 wi); nw1, nw2 one element; b1, b2 (C);
 // rgb_b (3); rgb (B, 3, 2 hi, 2 wi); x2 (B, C, 2 hi, 2 wi) when want_x2, else
 // null. x, the vectors, the noise and the outputs are all f32 (is_bf16 == 0)
-// or all bf16 (is_bf16 == 1); every tensor contiguous on one device. Returns a
-// cudaError_t; 0 is success.
+// or all bf16 (is_bf16 == 1); every tensor contiguous on one device. The
+// weights as the wrapper prepares them, wrgb the f32 ToRGB weights (3, C) for
+// both; f32: wu the up-conv polyphase weights (2C, 4, 9, C) as
+// [ci][phase][tap][co], wsame (C, 3, 3, C) as [ci][ky][kx][co]; bf16: wu (9,
+// 4, C, 2C) as [tap][phase][co][ci], wsame (9, C, C) as [tap][co][ci].
+// Returns a cudaError_t; 0 is success.
 extern "C" int sg2_tail_section_launch(const void* x, const void* wu, const void* wsame,
                                        const void* wrgb, const void* s1, const void* d1,
                                        const void* s2, const void* d2, const void* s3,
@@ -436,7 +776,13 @@ extern "C" int sg2_tail_section_launch(const void* x, const void* wu, const void
   if (b == 0 || hi == 0 || wi == 0) return (int)cudaSuccess;
   const void* in[16] = {x, wu, wsame, wrgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2, b2, rgb_b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(in, rgb, x2, b, c, hi, wi, s)
-                                  : launch<float>(in, rgb, x2, b, c, hi, wi, s);
+  const cudaError_t err = is_bf16 ? tc::launch(in, rgb, x2, b, c, hi, wi, s)
+                                  : cc::launch<float>(in, rgb, x2, b, c, hi, wi, s);
   return (int)err;
+}
+
+// Which design serves an operand type: the tensor cores for bf16, the CUDA
+// cores for f32.
+extern "C" const char* sg2_tail_design(int is_bf16) {
+  return is_bf16 ? "tensor cores (mma.sync m16n8k16)" : "CUDA cores";
 }

@@ -28,6 +28,13 @@ _NOT_PORTED = {
 }
 
 
+def check_ported(gan_type: str) -> None:
+    """Raise ``NotImplementedError`` for a GAN type the port does not carry yet."""
+    if gan_type in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{gan_type} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[gan_type]}")
+
+
 def _allow_random(flag: bool | None) -> bool:
     if flag is not None:
         return flag
@@ -113,7 +120,5 @@ def build_gan(gan_type: str, target_classes=None, stylegan2_resolution: int = 10
     if gan_type == "ProgGAN":
         path = osp.join(weights_root, GAN_WEIGHTS[gan_type]["weights"][GAN_RESOLUTIONS[gan_type]])
         return build_proggan(path, allow_random_init, device=device)
-    if gan_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{gan_type} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[gan_type]}")
+    check_ported(gan_type)
     raise ValueError(f"unknown GAN type {gan_type!r}")

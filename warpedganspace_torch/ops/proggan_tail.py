@@ -67,6 +67,26 @@ def fused_section_plain(x, w_up, b_up, s_up, w_same, b_same, s_same, head=None):
     return x
 
 
+def merge_up_taps(w_up: torch.Tensor) -> torch.Tensor:
+    """(C, 2C, 3, 3) up-conv weight -> (2, 2, 2, 2, C, 2C) float32 merged taps
+    ``[pi][pj][a][b]``: nearest 2x up followed by the 3x3 conv is, for each
+    parity (pi, pj) of the output pixel (2 A + pi, 2 V + pj) of a tile whose
+    origin is one pixel before an even image row and column, a 2x2 conv of the
+    input pixels (A + a, V + b) from one pixel before the tile's half origin.
+    Along one axis, parity 0 (an odd image row) takes taps 0 + 1 then tap 2,
+    parity 1 (an even row) tap 0 then taps 1 + 2. Sums only, in float32, so no
+    TF32 setting can round them; the bf16 CUDA kernel reads them."""
+    w = w_up.float()
+
+    def axis(t, dim):
+        t0, t1, t2 = t.unbind(dim)
+        return torch.stack([torch.stack([t0 + t1, t2]), torch.stack([t0, t1 + t2])])
+
+    rows = axis(w, 2)                                  # (pi, a, C, 2C, kx)
+    both = axis(rows, 4)                               # (pj, b, pi, a, C, 2C)
+    return both.permute(2, 0, 3, 1, 4, 5).contiguous()
+
+
 def _wbs(block):
     return block.weight, block.bias, block.scale
 

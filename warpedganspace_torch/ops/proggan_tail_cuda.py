@@ -8,8 +8,13 @@ channels at (H, W) to C channels at (2H, 2W), in one launch:
     -> PixelNorm -> conv3x3 -> WScale -> LeakyReLU(0.2)
     [-> PixelNorm -> conv1x1 (C -> 3) -> WScale on the last section]
 
-with float32 arithmetic on float32 or bfloat16 storage and no intermediate in
-device memory. Activations are NCHW, weights OIHW.
+with no intermediate in device memory. Activations are NCHW, weights OIHW.
+The kernel has two designs, chosen in its C launch function by the operands'
+type (:func:`design` says which): float32 on the CUDA cores, all arithmetic
+float32; bfloat16 on the tensor cores (``mma.sync`` m16n8k16, bf16 operands
+and float32 accumulation), whose weights this wrapper prepares on every call
+(:func:`tc_weights`: the up-conv's merged taps and the same-conv's taps,
+K-contiguous, a few small elementwise passes on the card).
 
 - :func:`fused_section` is one section, :func:`proggan_tail` the chain of
   sections with the RGB head on the last: one launch per section. On CPU
@@ -29,7 +34,8 @@ import ctypes
 
 import torch
 
-from warpedganspace_torch.ops.proggan_tail import TAIL_CHANNELS, fused_section_plain
+from warpedganspace_torch.ops.proggan_tail import (TAIL_CHANNELS, fused_section_plain,
+                                                   merge_up_taps)
 
 SOURCE = "proggan_tail.cu"
 launches = 0
@@ -43,7 +49,28 @@ def build() -> ctypes.CDLL:
     fn = lib.proggan_tail_section_launch
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.proggan_tail_design.argtypes = [ctypes.c_int]
+    lib.proggan_tail_design.restype = ctypes.c_char_p
     return lib
+
+
+def design(dtype: torch.dtype) -> str:
+    """Which design of the kernel serves operands of ``dtype``."""
+    return build().proggan_tail_design(int(dtype == torch.bfloat16)).decode()
+
+
+def tc_weights(w_up: torch.Tensor, w_same: torch.Tensor):
+    """The bf16 design's weights: the up-conv's merged taps (2, 4, 4, C, 2C)
+    as [hi, lo][tap (a, b)][parity (pi, pj)][co][ci], hi the bf16 rounding of
+    the float32 merged tap and lo that of the remainder (the section with the
+    RGB head multiplies both), and the same-conv's (9, C, C) as
+    [tap][co][ci]."""
+    c = w_up.shape[0]
+    merged = merge_up_taps(w_up).permute(2, 3, 0, 1, 4, 5).reshape(4, 4, c, 2 * c)
+    hi = merged.to(torch.bfloat16)
+    lo = (merged - hi.float()).to(torch.bfloat16)
+    same = w_same.permute(2, 3, 0, 1).reshape(9, c, c).to(torch.bfloat16).contiguous()
+    return torch.stack([hi, lo]).contiguous(), same
 
 
 def _check_operands(x, w_up, b_up, s_up, w_same, b_same, s_same, head):
@@ -97,6 +124,8 @@ def _launch(x, w_up, b_up, s_up, w_same, b_same, s_same, head):
         return out
     lib = build()
     head_ptrs = [t.data_ptr() for t in head] if head is not None else [None] * 3
+    if x.dtype == torch.bfloat16:
+        w_up, w_same = tc_weights(w_up, w_same)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.proggan_tail_section_launch(

@@ -9,12 +9,15 @@ launch:
     -> leaky * sqrt 2 -> * s2 -> conv3x3 -> * d2 -> + nw2 noise2 + b2 -> leaky * sqrt 2 (= x2)
     -> * s3 -> ToRGB 1x1 + rgb bias (= rgb)
 
-with float32 arithmetic on float32 or bfloat16 storage and no intermediate in
-device memory but x2, which it writes only when asked (the last block's is
-never read). Activations are NCHW, weights OIHW. The weights' layouts for the
-kernel (the up-conv as four polyphase 3x3 convs, :func:`compose_up_weight`)
-are prepared here in float32 on every call, a few small elementwise passes;
-the products are the kernel's.
+with no intermediate in device memory but x2, which it writes only when
+asked (the last block's is never read). Activations are NCHW, weights OIHW.
+The kernel has two designs, chosen in its C launch function by the operands'
+type (:func:`design` says which): float32 on the CUDA cores, all arithmetic
+float32; bfloat16 on the tensor cores (``mma.sync`` m16n8k16, bf16 operands
+and float32 accumulation). The weights' layouts for the kernel (the up-conv as
+four polyphase 3x3 convs, :func:`compose_up_weight`, composed in float32;
+for bfloat16 rounded once and laid out K-contiguous) are prepared here on
+every call, a few small elementwise passes; the products are the kernel's.
 
 - :func:`fused_section` is one section. On CPU tensors it runs
   :func:`~warpedganspace_torch.ops.sg2_tail.fused_section_plain`; on CUDA
@@ -52,7 +55,31 @@ def build() -> ctypes.CDLL:
     fn = lib.sg2_tail_section_launch
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.sg2_tail_design.argtypes = [ctypes.c_int]
+    lib.sg2_tail_design.restype = ctypes.c_char_p
     return lib
+
+
+def design(dtype: torch.dtype) -> str:
+    """Which design of the kernel serves operands of ``dtype``."""
+    return build().sg2_tail_design(int(dtype == torch.bfloat16)).decode()
+
+
+def kernel_weights(w_up: torch.Tensor, w_same: torch.Tensor, w_rgb: torch.Tensor,
+                   dtype: torch.dtype):
+    """The weights as the kernel's design for ``dtype`` reads them. float32:
+    the polyphase up-conv (2C, 4, 9, C) as [ci][phase][tap][co] and the
+    same-conv (C, 3, 3, C) as [ci][ky][kx][co]. bfloat16: the polyphase up-conv
+    composed in float32 and rounded once, (9, 4, C, 2C) as
+    [tap][phase][co][ci], and the same-conv (9, C, C) as [tap][co][ci]. ToRGB
+    (3, C) in float32 for both."""
+    c = w_up.shape[0]
+    wu = compose_up_weight(w_up)                                    # (2C, 4, 9, C) f32
+    wr = w_rgb.float().reshape(3, c).contiguous()
+    if dtype == torch.bfloat16:
+        return (wu.permute(2, 1, 3, 0).to(torch.bfloat16).contiguous(),
+                w_same.permute(2, 3, 0, 1).reshape(9, c, c).to(torch.bfloat16).contiguous(), wr)
+    return wu, w_same.float().permute(1, 2, 3, 0).contiguous(), wr
 
 
 def _check_operands(*operands):
@@ -105,9 +132,7 @@ def _launch(want_x2: bool, *operands):
     if rgb.numel() == 0:
         return rgb, x2
     lib = build()
-    wu = compose_up_weight(w_up)                                    # (2C, 4, 9, C) f32
-    ws = w_same.float().permute(1, 2, 3, 0).contiguous()            # (C, 3, 3, C) f32
-    wr = w_rgb.float().reshape(3, c).contiguous()                   # (3, C) f32
+    wu, ws, wr = kernel_weights(w_up, w_same, w_rgb, x.dtype)
     vectors = [t.data_ptr() for t in operands[4:]]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
