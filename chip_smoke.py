@@ -13,9 +13,14 @@ exit and no result line:
    source, started together;
 3. kernels, each against its plain PyTorch version and timed with CUDA events
    (plain, kernel, kernel, plain):
-   - the RBF warp at the production shape (K=200 sets, 2N=1024 support
-     vectors, d=512, R=64 rows = 32 codes x +-) in f32 and with bf16 set
-     storage, and at the shapes the three traversals below give it;
+   - the RBF warp at the five shapes of ``scripts/ablate_warp_cuda.py``
+     (K=200 sets, 2N=1024 support vectors, d=512 at R=64 rows = 32 codes x
+     +-, and at R=16, 12 and 2 as the eval pools and the ProgGAN CLI give
+     it; BigGAN's K=120, 2N=512, d=120 at R=8) with f32 and bf16 set
+     storage, each call repeated for the same bits, and with the CUDA-core
+     design it replaced timed beside it; the bound is the bytes or the
+     products at the bf16 tensor-core peak, whichever is larger; then at the
+     shapes the three traversals below give it;
    - the SA attention at BigGAN-128's shape (B=16, N=4096, M=1024, dk=24,
      dv=96) in f32 (its CUDA-core design) and bf16 (its tensor-core design),
      at the two shapes the BigGAN path below gives it (a bf16 render batch of
@@ -99,7 +104,6 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-K_PROD, N_DIP, D, ROWS = 200, 512, 512, 64   # production warp shape
 # The three traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
 SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=5, eps=0.2, batch=16, res=1024,
            gif=True, pool="smoke")
@@ -174,37 +178,93 @@ def bound(bytes_moved: float, flops: float, bf16: bool = False) -> tuple[float, 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def warp_ablation():
+    """``scripts/ablate_warp_cuda.py``: the warp's shapes, its cost and the
+    CUDA-core design it replaced, built for comparison."""
+    scripts = osp.join(osp.dirname(osp.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import ablate_warp_cuda
+
+    return ablate_warp_cuda
+
+
 def phase_warp_kernel(card: str) -> dict:
     import torch
 
     from warpedganspace_torch.models.support_sets import SupportSets
     from warpedganspace_torch.ops import rbf_cuda
 
+    ablate = warp_ablation()
+    cuda_cores = ablate.cuda_cores()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    S = SupportSets(K_PROD, N_DIP, D, learn_gammas=True, generator=gen).to(dev)
-    z = torch.randn((K_PROD, ROWS, D), generator=gen).to(dev)        # |z| ~ sqrt(d)
+    sets, shapes = {}, []
     with torch.no_grad():
-        ws = rbf_cuda.prepare_warp_sets(S.support_sets, S.alphas, S.gammas())
-        ws16 = rbf_cuda.prepare_warp_sets(S.support_sets, S.alphas, S.gammas(), torch.bfloat16)
-        before = rbf_cuda.launches
-        out = rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")
-        ref = rbf_cuda._torch_kn(ws.sv, ws.g, ws.ag, ws.svsq, z)
-        out16 = rbf_cuda.warp_grad_all_sets_kn(ws16, z, backend="cuda")
-        ref16 = rbf_cuda._torch_kn(ws16.sv, ws16.g, ws16.ag, ws16.svsq, z)
-        torch.cuda.synchronize()
-        check(rbf_cuda.launches == before + 2, "the warp kernel's launch count did not move")
-        check(bool(torch.isfinite(out).all()), "non-finite kernel output")
-        # Unit vectors; f32 sums over 2N=1024 terms in another order.
-        err = float((out - ref).abs().max())
-        check(err <= 1e-4, f"f32 kernel vs plain max abs {err:.3g} > 1e-4")
-        err16 = float((out16 - ref16).abs().max())
-        check(err16 <= 1e-4, f"bf16-storage kernel vs plain max abs {err16:.3g} > 1e-4")
-        cos16 = float((out16 * out).sum(-1).mean())
-        # bf16 set storage against f32: the bound of tests/test_rbf_pallas.py.
-        check(cos16 > 0.999, f"bf16 vs f32 mean cosine {cos16:.6f} <= 0.999")
+        # The table's shapes: the timed R=64 and the traversals' own R.
+        for label, k, n2, d, rows in ablate.SHAPES:
+            if (k, n2, d) not in sets:
+                sets[(k, n2, d)] = SupportSets(k, n2 // 2, d, learn_gammas=True,
+                                               generator=gen).to(dev)
+            S = sets[(k, n2, d)]
+            z = torch.randn((k, rows, d), generator=gen).to(dev)   # |z| ~ sqrt(d)
+            name = f"K={k} 2N={n2} d={d} R={rows}"
+            rec = {"shape": name, "label": label}
+            outs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = str(dtype).split(".")[-1]
+                ws = rbf_cuda.prepare_warp_sets(S.support_sets, S.alphas, S.gammas(),
+                                                None if dtype == torch.float32 else dtype)
+                kern = lambda: rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")  # noqa: E731
+                plain = lambda: rbf_cuda._torch_kn(ws.sv, ws.g, ws.ag, ws.svsq, z)  # noqa: E731
+                cc = lambda: cuda_cores(ws, z)  # noqa: E731
+                before = rbf_cuda.launches
+                out = kern()
+                torch.cuda.synchronize()
+                check(rbf_cuda.launches == before + 1, "the warp kernel's launch count did not move")
+                check(bool(torch.isfinite(out).all()), f"non-finite warp output at {name} {tag}")
+                # Unit vectors; split-precision products against f32 sums over 2N terms.
+                err = float((out - plain()).abs().max())
+                check(err <= 1e-4, f"warp kernel vs plain at {name} {tag} sets: "
+                                   f"max abs {err:.3g} > 1e-4")
+                # Partials of the runs of 2N are added in a fixed order: the same bits.
+                check(torch.equal(kern(), out), f"warp kernel repeats differ at {name} {tag}")
+                cc_err = float((cc() - plain()).abs().max())
+                check(cc_err <= 1e-4, f"CUDA-core warp vs plain at {name} {tag}: {cc_err:.3g}")
+                outs[tag] = out
+                # Plain, kernel, CUDA-core design, in turns.
+                p1, k1, c1, c2, k2, p2 = (cuda_ms(f) for f in (plain, kern, cc, cc, kern, plain))
+                nbytes, flops = ablate.warp_cost(k, n2, d, rows, ws.sv.element_size())
+                # The bound: the bytes, or the products at the peak of the unit the
+                # design runs them on (bf16 tensor cores, whatever the sets' type).
+                bound_ms, bound_by = bound(nbytes, flops, bf16=True)
+                ms = (k1 + k2) / 2
+                rec[tag] = {"ms": ms, "runs": (k1, k2), "plain_ms": (p1 + p2) / 2,
+                            "plain_runs": (p1, p2), "cuda_cores_ms": (c1 + c2) / 2,
+                            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "cuda_core_ops_ms": 1e3 * flops / PEAK_F32_FLOPS,
+                            "evals_per_s": k * rows / ms * 1e3,
+                            "share_of_bound": bound_ms / ms}
+            cos16 = float((outs["bfloat16"] * outs["float32"]).sum(-1).mean())
+            # bf16 set storage against f32: the bound of tests/test_rbf_pallas.py.
+            check(cos16 > 0.999, f"bf16 vs f32 sets mean cosine {cos16:.6f} <= 0.999 at {name}")
+            rec["cos_bf16_vs_f32"] = cos16
+            shapes.append(rec)
+            f, b = rec["float32"], rec["bfloat16"]
+            print(f"[kernel] rbf_warp {name} ({label}) on {card}: "
+                  f"f32 sets {f['ms']:.4f} ms ({f['runs'][0]:.4f}, {f['runs'][1]:.4f}), "
+                  f"{f['evals_per_s'] / 1e6:.2f} M evals/s, {100 * f['share_of_bound']:.1f} % of "
+                  f"its bound {f['bound_ms']:.4f} ms by {f['bound_by']}, plain "
+                  f"{f['plain_ms']:.4f} ms, CUDA-core design {f['cuda_cores_ms']:.4f} ms; "
+                  f"bf16 sets {b['ms']:.4f} ms ({b['runs'][0]:.4f}, {b['runs'][1]:.4f}), "
+                  f"{b['evals_per_s'] / 1e6:.2f} M evals/s, {100 * b['share_of_bound']:.1f} % of "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']}, plain {b['plain_ms']:.4f} ms, "
+                  f"CUDA-core design {b['cuda_cores_ms']:.4f} ms; least time of the products on "
+                  f"the CUDA cores (67 TFLOP/s, not this design's unit) {f['cuda_core_ops_ms']:.4f}"
+                  f" ms; max abs err f32 {f['max_abs_err']:.3g}, bf16 {b['max_abs_err']:.3g}; "
+                  f"bf16-vs-f32 cos {cos16:.6f}")
 
-        # The traversals' own shapes: one code x +- = 2 rows, and 64 rows at BigGAN's.
+        # The CLIs' own shapes: one code x +- = 2 rows, and 64 rows at BigGAN's.
         errs = {}
         for cfg, rows in ((SG2, 2), (BIGGAN, 2), (BIGGAN, 64), (PROGGAN, 2)):
             Ss = SupportSets(cfg["k"], cfg["dipoles"], cfg["d"], learn_gammas=True,
@@ -216,32 +276,20 @@ def phase_warp_kernel(card: str) -> dict:
             name = f"K={cfg['k']} 2N={2 * cfg['dipoles']} d={cfg['d']} R={rows}"
             check(e <= 1e-4, f"warp kernel vs plain at {name}: max abs {e:.3g} > 1e-4")
             errs[name] = e
-
-        # Plain, kernel, kernel, plain: one card, in turns.
-        kern = lambda: rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")  # noqa: E731
-        plain = lambda: rbf_cuda._torch_kn(ws.sv, ws.g, ws.ag, ws.svsq, z)  # noqa: E731
-        kern16 = lambda: rbf_cuda.warp_grad_all_sets_kn(ws16, z, backend="cuda")  # noqa: E731
-        plain16 = lambda: rbf_cuda._torch_kn(ws16.sv, ws16.g, ws16.ag, ws16.svsq, z)  # noqa: E731
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        q1, j1, j2, q2 = cuda_ms(plain16), cuda_ms(kern16), cuda_ms(kern16), cuda_ms(plain16)
-    # f32 sets, their three (K, 2N) vectors and z read once, the directions
-    # written once; two contractions of K * R * 2N * d FMAs each.
-    n2 = 2 * N_DIP
-    bound_ms, bound_by = bound(4 * (K_PROD * n2 * (D + 3) + 2 * K_PROD * ROWS * D),
-                               2 * 2 * K_PROD * ROWS * n2 * D)
-    res = {"max_abs_err": err, "max_abs_err_bf16": err16, "cos_bf16_vs_f32": cos16,
-           "max_abs_err_traversal_shapes": errs,
-           "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           "ms_bf16": (j1 + j2) / 2, "plain_ms_bf16": (q1 + q2) / 2,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "shape": f"K={K_PROD} 2N={n2} d={D} R={ROWS} f32"}
-    print(f"[kernel] rbf_warp {res['shape']} on {card}: "
-          f"f32 kernel {res['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {res['plain_ms']:.4f} ms "
-          f"({p1:.4f}, {p2:.4f}); bound {bound_ms:.4f} ms by {bound_by}; "
-          f"bf16 sets kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms; "
-          f"max abs err f32 {err:.3g}, bf16 {err16:.3g}; bf16-vs-f32 cos {cos16:.6f}; "
-          "traversal shapes " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
-    return res
+        print("[kernel] rbf_warp at the CLIs' shapes, max abs err: "
+              + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
+    f, b = shapes[0]["float32"], shapes[0]["bfloat16"]
+    return {"max_abs_err": max(r[t]["max_abs_err"] for r in shapes for t in ("float32", "bfloat16")),
+            "max_abs_err_traversal_shapes": errs, "cos_bf16_vs_f32": shapes[0]["cos_bf16_vs_f32"],
+            "ms": f["ms"], "plain_ms": f["plain_ms"], "ms_bf16": b["ms"],
+            "plain_ms_bf16": b["plain_ms"], "cuda_cores_ms": f["cuda_cores_ms"],
+            "cuda_cores_ms_bf16": b["cuda_cores_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "bound_ms_bf16": b["bound_ms"],
+            "bound_by_bf16": b["bound_by"], "cuda_core_ops_ms": f["cuda_core_ops_ms"],
+            "library_ms": None, "shape": f"{shapes[0]['shape']} f32",
+            "design": {"float32": "tensor cores, 3 bf16 products a pass (hi + lo)",
+                       "bfloat16": "tensor cores, 2 bf16 products a pass (hi + lo)"},
+            "shapes": shapes}
 
 
 def attn_inputs(shape, seed: int, dtype):
@@ -1669,7 +1717,9 @@ def main(argv=None) -> int:
     builds = {rbf_cuda.SOURCE: rbf_cuda.build, attn_cuda.SOURCE: attn_cuda.build,
               attn_cuda.BWD_SOURCE: attn_cuda.build_bwd,
               proggan_tail_cuda.SOURCE: proggan_tail_cuda.build,
-              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build}
+              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build,
+              # the warp's CUDA-core design, timed beside the shipped one
+              warp_ablation().CC_SOURCE: lambda: _build.load_library(warp_ablation().CC_SOURCE)}
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, all started together
         list(pool.map(lambda build: build(), builds.values()))
     print(f"[build] {', '.join(builds)} side by side: "
@@ -1712,6 +1762,9 @@ def main(argv=None) -> int:
                    "warpedganspace_tpu/ops/rbf_pallas.py:108", warp),
                row("sa_attention", "warpedganspace_torch/csrc/sa_attention.cu",
                    "warpedganspace_tpu/ops/attn_pallas.py:30", attn)]
+    for key in ("bound_ms_bf16", "bound_by_bf16", "cuda_cores_ms", "cuda_cores_ms_bf16",
+                "cuda_core_ops_ms", "shapes"):
+        kernels[0][key] = warp[key]
     for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
                 "library_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
                 "bound_ms_render_bf16"):

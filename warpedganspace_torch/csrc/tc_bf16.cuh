@@ -114,6 +114,12 @@ __host__ __device__ __forceinline__ int value_units(int d) { return 2 * ((d + 15
 // in eight different 16-byte bank groups (no conflicts).
 __host__ __device__ __forceinline__ int row_units(int d) { return value_units(d) + 1; }
 
+// i / n for the small counts of the staging loops (i < 2^16, n <= 2^10): exact,
+// without an integer division (inv_n = 1.f / n).
+__device__ __forceinline__ int quot(int i, float inv_n) {
+  return __float2int_rz((i + 0.5f) * inv_n);
+}
+
 // Stage rows first .. first + rows - 1 of a bf16 operand whose rows hold `d`
 // elements (src points at row 0 of the wanted columns) into shared rows of
 // `ustride` 16-byte units at dst, writing `units` units of each: the first w
@@ -129,8 +135,9 @@ __device__ __forceinline__ void stage_rows(char* dst, const bf16* src, int rows,
   if (vec) {
     const uint32_t base = smem_addr(dst);
     const int total = rows * units;
+    const float inv = 1.f / units;
     for (int i = tid; i < total; i += THREADS) {
-      const int r = i / units, u = i - r * units;
+      const int r = quot(i, inv), u = i - r * units;
       const int gr = first + r;
       const bool ok = gr < limit && 8 * u < w;
       cp_async16(base + (r * ustride + u) * 16, ok ? src + (size_t)gr * d + 8 * u : src, ok);
@@ -140,9 +147,10 @@ __device__ __forceinline__ void stage_rows(char* dst, const bf16* src, int rows,
   bf16* s = reinterpret_cast<bf16*>(dst);
   const int cols = 8 * units;
   const int total = rows * cols;
+  const float inv = 1.f / cols;
   const bf16 zero = __ushort_as_bfloat16(0);
   for (int i = tid; i < total; i += THREADS) {
-    const int r = i / cols, c = i - r * cols;
+    const int r = quot(i, inv), c = i - r * cols;
     const int gr = first + r;
     s[r * ustride * 8 + c] = (gr < limit && c < w) ? src[(size_t)gr * d + c] : zero;
   }
