@@ -63,10 +63,10 @@ exit and no result line:
    tails, to show the comparison would see them;
 5. the port's main paths through its CLIs, ``sample_gan`` then
    ``traverse_latent_space``: a K=4, D=512 StyleGAN2-1024 W-space experiment
-   for 5 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
-   class-239 experiment for 10 steps each way at bf16 (2,520 frames), and the
-   K=200, D=512 ProgGAN-1024 Z-space experiment for 5 steps each way at bf16
-   (2,200 frames of 1024^2). Each kernel's launch count is set to 0 just
+   for 3 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
+   class-239 experiment for 5 steps each way at bf16 (1,320 frames), and the
+   K=200, D=512 ProgGAN-1024 Z-space experiment for 3 steps each way at bf16
+   (1,400 frames of 1024^2). Each kernel's launch count is set to 0 just
    before a path and read just after: the warp must show one launch per step
    on all three, the attention one launch per generator forward on BigGAN's,
    ProgGAN's tail three launches per generator forward on ProgGAN's and
@@ -83,7 +83,27 @@ exit and no result line:
    cotangent is exactly 0 and any backward would train the same, so this
    phase wraps the CLIs' ``build_gan`` to open gamma to 1. Losses must be
    finite, the support sets and loggamma moved, the alphas not; then the
-   port's traversal walks the tree that run wrote.
+   port's traversal walks the tree that run wrote;
+7. the other families' training paths (``TRAIN_PATHS``), each the experiment
+   of its ``scripts/train/*.sh`` at full width, cut in iterations and in the
+   cadence of logs and checkpoints, with a resume: SNGAN-MNIST (LeNet, K=64,
+   D=128, batch 128, bf16 G, ``--steps-per-call 10``: a CUDA graph of ten
+   steps; 60 iterations, then a resume at 60 to 90 with ``--profile``, and 60
+   iterations again with one step a call for its steps/s), StyleGAN2-1024
+   in W space (``--z-truncation 0.7``, ResNet, K=200, D=512, batch 12, bf16 G
+   and R; 6 iterations, then a resume at 6 to 12) and ProgGAN-1024 (the same
+   at batch 8). Each writes its tree, ``checkpoint2model`` splits the
+   checkpoint, and ``traverse_latent_space`` walks the tree without its final
+   ``support_sets.pt``, as an interrupted run leaves it. Launch counts as
+   equalities: StyleGAN2's tail 4 and ProgGAN's 6 per training iteration
+   (two sections or three in each of two generator forwards), the warp none
+   in training and one per traversal step. Then each step alone, outside the
+   CLI: SNGAN's graphed chunk against its eager step, untraced and traced on
+   host and device for the device's busy share; StyleGAN2's and ProgGAN's
+   step through the tail kernel against the same step with the plain tail, in
+   turns, with peak device memory, and traced for the tail kernel's share of
+   the device time. Before the paths, SNGAN-AnimeFaces at full width (B=64)
+   in f32 and bf16 on the card against f32 on the CPU.
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
@@ -105,11 +125,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 # The three traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
-SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=5, eps=0.2, batch=16, res=1024,
+SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=3, eps=0.2, batch=16, res=1024,
            gif=True, pool="smoke")
-BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=10, eps=0.15, batch=64, res=128,
+BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=5, eps=0.15, batch=64, res=128,
               gif=False, pool="smoke_biggan")
-PROGGAN = dict(gan="ProgGAN", k=200, dipoles=512, d=512, steps=5, eps=0.15, batch=16, res=1024,
+PROGGAN = dict(gan="ProgGAN", k=200, dipoles=512, d=512, steps=3, eps=0.15, batch=16, res=1024,
                gif=False, pool="smoke_proggan")
 PATHS = {"stylegan2": SG2, "biggan": BIGGAN, "proggan": PROGGAN}
 ATTN_SHAPE = (16, 4096, 1024, 24, 96)        # B, N, M, dk, dv of BigGAN-128's attention, timed
@@ -123,6 +143,38 @@ TRAIN = dict(gan="BigGAN", k=120, dipoles=256, d=120, batch=32, iters=20, resume
              log_freq=5, ckp_freq=10, steps=3, eps=0.15, render_batch=64, res=128,
              pool="smoke_train")
 ATTN_TRAIN = (TRAIN["batch"],) + ATTN_SHAPE[1:]   # what a training step gives both kernels
+# The training paths of every other family: the experiments of
+# scripts/train/{mnist,stylegan2,proggan}.sh as written (``argv``: their flags
+# but --tensorboard, the cadence and --max-iter), cut in iterations and in the
+# cadence of logs and checkpoints; then checkpoint2model and a traversal of the
+# tree (``steps`` each way, ``render_batch``). ``tail``: the kernel in every
+# generator forward, ``per_forward`` launches each.
+SNGAN_TRAIN = dict(
+    gan="SNGAN_MNIST", k=64, dipoles=128, d=128, iters=60, resume_to=90, log_freq=10,
+    ckp_freq=30, steps=8, eps=0.2, render_batch=128, res=32, channels=1, pool="smoke_sngan",
+    tail=None, per_forward=0, chunk=10,
+    argv=["--learn-gammas", "--gan-type", "SNGAN_MNIST", "--reconstructor-type", "LeNet",
+          "-K", "64", "-D", "128", "--min-shift-magnitude", "0.15", "--max-shift-magnitude",
+          "0.25", "--batch-size", "128", "--g-dtype", "bfloat16", "--steps-per-call", "10"])
+SG2_TRAIN = dict(
+    gan="StyleGAN2", k=200, dipoles=512, d=512, iters=6, resume_to=12, log_freq=2, ckp_freq=6,
+    steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_sg2_train", tail="sg2_tail",
+    per_forward=2, chunk=1,
+    argv=["--learn-gammas", "--gan-type", "StyleGAN2", "--stylegan2-resolution", "1024",
+          "--z-truncation", "0.7", "--shift-in-w-space", "--reconstructor-type", "ResNet",
+          "-K", "200", "-D", "512", "--min-shift-magnitude", "0.1", "--max-shift-magnitude",
+          "0.2", "--batch-size", "12", "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
+          "--pair-layout", "s2d"])
+PROGGAN_TRAIN = dict(
+    gan="ProgGAN", k=200, dipoles=512, d=512, iters=6, resume_to=12, log_freq=2, ckp_freq=6,
+    steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_proggan_train",
+    tail="proggan_tail", per_forward=3, chunk=1,
+    argv=["--learn-gammas", "--gan-type", "ProgGAN", "--reconstructor-type", "ResNet",
+          "-K", "200", "-D", "512", "--min-shift-magnitude", "0.1", "--max-shift-magnitude",
+          "0.2", "--batch-size", "8", "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
+          "--pair-layout", "s2d"])
+TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_stylegan2_w": SG2_TRAIN,
+               "train_proggan_z": PROGGAN_TRAIN}
 # The three sections of ProgGAN-1024's tail: (C output channels, input height = width, head).
 TAIL_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
 TAIL_B = 4                                   # batch of the timed sections and generator
@@ -1262,7 +1314,8 @@ def traverse_and_verify(cfg: dict, exp: str, S) -> tuple:
     first = np.asarray(Image.open(jpgs[0]), dtype=np.float32)
     last = np.asarray(Image.open(jpgs[n_frames - 1]), dtype=np.float32)
     other = np.asarray(Image.open(jpgs[-1]), dtype=np.float32)
-    check(first.shape == (cfg["res"], cfg["res"], 3), f"frame shape {first.shape}")
+    frame_shape = (cfg["res"], cfg["res"]) + ((3,) if cfg.get("channels", 3) == 3 else ())
+    check(first.shape == frame_shape, f"frame shape {first.shape}")
     check(first.std() > 0 and float(np.abs(first - last).mean()) > 0
           and float(np.abs(first - other).mean()) > 0, "constant or unchanging frames")
     # Generator forwards: the render batches and sample_gan's one code.
@@ -1398,36 +1451,7 @@ def phase_train(card: str, cfg: dict) -> dict:
 
             wip = osp.join("experiments", "wip", exp_name)
             exp = osp.join("experiments", "complete", exp_name)
-            models = ("support_sets_init.pt", "checkpoint.pt", "optimizer_state.npz",
-                      "support_sets.pt", "reconstructor.pt")
-            check(all(osp.isfile(osp.join(wip, "models", f)) for f in models)
-                  and all(osp.isfile(osp.join(wip, f))
-                          for f in ("args.json", "command.sh", "stats.json")),
-                  "the training tree misses a file")
-            check(osp.isfile(osp.join(exp, "models", "support_sets.pt"))
-                  and not osp.isfile(osp.join(exp, "models", "checkpoint.pt")),
-                  "the completed tree must hold support_sets.pt and no checkpoint.pt")
-            ckpt = torch.load(osp.join(wip, "models", "checkpoint.pt"))
-            check(ckpt["iter"] == cfg["resume_to"], f"checkpoint of iteration {ckpt['iter']}")
-            with open(osp.join(wip, "stats.json")) as f:
-                stats = json.load(f)
-            check(set(stats) == {str(i) for i in range(cfg["log_freq"], cfg["resume_to"] + 1,
-                                                       cfg["log_freq"])},
-                  f"stats.json holds windows {sorted(stats)}")
-            check(all(math.isfinite(v) for row in stats.values() for v in row.values()),
-                  "non-finite training statistics")
-            init = torch.load(osp.join(wip, "models", "support_sets_init.pt"))
-            final = torch.load(osp.join(wip, "models", "support_sets.pt"))
-            moved = {key: float((final[key] - init[key]).abs().max()) for key in init}
-            check(moved["SUPPORT_SETS"] > 0 and moved["LOGGAMMA"] > 0 and moved["ALPHAS"] == 0
-                  and all(bool(torch.isfinite(t).all()) for t in final.values()),
-                  f"after training the sets and loggamma must have moved, alphas not: {moved}")
-            check(tuple(final["SUPPORT_SETS"].shape) == (k, 2 * cfg["dipoles"] * d),
-                  "support sets' shape")
-            R_sd = torch.load(osp.join(wip, "models", "reconstructor.pt"))
-            check(all(bool(torch.isfinite(t.float()).all()) for t in R_sd.values())
-                  and float(R_sd["features_extractor.bn1.running_mean"].abs().max()) > 0,
-                  "the reconstructor's weights or refreshed statistics")
+            stats, init, moved = check_trained_tree(cfg, wip, exp)
 
             # Step time after warm-up: the first run's log windows but its first
             # (kernel build, cuDNN's first calls), on the host's clock around
@@ -1467,6 +1491,459 @@ def phase_train(card: str, cfg: dict) -> dict:
           f"{1e3 * step_s:.2f} ms over all {sum(w[0] for w in windows)} iterations after the "
           f"first window, one checkpoint of S, R and both Adams included)")
     return {name: train_launches[name] + trav_launches[name] for name in train_launches}
+
+
+def device_busy(events, lo, hi):
+    """Of the device events that touch [lo, hi] on the tracer's clock (us):
+    their summed time, the length of their intervals' union, their number."""
+    import torch
+
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > lo and e.time_range.start < hi)
+    total, busy, edge = 0.0, 0.0, lo
+    for start, end in spans:
+        total += end - start
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    return total, busy, len(spans)
+
+
+def check_trained_tree(cfg: dict, wip: str, exp: str) -> tuple:
+    """The tree a run to ``cfg['resume_to']`` wrote, after a resume: every
+    file, the completed copy, the checkpoint's iteration, finite statistics of
+    every log window, sets and loggamma moved and the alphas not, R finite
+    with refreshed statistics. Returns (stats, initial sets, how far each
+    moved)."""
+    import torch
+
+    models = ("support_sets_init.pt", "checkpoint.pt", "optimizer_state.npz",
+              "support_sets.pt", "reconstructor.pt")
+    check(all(osp.isfile(osp.join(wip, "models", f)) for f in models)
+          and all(osp.isfile(osp.join(wip, f)) for f in ("args.json", "command.sh", "stats.json")),
+          "the training tree misses a file")
+    check(osp.isfile(osp.join(exp, "models", "support_sets.pt"))
+          and not osp.isfile(osp.join(exp, "models", "checkpoint.pt")),
+          "the completed tree must hold support_sets.pt and no checkpoint.pt")
+    ckpt = torch.load(osp.join(wip, "models", "checkpoint.pt"))
+    check(ckpt["iter"] == cfg["resume_to"], f"checkpoint of iteration {ckpt['iter']}")
+    with open(osp.join(wip, "stats.json")) as f:
+        stats = json.load(f)
+    check(set(stats) == {str(i) for i in range(cfg["log_freq"], cfg["resume_to"] + 1,
+                                               cfg["log_freq"])},
+          f"stats.json holds windows {sorted(stats)}")
+    check(all(math.isfinite(v) for row in stats.values() for v in row.values()),
+          "non-finite training statistics")
+    init = torch.load(osp.join(wip, "models", "support_sets_init.pt"))
+    final = torch.load(osp.join(wip, "models", "support_sets.pt"))
+    moved = {key: float((final[key] - init[key]).abs().max()) for key in init}
+    check(moved["SUPPORT_SETS"] > 0 and moved["LOGGAMMA"] > 0 and moved["ALPHAS"] == 0
+          and all(bool(torch.isfinite(t).all()) for t in final.values()),
+          f"after training the sets and loggamma must have moved, alphas not: {moved}")
+    check(tuple(final["SUPPORT_SETS"].shape) == (cfg["k"], 2 * cfg["dipoles"] * cfg["d"]),
+          "support sets' shape")
+    R_sd = torch.load(osp.join(wip, "models", "reconstructor.pt"))
+    stat = next(n for n in ("features_extractor.bn1.running_mean",
+                            "feature_extractor.1.running_mean") if n in R_sd)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in R_sd.values())
+          and float(R_sd[stat].abs().max()) > 0,
+          "the reconstructor's weights or refreshed statistics")
+    return stats, init, moved
+
+
+def direct_train_state(cfg: dict):
+    """The train state of ``cfg``'s experiment, built as ``cli.train`` builds
+    it (its own parser reads the script's flags), with seeded random
+    generator weights, for timing and tracing the step outside the CLI; and
+    the float32 generator the state's bf16 copy was made from."""
+    import torch
+
+    from warpedganspace_torch.cli import train
+    from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.models.reconstructor import Reconstructor
+    from warpedganspace_torch.models.support_sets import SupportSets
+    from warpedganspace_torch.train.train_step import TrainStepConfig, init_train_state
+
+    a = train.build_parser().parse_args(cfg["argv"])
+    G = build_gan(a.gan_type, stylegan2_resolution=a.stylegan2_resolution,
+                  shift_in_w_space=a.shift_in_w_space, allow_random_init=True, device="cuda")
+    gen = torch.Generator().manual_seed(a.seed)
+    S = SupportSets(a.num_support_sets, a.num_support_dipoles, G.dim_z, learn_gammas=a.learn_gammas,
+                    gamma=1.0 / G.dim_z, generator=gen)
+    R = Reconstructor(a.reconstructor_type, dim=a.num_support_sets,
+                      channels=1 if a.gan_type == "SNGAN_MNIST" else 3, generator=gen)
+    return init_train_state(G, S, R, TrainStepConfig.from_params(a), seed=a.seed), G
+
+
+def compare_routes(state, G32, use_kernel) -> str:
+    """The path's own step on the tail kernel and on the plain tail, from
+    one snapshot of ``state`` (S, R with its statistics, both Adams) and one
+    batch at the experiment's width, with cuDNN's and PyTorch's deterministic
+    algorithms: the step's total loss, and the gradient of its path through
+    the generator, d(G(z + shift) . w)/d(shift) at the step's own codes.
+    The losses agree within 1e-4 in f32 (``G32``, R in f32) and 5e-2 in
+    bf16 (the path's own types). Each route's gradient is held to the plain
+    tail's in float64 (the generator cast, four codes at a time: a code's
+    gradient depends on that code alone): the kernel route's departs from
+    it no more than 1.5x the plain route's in the same type, or 1e-4 (f32)
+    and 1e-2 (bf16) of its largest entry. A relative bound on the f32 routes
+    alone, as ``tests/test_torch_train_graph_cuda.py`` has at a small size,
+    does not hold at 1024^2: every section after the first reads the
+    kernel's output, summed in another order than the plain section's, and
+    a LeakyReLU whose input sits at zero takes the other slope; the f32 routes
+    then lie about as far from each other as each lies from float64. Bits
+    are not compared for the same reason. ``use_kernel(flag)`` swaps the
+    route. Returns what it read."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from warpedganspace_torch.train.train_step import metric_row, sample_batch, train_step
+
+    it = 7                                            # any iteration: its batch is fixed
+    s32 = dataclasses.replace(state, G=G32, cfg=dataclasses.replace(
+        state.cfg, generator_dtype="float32", reconstructor_dtype="float32"))
+    G64 = copy.deepcopy(G32)
+    for t in list(G64.parameters()) + list(G64.buffers()):
+        if t.dtype == torch.float32:
+            t.data = t.data.double()
+    live = list(state.S.state_dict().values()) + list(state.R.state_dict().values())
+    for opt in (state.opt_s, state.opt_r):
+        live += [t for st in opt.state.values() for t in st.values() if torch.is_tensor(t)]
+    saved = [t.clone() for t in live]
+
+    def restore():
+        with torch.no_grad():
+            for t, v in zip(live, saved):
+                t.copy_(v)
+
+    def shift_grad(G, rows=None):
+        dt = next(G.parameters()).dtype
+        acc = torch.float64 if dt == torch.float64 else torch.float32
+        z = sample_batch(state, it)[0]
+        n = z.shape[0]
+        shift0 = 0.1 * torch.randn(z.shape, generator=torch.Generator().manual_seed(3))
+        w = torch.randn((n, 3, G.resolution, G.resolution), device=z.device,
+                        generator=torch.Generator(z.device).manual_seed(4))
+        out = []
+        for b in range(0, n, rows or n):
+            zb = z[b:b + (rows or n)].to(dt)
+            if state.cfg.shift_in_w_space:
+                with torch.no_grad():
+                    zb = G.get_w(zb)
+            shift = shift0[b:b + len(zb)].to(z.device, dt).requires_grad_(True)
+            img = G(zb, shift, latent_is_w=state.cfg.shift_in_w_space)
+            torch.sum(img.to(acc) * w[b:b + len(zb)].to(acc)).backward()
+            out.append(shift.grad.double())
+        return torch.cat(out)
+
+    loss, grad = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for route in ("kernel", "plain"):
+            use_kernel(route == "kernel")
+            for dt, st in (("bfloat16", state), ("float32", s32)):
+                restore()
+                loss[route, dt] = float(metric_row(train_step(st, it))[3])
+                grad[route, dt] = shift_grad(st.G)
+        ref = shift_grad(G64, rows=4)                 # the plain route is still set
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+        use_kernel(True)
+        restore()
+    del G64
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    err = {key: rel(g, ref) for key, g in grad.items()}
+    apart = {dt: abs(loss["kernel", dt] - loss["plain", dt]) for dt in ("float32", "bfloat16")}
+    check(all(math.isfinite(v) for v in loss.values())
+          and all(bool(torch.isfinite(g).all()) for g in grad.values()),
+          f"non-finite loss or shift gradient on a route: {loss}")
+    for dt, loss_bound, grad_bound in (("float32", 1e-4, 1e-4), ("bfloat16", 5e-2, 1e-2)):
+        check(apart[dt] <= loss_bound
+              and err["kernel", dt] <= max(1.5 * err["plain", dt], grad_bound),
+              f"{dt}: the routes' losses {apart[dt]:.3g} apart (bound {loss_bound:g}); the "
+              f"shift gradient of the kernel route {err['kernel', dt]:.3g} and of the plain "
+              f"route {err['plain', dt]:.3g} of its largest entry from float64")
+    return (f"loss kernel {loss['kernel', 'bfloat16']:.6f} / plain "
+            f"{loss['plain', 'bfloat16']:.6f} in bf16, {loss['kernel', 'float32']:.7f} / "
+            f"{loss['plain', 'float32']:.7f} in f32 ({apart['float32']:.3g} apart); the shift's "
+            f"gradient through G from the float64 plain route, of its largest entry: f32 kernel "
+            f"{err['kernel', 'float32']:.3g}, plain {err['plain', 'float32']:.3g} (the two "
+            f"{rel(grad['kernel', 'float32'], grad['plain', 'float32']):.3g} apart); bf16 kernel "
+            f"{err['kernel', 'bfloat16']:.3g}, plain {err['plain', 'bfloat16']:.3g}")
+
+
+def wall_ms(run, n: int) -> float:
+    """Milliseconds per call of ``run`` on the host's clock, between synchronises."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def trace_calls(run, n: int, tag: str | None = None, rows: int = 0) -> dict:
+    """``n`` calls of ``run`` traced on host and device by ``torch.profiler``
+    inside a marked window (after one traced call on which the tracer's
+    start-up falls): ms per call on the tracer's clock, the device's busy
+    share of the window, kernel ms per call and, with ``tag``, the share of
+    the kernel time in kernels whose name holds it; with ``rows``, the
+    largest rows of the kernel table of all ``n + 1`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cpu = torch.autograd.DeviceType.CPU
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        run()
+        torch.cuda.synchronize()
+        with record_function("traced_window"):
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+    # Host-side marks that hold kernels reappear as device ranges of the same
+    # name; they are no kernels.
+    host_names = {e.name for e in tp.events() if e.device_type == cpu}
+    window = next(e for e in tp.events()
+                  if e.name == "traced_window" and e.device_type == cpu).time_range
+    events = [e for e in tp.events() if e.name not in host_names]
+    kernels_us, busy_us, n_spans = device_busy(events, window.start, window.end)
+    out = {"ms": (window.end - window.start) / 1e3 / n,
+           "busy": busy_us / (window.end - window.start), "kernel_ms": kernels_us / 1e3 / n,
+           "launches": n_spans / n}
+    if tag is not None:
+        tag_us, _, tag_n = device_busy([e for e in events if tag in e.name], window.start,
+                                       window.end)
+        out.update(tag_share=tag_us / max(kernels_us, 1e-9), tag_ms=tag_us / 1e3 / n,
+                   tag_launches=tag_n / n)
+    if rows:
+        out["table"] = tp.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
+                                               max_name_column_width=70)
+    return out
+
+
+def phase_train_path(card: str, name: str, cfg: dict) -> dict:
+    """One training path of ``TRAIN_PATHS``: ``train`` for ``cfg['iters']``
+    iterations, the same command with a larger ``--max-iter`` (a resume at the
+    stored iteration; ``--profile`` on it where the step is graphed), then
+    ``checkpoint2model`` on the tree and ``traverse_latent_space`` on it
+    without its final ``support_sets.pt``, as an interrupted run leaves it, so
+    that the traversal reads the split file. Launch counts as equalities: the
+    tail kernel ``per_forward`` times a forward, two forwards an iteration;
+    the warp none in training and one per traversal step. Then the step alone,
+    outside the CLI: graphed against eager (SNGAN), or through the tail kernel
+    against the plain tail with peak memory and the tail's share of a traced
+    step (StyleGAN2, ProgGAN). Returns each kernel's launches on the path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from warpedganspace_torch.cli import checkpoint2model, train
+    from warpedganspace_torch.models import proggan, stylegan2
+    from warpedganspace_torch.models.support_sets import SupportSets
+    from warpedganspace_torch.ops.proggan_tail import proggan_tail_plain
+    from warpedganspace_torch.ops.sg2_tail import fused_section_plain
+    from warpedganspace_torch.train.train_step import StepChunk, train_step
+    from warpedganspace_torch.utils.aux import experiment_name
+
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+    exp_name = experiment_name(vars(train.build_parser().parse_args(cfg["argv"])))
+    graphed = cfg["chunk"] > 1
+
+    def argv(max_iter, extra=()):
+        return cfg["argv"] + ["--log-freq", str(cfg["log_freq"]), "--ckp-freq",
+                              str(cfg["ckp_freq"]), "--max-iter", str(max_iter)] + list(extra)
+
+    def step_s(trainer, skip):
+        """Seconds per step over the log windows after the first ``skip`` and
+        without a checkpoint, and over how many steps."""
+        clean = [w for w in trainer.window_times[skip:] if not w[2]]
+        n = sum(w[0] for w in clean)
+        return sum(w[1] for w in clean) / n, n
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix=f"wgs_smoke_{name}_") as tmp:
+        os.chdir(tmp)
+        try:
+            reset_launch_counts()                     # count only this path's launches
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):     # the progress block redraws itself
+                first = train.main(argv(cfg["iters"]))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                train.main(argv(cfg["resume_to"], ["--profile"] if graphed else []))
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(f"Start training from iteration {cfg['iters']}" in log.getvalue(),
+                  "the second run did not resume at the stored iteration")
+            check("Adam moments reset" not in log.getvalue(),
+                  "the resumed run could not read its own optimizer sidecar")
+            n_iters = cfg["iters"] + (cfg["resume_to"] - cfg["iters"] + 1)
+            train_launches = launch_counts()
+            want = {kname: 0 for kname in train_launches}
+            if cfg["tail"]:
+                want[cfg["tail"]] = 2 * cfg["per_forward"] * n_iters
+            check(train_launches == want, f"{n_iters} training iterations of {cfg['gan']} "
+                                          f"launched {train_launches}, not {want}")
+            wip = osp.join("experiments", "wip", exp_name)
+            stats, init, moved = check_trained_tree(cfg, wip,
+                                                    osp.join("experiments", "complete", exp_name))
+            if graphed:
+                check(osp.isfile(osp.join(wip, "profile", "trace.json")),
+                      "--profile wrote no trace")
+            # The first window builds, warms up and (graphed) captures.
+            first_s, first_n = step_s(first, 2 if graphed else 1)
+            eager_s = eager_n = None
+            if graphed:
+                # The same run with one step a call, in a root of its own.
+                os.makedirs("eager")
+                os.chdir("eager")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    eager = train.main(argv(cfg["iters"], ["--steps-per-call", "1"]))
+                os.chdir(tmp)
+                eager_s, eager_n = step_s(eager, 1)
+
+            checkpoint2model.main(["--exp", wip])
+            split = osp.join(wip, "models", f"support_sets-{cfg['resume_to']}.pt")
+            check(osp.isfile(split) and osp.isfile(
+                osp.join(wip, "models", f"reconstructor-{cfg['resume_to']}.pt")),
+                "checkpoint2model wrote no split files")
+            os.remove(osp.join(wip, "models", "support_sets.pt"))
+            S = SupportSets(cfg["k"], cfg["dipoles"], cfg["d"], learn_gammas=True)
+            S.from_torch_state_dict(torch.load(split))
+            trav_launches, _, t_traverse, err = traverse_and_verify(
+                dict(cfg, batch=cfg["render_batch"], gif=False), wip, S)
+        finally:
+            os.chdir(cwd)
+    last = stats[str(cfg["resume_to"])]
+    print(f"[train] {name} ({' '.join(cfg['argv'])}) on {card}: {cfg['iters']} iterations in "
+          f"{t1 - t0:.2f} s (generator build and first calls included), resumed at "
+          f"{cfg['iters']} and ran to {cfg['resume_to']} in {t2 - t1:.2f} s; launches "
+          f"{train_launches} over {n_iters} iterations; last window: total loss "
+          f"{last['total_loss']:.4f}, accuracy {last['accuracy']:.3f}; moved {moved}; "
+          f"checkpoint2model, then traverse_latent_space of the tree: "
+          f"{cfg['k'] * (2 * cfg['steps'] + 1)} frames in {t_traverse:.2f} s, launches "
+          f"{trav_launches}, codes vs plain warp max abs {err:.3g}")
+    line = (f"[train] {name} through the CLI: {1e3 * first_s:.3f} ms per step = "
+            f"{1 / first_s:.2f} steps/s over {first_n} iterations (log windows after the "
+            f"{'first two' if graphed else 'first'}, none with a checkpoint)")
+    if graphed:
+        line += (f" with --steps-per-call {cfg['chunk']} (one CUDA graph of {cfg['chunk']} "
+                 f"steps a call); {1e3 * eager_s:.3f} ms per step = {1 / eager_s:.2f} steps/s "
+                 f"over {eager_n} iterations with --steps-per-call 1: the graph "
+                 f"{eager_s / first_s:.2f}x the eager steps/s")
+    print(line + f" on {card}")
+
+    # The step alone, outside the CLI.
+    state, G32 = direct_train_state(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    if graphed:
+        k = cfg["chunk"]
+        chunk = StepChunk(state, k)
+        it = iter(range(1, 10 ** 6, k))
+        for _ in range(2):                            # the eager warm-up, the capture
+            chunk(next(it))
+        graph = trace_calls(lambda: chunk(next(it)), 5, rows=12)
+        eager = trace_calls(lambda: train_step(state, 1), 10)
+        graph_ms = wall_ms(lambda: chunk(next(it)), 10) / k
+        eager_ms = wall_ms(lambda: train_step(state, 1), 50)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[train step] {name}, batch {state.cfg.batch_size}, bf16 G on {card}: untraced "
+              f"{graph_ms:.3f} ms per step graphed ({k} steps a replay, "
+              f"{1e3 / graph_ms:.1f} steps/s) against {eager_ms:.3f} ms eager "
+              f"({1e3 / eager_ms:.1f} steps/s, {eager_ms / graph_ms:.2f}x); traced on host and "
+              f"device: graphed {graph['ms'] / k:.3f} ms per step, device busy "
+              f"{100 * graph['busy']:.1f} % of the window, {graph['kernel_ms'] / k:.3f} ms of "
+              f"kernels and {graph['launches'] / k:.1f} device events per step; eager "
+              f"{eager['ms']:.3f} ms per step, busy {100 * eager['busy']:.1f} %, "
+              f"{eager['kernel_ms']:.3f} ms of kernels in {eager['launches']:.1f} events; "
+              f"peak device memory {peak:.2f} GiB; the kernel table of the 6 traced replays:")
+        print(graph["table"])
+    else:
+        module, attr, plain = ((stylegan2, "fused_section", fused_section_plain)
+                               if cfg["tail"] == "sg2_tail"
+                               else (proggan, "proggan_tail", proggan_tail_plain))
+        kernel_fn = getattr(module, attr)
+        routes = {}
+        try:
+            for route in ("kernel", "plain", "kernel again", "plain again"):
+                setattr(module, attr, plain if route.startswith("plain") else kernel_fn)
+                train_step(state, 1)                  # cuDNN's first calls, the allocator
+                torch.cuda.reset_peak_memory_stats()
+                routes[route] = (wall_ms(lambda: train_step(state, 1), 3),
+                                 torch.cuda.max_memory_allocated() / 2 ** 30)
+            setattr(module, attr, kernel_fn)
+            traced = trace_calls(lambda: train_step(state, 1), 2, tag="section_kernel", rows=12)
+            routes_read = compare_routes(
+                state, G32, lambda kernel: setattr(module, attr, kernel_fn if kernel else plain))
+        finally:
+            setattr(module, attr, kernel_fn)
+        print(f"[train step] {name}, batch {state.cfg.batch_size}, bf16 G and R on {card}: "
+              f"untraced, in turns kernel, plain, kernel, plain: "
+              + ", ".join(f"{route} {ms:.1f} ms (peak {gib:.2f} GiB)"
+                          for route, (ms, gib) in routes.items())
+              + f"; traced on host and device (kernel route): {traced['ms']:.1f} ms per step, "
+              f"device busy {100 * traced['busy']:.1f} %, {traced['kernel_ms']:.1f} ms of "
+              f"kernels per step, the tail kernel {traced['tag_ms']:.2f} ms of it "
+              f"({100 * traced['tag_share']:.1f} %) in {traced['tag_launches']:.0f} launches; "
+              "the kernel table of the 3 traced steps:")
+        print(traced["table"])
+        print(f"[train step] {name} on the kernel route and the plain tail from one state "
+              f"and batch at batch {state.cfg.batch_size}, deterministic algorithms, on {card}: "
+              + routes_read)
+    del state, G32
+    torch.cuda.empty_cache()
+    return {kname: train_launches[kname] + trav_launches[kname] for kname in train_launches}
+
+
+def phase_generator_sngan(card: str) -> None:
+    """SNGAN-AnimeFaces at full width, random weights from a seed with its
+    BatchNorm statistics and biases moved off their initial values: f32 and
+    bf16 on the card against f32 on the CPU, and ms per batch."""
+    import torch
+
+    from warpedganspace_torch.models.api import cast_params_bf16
+    from warpedganspace_torch.models.gan_load import build_gan
+
+    b = 64
+    G = build_gan("SNGAN_AnimeFaces", allow_random_init=True, device="cuda")
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for name, t in list(G.named_parameters()) + list(G.named_buffers()):
+            if name.endswith("running_var"):
+                t.copy_(0.6 + 0.9 * torch.rand(t.shape, generator=gen))
+            elif name.endswith("bias") or name.endswith("running_mean"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    G16 = cast_params_bf16(G)
+    z = torch.randn((b, G.dim_z), generator=gen)
+    shift = 0.2 * torch.nn.functional.normalize(torch.randn((b, G.dim_z), generator=gen), dim=-1)
+    with torch.no_grad():
+        ref = copy.deepcopy(G).to("cpu")(z, shift)
+        z, shift = z.cuda(), shift.cuda()
+        img = G(z, shift)
+        img16 = G16(z.bfloat16(), shift.bfloat16()).float()
+        check_images(img, (b, 3, 64, 64), "SNGAN-AnimeFaces f32")
+        check_images(img16, (b, 3, 64, 64), "SNGAN-AnimeFaces bf16")
+        pc, p16 = psnr(img.cpu(), ref), psnr(img16.cpu(), ref)
+        ms32 = cuda_ms(lambda: G(z, shift), iters=20, warmup=3)
+        ms16 = cuda_ms(lambda: G16(z.bfloat16(), shift.bfloat16()), iters=20, warmup=3)
+    check(pc > 40.0, f"SNGAN-AnimeFaces card f32 vs CPU f32 PSNR {pc:.2f} dB <= 40")
+    # bf16 rounds every activation of five residual blocks; a sanity bound.
+    check(p16 > 25.0, f"SNGAN-AnimeFaces card bf16 vs CPU f32 PSNR {p16:.2f} dB <= 25")
+    print(f"[generator] SNGAN-AnimeFaces 64^2, B={b} on {card}: f32 {ms32:.3f} ms/batch, bf16 "
+          f"{ms16:.3f} ms/batch; card f32 vs CPU f32 PSNR {pc:.2f} dB, card bf16 vs CPU f32 "
+          f"{p16:.2f} dB")
 
 
 def profile_path(card: str, cfg: dict, rows: int = 14) -> None:
@@ -1581,19 +2058,6 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
                                                        train_step)
 
     cpu_type = torch.autograd.DeviceType.CPU
-
-    def device_busy(events, lo, hi):
-        """Of the device events that touch [lo, hi] on the tracer's clock (us):
-        their summed time, the length of their intervals' union, their number."""
-        spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.time_range.end > lo and e.time_range.start < hi)
-        total, busy, edge = 0.0, 0.0, lo
-        for start, end in spans:
-            total += end - start
-            busy += max(0.0, end - max(start, edge))
-            edge = max(edge, end)
-        return total, busy, len(spans)
 
     for g_dtype, r_dtype in (("bfloat16", "bfloat16"), ("float32", "float32")):
         G = open_attention(build_gan(cfg["gan"], target_classes=[239], allow_random_init=True,
@@ -1745,8 +2209,11 @@ def main(argv=None) -> int:
     timed("generator_biggan_grad", phase_generator_biggan_grad, torch.float32)
     timed("generator_biggan_grad_bf16", phase_generator_biggan_grad, torch.bfloat16)
     timed("generator_proggan", phase_generator_proggan)
+    timed("generator_sngan", phase_generator_sngan)
     paths = {name: timed(f"cli_{name}", phase_cli, cfg) for name, cfg in PATHS.items()}
     paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
+    for path, cfg in TRAIN_PATHS.items():
+        paths[path] = timed(path, phase_train_path, path, cfg)
 
     def row(kname, source, replaces, k):
         by_path = {p: launches.get(kname, 0) for p, launches in paths.items()}

@@ -10,6 +10,9 @@ and JPEG frames within a mean gray-level difference of 1 and a max of 24.
 The training CLIs follow (the last section): both ``cli.train``s with the same
 flags on one small BigGAN write the same experiment tree; the port resumes its
 own and the JAX trainer's checkpoint, and traverses the trees both trained.
+On a small SNGAN-MNIST-shaped generator both packages run ``train`` with
+``--steps-per-call``, ``checkpoint2model`` and ``traverse_latent_space`` and
+write the same trees; the port's chunked run equals its unchunked one.
 """
 import json
 import os
@@ -316,11 +319,9 @@ def test_port_sample_gan_pool(tmp_path, monkeypatch):
 def test_build_gan_rules(tmp_path):
     from warpedganspace_torch.models.gan_load import build_gan
 
-    for gan_type in ("SNGAN_MNIST", "SNGAN_AnimeFaces"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_gan(gan_type, weights_root=str(tmp_path))
-    with pytest.raises(FileNotFoundError):
-        build_gan("ProgGAN", weights_root=str(tmp_path), allow_random_init=False)
+    for gan_type in ("SNGAN_MNIST", "SNGAN_AnimeFaces", "ProgGAN"):
+        with pytest.raises(FileNotFoundError):
+            build_gan(gan_type, weights_root=str(tmp_path), allow_random_init=False)
     with pytest.raises(ValueError, match="unknown GAN type"):
         build_gan("NoSuchGAN", weights_root=str(tmp_path))
     with pytest.raises(FileNotFoundError):
@@ -378,9 +379,6 @@ TRAIN_BASE = ["--gan-type", "BigGAN", "--biggan-target-classes", "239",
               "--batch-size", "4", "--log-freq", "2"]
 TRAIN_FLAGS = TRAIN_BASE + ["--ckp-freq", "2"]
 TRAIN_EXP = "BigGAN-239-ResNet-K3-D4-LearnGammas-eps0.1_0.2"
-# What the JAX CLI offers and the port's does not (ROADMAP.md says where each goes).
-NOT_OFFERED = {"steps_per_call", "multi_device", "remat", "profile", "pair_layout",
-               "checkpoint_backend"}
 
 
 def _shapes(tree):
@@ -447,7 +445,7 @@ def test_train_cli_trees_match(train_trees):
             return json.load(f)
 
     ours, ref = (loaded(e, "args.json") for e in (exps["torch"], exps["jax"]))
-    assert set(ref) - set(ours) == NOT_OFFERED and set(ours) <= set(ref)
+    assert set(ref) == set(ours)                 # the JAX CLI's whole flag surface
     assert all(ours[k] == ref[k] for k in ours if k != "cuda")
     ours, ref = (loaded(e, "stats.json") for e in (exps["torch"], exps["jax"]))
     assert set(ours) == set(ref) == {"2", "4"}
@@ -551,23 +549,193 @@ def test_train_cli_rules(tmp_path, monkeypatch):
         t_train.main(["--gan-type", "BigGAN", "--biggan-target-classes", "239", "--no-cuda"])
     with pytest.raises(SystemExit):                       # BigGAN needs its classes
         t_train.main(["--gan-type", "BigGAN", "-K", "2", "-D", "2", "--no-cuda"])
-    with pytest.raises(SystemExit):                       # not offered by the port
-        t_train.main(TRAIN_FLAGS + ["--steps-per-call", "2", "--no-cuda"])
+    with pytest.raises(SystemExit):                       # 3 does not divide the frequencies
+        t_train.main(TRAIN_FLAGS + ["--steps-per-call", "3", "--no-cuda"])
+    with pytest.raises(SystemExit):
+        t_train.main(TRAIN_FLAGS + ["--steps-per-call", "0", "--no-cuda"])
     assert not osp.exists("experiments")                  # nothing was written
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_train.main(TRAIN_FLAGS + ["--max-iter", "1"])   # --cuda is the default
 
 
-@pytest.mark.parametrize("gan_type", ["SNGAN_MNIST", "SNGAN_AnimeFaces"])
-def test_train_cli_rejects_unported_types_before_writing(gan_type, tmp_path, monkeypatch):
-    """A GAN type the port does not carry raises before the experiment
-    directory exists, so the failed launch leaves no tree behind."""
+@pytest.mark.parametrize("flag", [["--checkpoint-backend", "orbax"], ["--multi-device"]])
+def test_train_cli_rejects_jax_only_flags_before_writing(flag, tmp_path, monkeypatch, capsys):
+    """The JAX package's orbax checkpoints and data parallelism are refused
+    before the experiment directory exists, so the failed launch leaves no
+    tree behind."""
     from warpedganspace_torch.cli import train as t_train
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.main(["--gan-type", gan_type, "-K", "2", "-D", "2", "--reconstructor-type",
-                      "LeNet", "--no-cuda"])
-    assert not osp.exists("experiments")
+    with pytest.raises(SystemExit):
+        t_train.main(TRAIN_FLAGS + flag + ["--no-cuda"])
+    assert ("orbax" if "orbax" in flag else "Queue 1 item 7") in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("script", ["mnist", "anime", "stylegan2", "proggan", "biggan"])
+def test_train_scripts_run_against_the_port(script, tmp_path, monkeypatch):
+    """Each ``scripts/train/<script>.sh`` command line, with ``python
+    train.py`` replaced by the port's module, passes every check the CLI makes
+    before it picks a device (which here stops the run, before anything is
+    written)."""
+    import shlex
+
+    from warpedganspace_torch.cli import train as t_train
+
+    repo = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    with open(osp.join(repo, "scripts", "train", f"{script}.sh")) as f:
+        (line,) = [ln for ln in f if ln.startswith("python train.py")]
+    argv = shlex.split(line)[2:]
+
+    class Reached(Exception):
+        pass
+
+    def stop(cuda):
+        assert cuda
+        raise Reached
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(t_train, "select_device", stop)
+    with pytest.raises(Reached):
+        t_train.main(argv)
+    assert os.listdir(tmp_path) == []
+    args = t_train.build_parser().parse_args(argv)
+    assert args.steps_per_call == (10 if script in ("mnist", "anime") else 1)
+    assert args.pair_layout == ("s2d" if script in ("stylegan2", "proggan") else "auto")
+
+
+# --------------------------------------------------- SNGAN: --steps-per-call, checkpoint2model
+SK, SD = 3, 4
+SNGAN_BASE = ["--gan-type", "SNGAN_MNIST", "--reconstructor-type", "LeNet", "-K", str(SK),
+              "-D", str(SD), "--learn-gammas", "--min-shift-magnitude", "0.15",
+              "--max-shift-magnitude", "0.25", "--batch-size", "4"]
+SNGAN_FLAGS = SNGAN_BASE + ["--steps-per-call", "2", "--log-freq", "2", "--ckp-freq", "2",
+                            "--max-iter", "4"]
+SNGAN_EXP = "SNGAN_MNIST-LeNet-K3-D4-LearnGammas-eps0.15_0.25"
+
+
+@pytest.fixture(scope="module")
+def sngan_trees(tmp_path_factory):
+    """Both packages, each in a root of its own with its ``build_gan`` patched
+    to one small SNGAN of the same weights: the JAX ``sample_gan`` makes a
+    pool, ``train`` runs chunked (2 steps a call), ``checkpoint2model`` splits
+    the checkpoint, and ``traverse_latent_space`` walks the tree without its
+    final ``support_sets.pt`` (an interrupted run), so that it reads the
+    split file."""
+    from tests.test_torch_sngan import small_sngan_bundles
+    from warpedganspace_tpu.cli import checkpoint2model as j_c2m
+    from warpedganspace_tpu.cli import train as j_train
+    from warpedganspace_torch.cli import checkpoint2model as t_c2m
+    from warpedganspace_torch.cli import train as t_train
+
+    jG, G = small_sngan_bundles(seed=2)
+    roots = {name: str(tmp_path_factory.mktemp(f"sngan_{name}")) for name in ("jax", "torch")}
+    mp = pytest.MonkeyPatch()
+    cwd = os.getcwd()
+    traverse = ["--pool", "p", "--shift-steps", "2", "--eps", "0.2", "--batch-size", "4"]
+    exp = osp.join("experiments", "wip", SNGAN_EXP)
+    try:
+        for mod in (j_sample_gan, j_train, j_traverse):
+            mp.setattr(mod, "build_gan", lambda **kw: jG)
+        for mod in (t_train, t_traverse):
+            mp.setattr(mod, "build_gan", lambda **kw: G.to(kw["device"]))
+        for name, train, c2m, trav, extra in (
+                ("jax", j_train, j_c2m, j_traverse, []),
+                ("torch", t_train, t_c2m, t_traverse, ["--no-cuda"])):
+            os.chdir(roots[name])
+            j_sample_gan.main(["-g", "SNGAN_MNIST", "--num-samples", "1", "--pool", "p"])
+            train.main(SNGAN_FLAGS + extra)
+            c2m.main(["--exp", exp])
+            os.remove(osp.join(exp, "models", "support_sets.pt"))
+            trav.main(["--exp", exp] + traverse + extra)
+    finally:
+        os.chdir(cwd)
+        mp.undo()
+    return roots
+
+
+def test_sngan_cli_trees_match(sngan_trees):
+    exps = {k: osp.join(r, "experiments") for k, r in sngan_trees.items()}
+    files = _file_set(exps["torch"])
+    assert files == _file_set(exps["jax"])
+    wip = osp.join("wip", SNGAN_EXP)
+    models = {osp.join(wip, "models", f) for f in (
+        "support_sets_init.pt", "checkpoint.pt", "optimizer_state.npz", "reconstructor.pt",
+        "support_sets-4.pt", "reconstructor-4.pt")}
+    assert models <= files and osp.join(wip, "models", "support_sets.pt") not in files
+    assert osp.join("complete", SNGAN_EXP, "models", "support_sets.pt") in files
+    for rel in ("checkpoint.pt", "support_sets-4.pt", "reconstructor-4.pt", "reconstructor.pt"):
+        ours, ref = (load_pt(osp.join(e, wip, "models", rel)) for e in exps.values())
+        assert _shapes(ours) == _shapes(ref), rel
+    ckpt = load_pt(osp.join(exps["torch"], wip, "models", "checkpoint.pt"))
+    split = load_pt(osp.join(exps["torch"], wip, "models", "support_sets-4.pt"))
+    assert ckpt["iter"] == 4
+    for key, v in ckpt["support_sets"].items():
+        np.testing.assert_array_equal(split[key], v)
+    r_split = load_pt(osp.join(exps["torch"], wip, "models", "reconstructor-4.pt"))
+    assert all(np.array_equal(r_split[k], v) for k, v in ckpt["reconstructor"].items())
+    with open(osp.join(exps["torch"], wip, "stats.json")) as f:
+        assert set(json.load(f)) == {"2", "4"}
+
+    (code,) = [d for d in os.listdir(osp.join(exps["torch"], wip, "results", "p", "4_0.2_0.8"))]
+    out = osp.join(exps["torch"], wip, "results", "p", "4_0.2_0.8", code)
+    codes = np.asarray(load_pt(osp.join(out, "paths_latent_codes.pt")))
+    assert codes.shape == (SK, 5, 128) and np.isfinite(codes).all()
+    # The sets are those the checkpoint holds: the center is the pool's code,
+    # and every other code moved.
+    assert np.abs(codes[:, 0] - codes[:, 2]).max() > 0
+    frame = Image.open(osp.join(out, "paths_images", "path_000", "000000.jpg"))
+    assert frame.size == (32, 32) and frame.mode == "L"
+
+
+def test_sngan_chunked_run_equals_unchunked(tmp_path, monkeypatch):
+    """``--steps-per-call 3`` over 10 iterations with a resume: the first run
+    stops at 4 (a chunk, then the lone iteration 4), the second resumes at the
+    checkpoint of iteration 3 (re-run alone), then chunks 4-6 and 7-9, then
+    the lone 10. On the CPU a chunk is three eager steps, so the sets, the
+    statistics and the checkpoints equal those of the same runs with one step
+    a call, bit for bit."""
+    from tests.test_torch_sngan import small_sngan_bundles
+    from warpedganspace_torch.cli import train as t_train
+    from warpedganspace_torch.train.train_step import StepChunk
+
+    _, G = small_sngan_bundles(seed=4)
+    monkeypatch.setattr(t_train, "build_gan", lambda **kw: G.to(kw["device"]))
+    chunks = []
+    real_call = StepChunk.__call__
+
+    def spy(self, iteration):
+        chunks.append((self.k, iteration))
+        return real_call(self, iteration)
+
+    monkeypatch.setattr(StepChunk, "__call__", spy)
+    flags = SNGAN_BASE + ["--log-freq", "3", "--ckp-freq", "3", "--no-cuda"]
+    trees = {}
+    for k in (1, 3):
+        root = tmp_path / f"k{k}"
+        root.mkdir()
+        monkeypatch.chdir(root)
+        for max_iter in (4, 10):
+            t_train.main(flags + ["--steps-per-call", str(k), "--max-iter", str(max_iter)])
+        trees[k] = osp.join(str(root), "experiments", "wip", SNGAN_EXP)
+    assert chunks == [(3, 1), (3, 4), (3, 7)]
+    for rel in ("stats.json", "models/support_sets.pt", "models/reconstructor.pt",
+                "models/checkpoint.pt", "models/optimizer_state.npz"):
+        a, b = (osp.join(trees[k], rel) for k in (1, 3))
+        if rel.endswith(".json"):
+            with open(a) as fa, open(b) as fb:
+                ja, jb = json.load(fa), json.load(fb)
+            assert set(ja) == {"3", "6", "9"} and ja == jb
+        elif rel.endswith(".npz"):
+            with np.load(a) as za, np.load(b) as zb:
+                assert set(za.files) == set(zb.files)
+                assert all(np.array_equal(za[f], zb[f]) for f in za.files)
+        else:
+            ta, tb = load_pt(a), load_pt(b)
+            if "iter" in ta:
+                assert ta["iter"] == tb["iter"] == 9
+                ta, tb = ta["support_sets"] | ta["reconstructor"], \
+                    tb["support_sets"] | tb["reconstructor"]
+            assert set(ta) == set(tb)
+            assert all(np.array_equal(ta[key], tb[key]) for key in ta), rel

@@ -9,10 +9,21 @@ against a frozen pretrained GAN, and writes the reference experiment tree
 
 which a finished run copies to experiments/complete/<name>/ (without
 checkpoint.pt), where :mod:`warpedganspace_torch.cli.traverse_latent_space`
-reads it. The flag surface is the reference's plus ``--seed``, ``--g-dtype``,
-``--r-dtype`` and ``--no-tensorboard-server``, as in
-:mod:`warpedganspace_tpu.cli.train`. ``--cuda`` (the default) trains on the
-CUDA device and fails without one; ``--no-cuda`` trains on the CPU.
+reads it. The flag surface is that of :mod:`warpedganspace_tpu.cli.train`,
+so the commands of ``scripts/train/*.sh`` run as they are:
+
+- ``--steps-per-call k``: k iterations per call, one CUDA graph of k steps on
+  the card (k eager steps on the CPU); k must divide ``--log-freq`` and
+  ``--ckp-freq``.
+- ``--remat {off,tail,full}``: recompute generator blocks in the backward
+  (StyleGAN2 and ProgGAN; see their modules).
+- ``--profile``: a ``torch.profiler`` trace of the loop under ``<wip>/profile``.
+- ``--pair-layout``: accepted; the port has one layout, NCHW.
+- ``--checkpoint-backend orbax`` and ``--multi-device`` are the JAX package's
+  and are refused before anything is written.
+
+``--cuda`` (the default) trains on the CUDA device and fails without one;
+``--no-cuda`` trains on the CPU.
 
     python -m warpedganspace_torch.cli.train --gan-type BigGAN \\
         --biggan-target-classes 239 -K 120 -D 256 --learn-gammas \\
@@ -27,7 +38,7 @@ import torch
 
 from warpedganspace_torch.cli.sample_gan import select_device
 from warpedganspace_torch.config import GAN_RESOLUTIONS, GAN_WEIGHTS, RECONSTRUCTOR_TYPES
-from warpedganspace_torch.models.gan_load import build_gan, check_ported
+from warpedganspace_torch.models.gan_load import build_gan
 from warpedganspace_torch.models.reconstructor import Reconstructor
 from warpedganspace_torch.models.support_sets import SupportSets
 from warpedganspace_torch.train.trainer import Trainer
@@ -85,8 +96,25 @@ def build_parser():
                         help="with --tensorboard: write scalars but do not launch the "
                              "in-process TensorBoard server (the reference always "
                              "launches one, lib/trainer.py:55-63)")
+    parser.add_argument("--checkpoint-backend", type=str, default="pt", choices=("pt", "orbax"),
+                        help="'pt' (default): the reference-format checkpoint.pt and the "
+                             "optimizer sidecar; 'orbax' is the JAX package's and is refused")
     parser.add_argument("--seed", type=int, default=0,
                         help="RNG seed of the initial S and R and of the batch stream")
+    parser.add_argument("--steps-per-call", type=int, default=1,
+                        help="iterations per call: one CUDA graph of k training steps on the "
+                             "card (must divide --log-freq and --ckp-freq)")
+    parser.add_argument("--remat", type=str, nargs="?", const="tail", default="off",
+                        choices=("off", "tail", "full"),
+                        help="recompute generator blocks in the backward (StyleGAN2, ProgGAN): "
+                             "bare --remat = 'tail', the blocks of < 128 channels; 'full' "
+                             "every block")
+    parser.add_argument("--profile", action="store_true",
+                        help="record a torch.profiler trace of the training loop")
+    parser.add_argument("--pair-layout", type=str, default="auto",
+                        choices=("auto", "nhwc", "s2d"),
+                        help="accepted for the JAX package's scripts; the port hands the "
+                             "image pair to R in its one layout, NCHW")
     parser.add_argument("--g-dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
                         help="generator compute dtype during training (the warp "
@@ -102,6 +130,8 @@ def build_parser():
                         help="train on the CUDA device (default)")
     parser.add_argument("--no-cuda", dest="cuda", action="store_false",
                         help="train on the CPU")
+    parser.add_argument("--multi-device", action="store_true",
+                        help="the JAX package's data parallelism; not ported, refused")
     parser.set_defaults(cuda=True)
     return parser
 
@@ -119,7 +149,15 @@ def main(argv=None):
             parser.error(f"{flag} is required")
     if args.gan_type == "BigGAN" and args.biggan_target_classes is None:
         parser.error("In case of BigGAN, a list of classes needs to be determined.")
-    check_ported(args.gan_type)
+    if args.checkpoint_backend == "orbax":
+        parser.error("--checkpoint-backend orbax is the JAX package's; the port writes 'pt'")
+    if args.multi_device:
+        parser.error("--multi-device is not ported yet (ROADMAP.md, Queue 1 item 7)")
+    if args.steps_per_call < 1:
+        parser.error(f"--steps-per-call must be at least 1, got {args.steps_per_call}")
+    for flag, freq in (("--ckp-freq", args.ckp_freq), ("--log-freq", args.log_freq)):
+        if freq % args.steps_per_call:
+            parser.error(f"--steps-per-call {args.steps_per_call} must divide {flag} ({freq})")
     device = select_device(args.cuda)
 
     # Create output dir and save current arguments (the args.json contract).
@@ -135,10 +173,13 @@ def main(argv=None):
         GAN_WEIGHTS[args.gan_type]["weights"][args.stylegan2_resolution]
         if args.gan_type == "StyleGAN2"
         else GAN_WEIGHTS[args.gan_type]["weights"][GAN_RESOLUTIONS[args.gan_type]]))
+    if args.pair_layout != "auto":
+        print("  \\__Pair layout: NCHW, the port's one layout (--pair-layout {} has no "
+              "effect)".format(args.pair_layout))
     G = build_gan(gan_type=args.gan_type,
                   target_classes=args.biggan_target_classes,
                   stylegan2_resolution=args.stylegan2_resolution,
-                  shift_in_w_space=args.shift_in_w_space, device=device)
+                  shift_in_w_space=args.shift_in_w_space, device=device, remat=args.remat)
 
     print("#. Build Support Sets S...")
     print("  \\__Number of Support Sets    : {}".format(args.num_support_sets))
@@ -167,7 +208,7 @@ def main(argv=None):
 
     print("#. Experiment: {}".format(exp_dir))
     trn = Trainer(params=args, exp_dir=exp_dir, seed=args.seed)
-    trn.train(generator=G, support_sets=S, reconstructor=R)
+    trn.train(generator=G, support_sets=S, reconstructor=R, profile=args.profile)
     return trn
 
 

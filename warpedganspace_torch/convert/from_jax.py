@@ -106,6 +106,23 @@ def proggan_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def sngan_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``SNGANGenerator.init``/converter params -> port generator state dict."""
+    out: dict[str, torch.Tensor] = {}
+    _linear(params["dense"], "dense", out)
+    for i, block in enumerate(params["blocks"]):
+        dst = f"blocks.{i}."
+        for name in ("bn1", "bn2"):
+            _bn(block[name], dst + name, out)
+        for name in ("conv1", "conv2"):
+            _conv(block[name], dst + name, out)
+        if "bypass_conv" in block:
+            _conv(block["bypass_conv"], dst + "bypass", out)
+    _bn(params["out_bn"], "out_bn", out)
+    _conv(params["out_conv"], "out_conv", out)
+    return out
+
+
 def support_sets_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """``SupportSets.init`` params -> the reference state-dict layout that
     :meth:`SupportSets.from_torch_state_dict` reads."""

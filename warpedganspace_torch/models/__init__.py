@@ -1,2 +1,3 @@
-"""Models: support sets, the StyleGAN2, BigGAN and ProgGAN generators, the
+"""Models: support sets, the SNGAN, StyleGAN2, BigGAN and ProgGAN
+generators, the
 uniform generator contract and ``gan_load``."""

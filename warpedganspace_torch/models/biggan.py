@@ -215,7 +215,7 @@ class BigGANGenerator(nn.Module):
         self.shared_dim = shared_dim
         self.n_classes = n_classes
         self.bottom_width = bottom_width
-        self.target_classes = tuple(int(c) for c in target_classes)
+        self.target_classes = target_classes
         self.attention = str(attention)
         arch = self.arch
         cond_dim = shared_dim + self.z_chunk_size
@@ -245,6 +245,19 @@ class BigGANGenerator(nn.Module):
                    attention=str(config.get("G_attn", "64")), generator=generator)
 
     @property
+    def target_classes(self) -> tuple:
+        return self._target_classes
+
+    @target_classes.setter
+    def target_classes(self, target_classes) -> None:
+        # Also as a buffer on the generator's device, so that a forward copies
+        # nothing from the host (a CUDA graph of the training step captures it).
+        self._target_classes = tuple(int(c) for c in target_classes)
+        device = self.classes.device if "classes" in self._buffers else None
+        self.register_buffer("classes", torch.tensor(self._target_classes, dtype=torch.long,
+                                                     device=device), persistent=False)
+
+    @property
     def arch(self) -> dict:
         return biggan_arch(self.ch, self.resolution, self.attention)
 
@@ -269,7 +282,7 @@ class BigGANGenerator(nn.Module):
         relate to the JAX package's)."""
         if y is not None:
             return y
-        classes = torch.tensor(self.target_classes, dtype=torch.long, device=z.device)
+        classes = self.classes
         if len(self.target_classes) == 1:
             return classes.expand(z.shape[0])
         # The salt is read on the host (one small copy); a single target

@@ -19,21 +19,29 @@ Structural rule: the tail is fused when the chain ends in the pattern
 input channels that halves them, then alternating up 2C -> C and same C -> C
 blocks with halving C in {64, 32, 16}); the reference 1024^2 chain does, with
 12 head blocks and three sections. A chain without such a suffix runs every
-block plain, as the JAX package's does. The JAX package's TPU and training
-devices (the s2d and fold-x tail layouts, the merged 4x4 up-conv, remat, the
-s2d output layout) are not carried over.
+block plain, as the JAX package's does. The JAX package's TPU layout
+devices (the s2d and fold-x tail layouts, the merged 4x4 up-conv, the s2d
+output layout) are not carried over.
 
-Inference only (the generator is frozen).
+The generator is frozen; training differentiates it with respect to the
+shift. ``remat`` recomputes blocks in the backward, as the JAX package's
+does: ``"full"`` every block, ``"tail"`` the blocks of < 128 output channels,
+through ``torch.utils.checkpoint``. On a CUDA tensor the tail needs no
+wrapper for either: the kernel keeps no intermediate, and its backward
+recomputes the plain section from the section's operands, which is what
+``"tail"`` asks. On the CPU the plain tail is wrapped whole.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from warpedganspace_torch.ops.proggan_tail import (block_plain, head_plain,
                                                    tail_sections_from_blocks)
 from warpedganspace_torch.ops.proggan_tail_cuda import proggan_tail
 
+REMAT_CHOICES = ("off", "tail", "full")
 # (kernel, padding, upsample) of the 18 feature blocks (model.py:67-84).
 _BLOCK_SPECS = [(4, 3, False), (3, 1, False)] + [(3, 1, up) for up in [True, False] * 8]
 # The reference 1024^2 channel chain: N + 1 entries for N blocks.
@@ -64,8 +72,11 @@ class ProgGANGenerator(nn.Module):
     """
 
     def __init__(self, dim_z: int = 512, resolution: int | None = None, channels=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, remat: str = "off"):
         super().__init__()
+        if remat not in REMAT_CHOICES:
+            raise ValueError(f"remat must be one of {REMAT_CHOICES}, got {remat!r}")
+        self.remat = remat
         channels = list(_CHANNELS if channels is None else channels)
         if channels[0] != dim_z:
             raise ValueError(f"channels[0]={channels[0]} must equal dim_z={dim_z}")
@@ -99,9 +110,16 @@ class ProgGANGenerator(nn.Module):
         x = z[:, :, None, None]                          # the (B, 512, 1, 1) seed
         n_head, sections = self.tail_split()
         for (_, pad, up), block in zip(self.specs[:n_head], self.blocks[:n_head]):
-            x = block_plain(x, block.weight, block.bias, block.scale, up=up, padding=pad)
+            if self.remat == "full" or (self.remat == "tail" and block.weight.shape[0] < 128):
+                x = checkpoint(block_plain, x, block.weight, block.bias, block.scale, up=up,
+                               padding=pad, use_reentrant=False)
+            else:
+                x = block_plain(x, block.weight, block.bias, block.scale, up=up, padding=pad)
         if not sections:
             return head_plain(x, self.out.weight, self.out.bias, self.out.scale)
+        if self.remat != "off" and not x.is_cuda:
+            return checkpoint(proggan_tail, x.contiguous(), sections, self.out,
+                              use_reentrant=False)
         return proggan_tail(x.contiguous(), sections, self.out)
 
     forward = apply

@@ -25,6 +25,13 @@ algebra. The skip chain stays outside, as in the JAX package's
 ``tail_layout="pallas"`` route. Synthesis always takes the fixed noise
 buffers, so the JAX package's fallback for random or explicit noise has no
 counterpart here.
+
+``remat`` recomputes blocks in the backward, as the JAX package's does:
+``"full"`` every synthesis block, ``"tail"`` the blocks of < 128 output
+channels, through ``torch.utils.checkpoint``. A tail block whose section runs
+the kernel (a CUDA tensor) needs no wrapper for either: the kernel keeps no
+intermediate, and its backward recomputes the plain section from the
+section's operands, which is what ``"tail"`` asks.
 """
 from __future__ import annotations
 
@@ -33,12 +40,16 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from warpedganspace_torch.ops.fused_act import fused_leaky_relu
 from warpedganspace_torch.ops.sg2_tail import (blur_kernel, modulate, modulated_conv,
                                                tail_start)
 from warpedganspace_torch.ops.sg2_tail_cuda import fused_section
 from warpedganspace_torch.ops.upfirdn2d import upfirdn2d
+
+
+REMAT_CHOICES = ("off", "tail", "full")
 
 
 def channels_dict(channel_multiplier: int = 2) -> dict[int, int]:
@@ -125,8 +136,11 @@ class StyleGAN2Generator(nn.Module):
 
     def __init__(self, resolution: int = 1024, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: int = 2, shift_in_w_space: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, remat: str = "off"):
         super().__init__()
+        if remat not in REMAT_CHOICES:
+            raise ValueError(f"remat must be one of {REMAT_CHOICES}, got {remat!r}")
+        self.remat = remat
         self.resolution = resolution
         self.style_dim = style_dim
         self.shift_in_w_space = shift_in_w_space
@@ -189,27 +203,39 @@ class StyleGAN2Generator(nn.Module):
         out = self.conv1(out, latent[:, 0], noise[0])
         skip = self.to_rgb1(out, latent[:, 1])
         lo = self.tail_start()
-        i = 1
-        for idx, to_rgb in enumerate(self.to_rgbs):
-            conv_up, conv = self.convs[2 * idx], self.convs[2 * idx + 1]
+        for idx in range(len(self.to_rgbs)):
+            lat3 = latent[:, 1 + 2 * idx: 4 + 2 * idx]
             n_up, n_same = noise[2 * idx + 1], noise[2 * idx + 2]
-            if idx < lo:
-                out = conv_up(out, latent[:, i], n_up)
-                out = conv(out, latent[:, i + 1], n_same)
-                skip = to_rgb(out, latent[:, i + 2], skip)
+            block = self._block if idx < lo else self._tail_block
+            kernel_route = idx >= lo and out.is_cuda
+            if not kernel_route and (self.remat == "full" or (
+                    self.remat == "tail" and self.convs[2 * idx].conv.weight.shape[0] < 128)):
+                out, skip = checkpoint(block, idx, out, skip, lat3, n_up, n_same,
+                                       use_reentrant=False)
             else:
-                want_x2 = idx < len(self.to_rgbs) - 1
-                s1, d1 = modulate(conv_up.conv.weight, conv_up.conv.modulation(latent[:, i]))
-                s2, d2 = modulate(conv.conv.weight, conv.conv.modulation(latent[:, i + 1]))
-                s3 = to_rgb.conv.modulation(latent[:, i + 2])
-                res = fused_section(
-                    out.contiguous(), conv_up.conv.weight, conv.conv.weight, to_rgb.conv.weight,
-                    s1, d1, s2, d2, s3, n_up, conv_up.noise_weight, conv_up.act_bias,
-                    n_same, conv.noise_weight, conv.act_bias, to_rgb.bias, want_x2=want_x2)
-                rgb, out = res if want_x2 else (res, None)
-                skip = rgb + to_rgb.upsample_skip(skip)
-            i += 2
+                out, skip = block(idx, out, skip, lat3, n_up, n_same)
         return skip
+
+    def _block(self, idx, out, skip, lat3, n_up, n_same):
+        """Synthesis block ``idx`` of the head: up-conv, same-conv, ToRGB."""
+        out = self.convs[2 * idx](out, lat3[:, 0], n_up)
+        out = self.convs[2 * idx + 1](out, lat3[:, 1], n_same)
+        return out, self.to_rgbs[idx](out, lat3[:, 2], skip)
+
+    def _tail_block(self, idx, out, skip, lat3, n_up, n_same):
+        """Synthesis block ``idx`` of the tail: one fused section (``out`` is
+        None after the last block, whose x2 nothing reads)."""
+        conv_up, conv, to_rgb = self.convs[2 * idx], self.convs[2 * idx + 1], self.to_rgbs[idx]
+        want_x2 = idx < len(self.to_rgbs) - 1
+        s1, d1 = modulate(conv_up.conv.weight, conv_up.conv.modulation(lat3[:, 0]))
+        s2, d2 = modulate(conv.conv.weight, conv.conv.modulation(lat3[:, 1]))
+        s3 = to_rgb.conv.modulation(lat3[:, 2])
+        res = fused_section(
+            out.contiguous(), conv_up.conv.weight, conv.conv.weight, to_rgb.conv.weight,
+            s1, d1, s2, d2, s3, n_up, conv_up.noise_weight, conv_up.act_bias,
+            n_same, conv.noise_weight, conv.act_bias, to_rgb.bias, want_x2=want_x2)
+        rgb, out = res if want_x2 else (res, None)
+        return out, rgb + to_rgb.upsample_skip(skip)
 
     def tail_start(self) -> int:
         """The first synthesis block of the fused tail (``len(self.to_rgbs)``

@@ -18,6 +18,12 @@ Optimizers (reference lib/trainer.py:153-156): two independent Adams with
 torch's defaults (equal to optax's). Untrained alphas / loggamma have
 ``requires_grad=False`` and are not handed to the optimizer; BatchNorm running
 statistics are buffers, refreshed by the train-mode forward and never by Adam.
+On a CUDA device both are ``capturable`` (their step counts live on the
+device), so that a graphed chunk and an eager step run the same arithmetic.
+
+:class:`StepChunk` runs k iterations per call (``--steps-per-call``), the
+counterpart of the JAX package's ``lax.scan`` of k steps: on a CUDA device
+one replay of a CUDA graph of k steps, on the CPU k eager steps.
 """
 from __future__ import annotations
 
@@ -53,12 +59,28 @@ class TrainStepConfig:
     # with float32 master parameters, BatchNorm statistics and heads.
     reconstructor_dtype: str = "float32"
 
+    @classmethod
+    def from_params(cls, p) -> "TrainStepConfig":
+        """The step's configuration from the training CLI's arguments."""
+        return cls(batch_size=p.batch_size, num_support_sets=p.num_support_sets,
+                   min_shift_magnitude=p.min_shift_magnitude,
+                   max_shift_magnitude=p.max_shift_magnitude, lambda_cls=p.lambda_cls,
+                   lambda_reg=p.lambda_reg, support_set_lr=p.support_set_lr,
+                   reconstructor_lr=p.reconstructor_lr,
+                   z_truncation=getattr(p, "z_truncation", None),
+                   shift_in_w_space=bool(getattr(p, "shift_in_w_space", False)),
+                   generator_dtype=getattr(p, "g_dtype", "float32"),
+                   reconstructor_dtype=getattr(p, "r_dtype", "float32"))
+
 
 def make_optimizers(S: SupportSets, R: Reconstructor, cfg: TrainStepConfig):
-    """Two Adams (reference lib/trainer.py:153-156) over what is trainable."""
+    """Two Adams (reference lib/trainer.py:153-156) over what is trainable,
+    capturable on a CUDA device."""
+    capturable = S.support_sets.is_cuda
     opt_s = torch.optim.Adam([p for p in S.parameters() if p.requires_grad],
-                             lr=cfg.support_set_lr)
-    opt_r = torch.optim.Adam(list(R.parameters()), lr=cfg.reconstructor_lr)
+                             lr=cfg.support_set_lr, capturable=capturable)
+    opt_r = torch.optim.Adam(list(R.parameters()), lr=cfg.reconstructor_lr,
+                             capturable=capturable)
     return opt_s, opt_r
 
 
@@ -122,17 +144,26 @@ def loss_fn(S: SupportSets, R: Reconstructor, G: GeneratorBundle, z, idx, mags,
     return total, (cls_loss, reg_loss, acc)
 
 
+def sample_batch(state: TrainState, iteration: int):
+    """(z, idx, mags) of ``iteration``: a pure function of (seed, iteration)."""
+    cfg = state.cfg
+    reseed(state.generator, state.seed, iteration)
+    return sample_batch_directives(
+        state.generator, cfg.batch_size, state.G.dim_z, cfg.num_support_sets,
+        cfg.min_shift_magnitude, cfg.max_shift_magnitude, cfg.z_truncation)
+
+
+def metric_row(metrics: dict) -> torch.Tensor:
+    """A step's metrics as one (4,) tensor in the order of ``STAT_KEYS``."""
+    return torch.stack([metrics[k] for k in STAT_KEYS])
+
+
 def train_step(state: TrainState, iteration: int, batch=None) -> dict:
     """One iteration, in place. The batch is a pure function of (seed,
     iteration) unless ``batch = (z, idx, mags)`` is given. Returns the four
     metrics of ``STAT_KEYS`` as detached tensors on the device."""
     cfg = state.cfg
-    if batch is None:
-        reseed(state.generator, state.seed, iteration)
-        batch = sample_batch_directives(
-            state.generator, cfg.batch_size, state.G.dim_z, cfg.num_support_sets,
-            cfg.min_shift_magnitude, cfg.max_shift_magnitude, cfg.z_truncation)
-    z, idx, mags = batch
+    z, idx, mags = sample_batch(state, iteration) if batch is None else batch
     state.opt_s.zero_grad(set_to_none=True)
     state.opt_r.zero_grad(set_to_none=True)
     total, (cls_loss, reg_loss, acc) = loss_fn(state.S, state.R, state.G, z, idx, mags, cfg)
@@ -142,3 +173,69 @@ def train_step(state: TrainState, iteration: int, batch=None) -> dict:
     metrics = {"accuracy": acc, "classification_loss": cls_loss,
                "regression_loss": reg_loss, "total_loss": total}
     return {k: metrics[k].detach() for k in STAT_KEYS}
+
+
+class StepChunk:
+    """k consecutive iterations per call, in place: the metrics of
+    iterations [it, it + k) as one (k, 4) device tensor (rows in the order of
+    ``STAT_KEYS``). Exact: each iteration's batch is drawn as
+    :func:`train_step` draws it, after ``reseed`` to (seed, iteration), so a
+    chunk does what k calls of ``train_step`` do.
+
+    On the CPU a call is k eager steps. On a CUDA device the k batches are
+    drawn eagerly, outside any graph (sampling reseeds a generator on the
+    host), and copied into static buffers. The first call runs the k steps
+    eagerly on a side stream: the warm-up that capture needs (cuDNN's plans,
+    the Adams' moments, the kernel libraries), and a real chunk, so nothing
+    advances beyond the real iterations. The second call captures the k steps
+    (both generator forwards, the warp, R, the loss, the backward and both
+    Adams, which are ``capturable``) as one CUDA graph on that stream; every
+    call from then on replays it. A capture that fails raises: nothing falls
+    back to eager steps.
+
+    The graph reads the state's tensors in place, so the parameters, the
+    Adams' moments and R's statistics must not be replaced between calls
+    (``Trainer`` loads a checkpoint only before its first step). The kernel
+    wrappers' launch counters count a capture, not its replays.
+    """
+
+    def __init__(self, state: TrainState, k: int):
+        if k < 1:
+            raise ValueError(f"a chunk has at least one step, got k={k}")
+        self.state, self.k = state, k
+        self.cuda = state.S.support_sets.is_cuda
+        self.static = None        # k (z, idx, mags) buffers the graph reads
+        self.stream = None
+        self.graph = None
+        self.rows = None          # the graph's output
+
+    def _steps(self, batches) -> torch.Tensor:
+        return torch.stack([metric_row(train_step(self.state, 0, batch=b)) for b in batches])
+
+    def __call__(self, iteration: int) -> torch.Tensor:
+        batches = [sample_batch(self.state, it) for it in range(iteration, iteration + self.k)]
+        if not self.cuda:
+            return self._steps(batches)
+        if self.static is None:
+            self.static = [tuple(t.clone() for t in b) for b in batches]
+            self.stream = torch.cuda.Stream(device=self.state.S.support_sets.device)
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                rows = self._steps(self.static)
+            torch.cuda.current_stream().wait_stream(self.stream)
+            return rows
+        for dst, src in zip(self.static, batches):
+            for d, t in zip(dst, src):
+                d.copy_(t)
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            self.stream.wait_stream(torch.cuda.current_stream())
+            try:
+                with torch.cuda.graph(graph, stream=self.stream):
+                    self.rows = self._steps(self.static)
+            except RuntimeError as e:
+                raise RuntimeError(f"--steps-per-call {self.k}: the training step could not "
+                                   f"be captured as a CUDA graph: {e}") from e
+            self.graph = graph
+        self.graph.replay()
+        return self.rows.clone()

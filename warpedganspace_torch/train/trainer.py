@@ -22,6 +22,15 @@ Counterpart of :mod:`warpedganspace_tpu.train.trainer` (reference
 
 The metrics stay on the device until the log boundary, so no iteration inside
 a window waits for the host; the printed mean iteration time is the window's.
+
+``--steps-per-call k`` runs the loop of the JAX trainer (:388-480): a chunk of
+k iterations (:class:`~warpedganspace_torch.train.train_step.StepChunk`, a
+CUDA graph on the card) starts only at ``(iteration - 1) % k == 0`` with a
+whole chunk ahead, and single steps run otherwise (the iteration a resumed run
+repeats, a final partial chunk); ``k`` divides the log and checkpoint
+frequencies (``cli.train`` checks it before it writes anything), so both land
+on chunk ends. ``profile=True`` records a
+``torch.profiler`` trace of the loop into ``<wip>/profile/trace.json``.
 """
 from __future__ import annotations
 
@@ -38,8 +47,8 @@ import torch
 from warpedganspace_torch.convert.reconstructor import (load_reference_state_dict,
                                                         to_reference_state_dict)
 from warpedganspace_torch.core.stats import STAT_KEYS, TrainingStatTracker
-from warpedganspace_torch.train.train_step import (TrainState, TrainStepConfig,
-                                                   init_train_state, train_step)
+from warpedganspace_torch.train.train_step import (StepChunk, TrainState, TrainStepConfig,
+                                                   init_train_state, metric_row, train_step)
 from warpedganspace_torch.utils.aux import sec2dhms, update_progress, update_stdout
 from warpedganspace_torch.utils.io import load_pt
 
@@ -196,28 +205,16 @@ class Trainer:
             print("  \\__Already exists -- {}".format(e))
 
     # ------------------------------------------------------------------- train
-    def train(self, generator, support_sets, reconstructor) -> TrainState:
+    def train(self, generator, support_sets, reconstructor, profile: bool = False) -> TrainState:
         """Run the contrastive training loop (reference trainer.py:129-319).
 
         ``generator`` is the frozen GeneratorBundle; ``support_sets`` and
         ``reconstructor`` are moved to its device and trained in place.
         """
         p = self.params
-        cfg = TrainStepConfig(
-            batch_size=p.batch_size,
-            num_support_sets=p.num_support_sets,
-            min_shift_magnitude=p.min_shift_magnitude,
-            max_shift_magnitude=p.max_shift_magnitude,
-            lambda_cls=p.lambda_cls,
-            lambda_reg=p.lambda_reg,
-            support_set_lr=p.support_set_lr,
-            reconstructor_lr=p.reconstructor_lr,
-            z_truncation=getattr(p, "z_truncation", None),
-            shift_in_w_space=bool(getattr(p, "shift_in_w_space", False)),
-            generator_dtype=getattr(p, "g_dtype", "float32"),
-            reconstructor_dtype=getattr(p, "r_dtype", "float32"),
-        )
-        state = init_train_state(generator, support_sets, reconstructor, cfg, seed=self.seed)
+        k_chunk = int(getattr(p, "steps_per_call", 1) or 1)
+        state = init_train_state(generator, support_sets, reconstructor,
+                                 TrainStepConfig.from_params(p), seed=self.seed)
 
         # Save initial support sets (reference trainer.py:139).
         torch.save(state.S.to_torch_state_dict(),
@@ -230,21 +227,41 @@ class Trainer:
             self._copy_to_complete()
             sys.exit()
         print("#. Start training from iteration {}".format(starting_iter))
+        chunk = StepChunk(state, k_chunk) if k_chunk > 1 else None
+
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            activities = [ProfilerActivity.CPU]
+            if state.S.support_sets.is_cuda:
+                activities.append(ProfilerActivity.CUDA)
+            prof = torch_profile(activities=activities)
+            prof.start()
 
         t0 = time.time()
         window_t0, window_iters, window_ckpt = t0, 0, False
-        pending = []  # (iteration, metrics on the device), fetched at the log boundary
+        pending = []  # (first iteration, (n, 4) metrics on the device), fetched at the log boundary
 
-        for iteration in range(starting_iter, p.max_iter + 1):
-            pending.append((iteration, train_step(state, iteration)))
-            window_iters += 1
+        iteration = starting_iter
+        while iteration <= p.max_iter:
+            if (chunk is not None and (iteration - 1) % k_chunk == 0
+                    and iteration + k_chunk - 1 <= p.max_iter):
+                pending.append((iteration, chunk(iteration)))
+                n_advance = k_chunk
+            else:
+                pending.append((iteration, metric_row(train_step(state, iteration))[None]))
+                n_advance = 1
+            window_iters += n_advance
+            iteration += n_advance - 1          # the last iteration of the chunk
 
             if iteration % p.log_freq == 0:
                 # One device-to-host copy for the whole window; it also waits
                 # for the window's work, so the wall time below is the window's.
-                host = torch.stack([torch.stack([m[k] for k in STAT_KEYS])
-                                    for _, m in pending]).float().cpu().numpy()
-                for (it, _), row in zip(pending, host):
+                host = torch.cat([rows for _, rows in pending]).float().cpu().numpy()
+                starts = [start + j for start, rows in pending for j in range(rows.shape[0])]
+                for it, row in zip(starts, host):
                     stats = dict(zip(STAT_KEYS, (float(v) for v in row)))
                     self.stat_tracker.update(**stats)
                     if self.tb_writer is not None:
@@ -264,7 +281,12 @@ class Trainer:
             if iteration % p.ckp_freq == 0:
                 self.save_checkpoint(iteration, state)
                 window_ckpt = True
+            iteration += 1
 
+        if prof is not None:
+            prof.stop()
+            os.makedirs(osp.join(self.wip_dir, "profile"), exist_ok=True)
+            prof.export_chrome_trace(osp.join(self.wip_dir, "profile", "trace.json"))
         elapsed = time.time() - t0
         if self.tb_writer is not None:
             self.tb_writer.flush()
