@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile proggan   # instead: where that path's time goes
-                                              # (also: biggan, stylegan2, train_biggan;
-                                              # --steps N walks N steps each way)
+                                              # (also: biggan, stylegan2, train_biggan,
+                                              # attribute; --steps N walks N steps each way)
 
 Phases, each of which must pass; any failure ends the run with a non-zero
 exit and no result line:
@@ -72,7 +72,25 @@ exit and no result line:
    ProgGAN's tail three launches per generator forward on ProgGAN's and
    StyleGAN2's tail two per generator forward on StyleGAN2's, each 0 on the
    other paths. The stored codes are checked against the plain warp;
-6. the training path, ``train`` then ``traverse_latent_space``: the experiment
+6. the attribute stage (``ATTR``): ``traverse_latent_space`` writes a K=4
+   StyleGAN2-1024 W tree at ``scripts/eval/stylegan2_full.sh``'s path length
+   (20 steps each way, eps 0.15: 41 frames a path; bf16, batch 16; the warp 20
+   launches, the tail 2 per generator forward), six predictor files are
+   fabricated into a temporary ``models/pretrained/`` (seeded, BatchNorm
+   statistics randomised, the detector's heads fitted to the tree's first
+   path), and ``traverse_attribute_space`` runs on the card, which launches
+   none of the port's kernels: the 26 ``eval_np`` and 12 ``eval_json`` files of
+   shape (4, 41); the time of each stage per path (the host's ``_prep_path``
+   and decode + NMS, the upload and the six predictors' forwards by CUDA
+   events) and the device's busy share of a traced run. Then the port's CPU run
+   of the first path, and the card held to it: each predictor's raw outputs on
+   the CPU run's inputs within 1e-3 relative + 1e-4 of the output's largest
+   magnitude, the path's ``eval_np`` rows at rtol 1e-2 / atol 2e-3 with the
+   same argmaxes, the same first SFD box in all 41 frames (whose lead over the
+   next candidate must exceed 100x the card-vs-CPU difference of the class
+   maps); the native NMS must have run on the card, never the numpy one, and
+   keep what the numpy one keeps on the run's candidate sets;
+7. the training path, ``train`` then ``traverse_latent_space``: the experiment
    of ``scripts/train/biggan.sh`` (BigGAN-128 class 239, ResNet reconstructor,
    K=120, D=256, learn-gammas, shifts in [0.1, 0.2], batch 32, bf16 G and R)
    at full width for 20 iterations with a checkpoint at 10 and 20, then the
@@ -84,7 +102,7 @@ exit and no result line:
    phase wraps the CLIs' ``build_gan`` to open gamma to 1. Losses must be
    finite, the support sets and loggamma moved, the alphas not; then the
    port's traversal walks the tree that run wrote;
-7. the other families' training paths (``TRAIN_PATHS``), each the experiment
+8. the other families' training paths (``TRAIN_PATHS``), each the experiment
    of its ``scripts/train/*.sh`` at full width, cut in iterations and in the
    cadence of logs and checkpoints, with a resume: SNGAN-MNIST (LeNet, K=64,
    D=128, batch 128, bf16 G, ``--steps-per-call 10``: a CUDA graph of ten
@@ -175,6 +193,14 @@ PROGGAN_TRAIN = dict(
           "--pair-layout", "s2d"])
 TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_stylegan2_w": SG2_TRAIN,
                "train_proggan_z": PROGGAN_TRAIN}
+# The attribute stage: scripts/eval/stylegan2_full.sh's traverse_attribute_space
+# --eps 0.15 --shift-steps 20 (41 frames a path) on a StyleGAN2-1024 W
+# traversal of that length, cut from its K=200 paths x 6 codes to 4 paths of one.
+ATTR = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=20, eps=0.15, batch=16, res=1024,
+            gif=False, pool="smoke_attr")
+# A crop rectangle (x0, x1, y0, y1) of a 256² frame that touches no border,
+# gathered on the card and on the CPU beside the first boxes' crops.
+INNER_RECT = (61, 190, 37, 203)
 # The three sections of ProgGAN-1024's tail: (C output channels, input height = width, head).
 TAIL_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
 TAIL_B = 4                                   # batch of the timed sections and generator
@@ -1344,34 +1370,42 @@ def traverse_and_verify(cfg: dict, exp: str, S) -> tuple:
     return launches, t1 - t0, t2 - t1, err
 
 
-def phase_cli(card: str, cfg: dict) -> dict:
-    """One main path: ``sample_gan`` makes a one-code pool, then
-    ``traverse_latent_space`` walks a fabricated experiment at bf16. Returns
-    each kernel's launches on that path."""
+def fabricated_experiment(cfg: dict):
+    """Write a trained-looking experiment of ``cfg`` (seeded support sets,
+    ``args.json``) under the current directory; returns (its path, the sets)."""
     import torch
 
     from warpedganspace_torch.models.support_sets import SupportSets
 
+    gan, k = cfg["gan"], cfg["k"]
+    exp = osp.join("experiments", "complete", "smoke_exp")
+    os.makedirs(osp.join(exp, "models"))
+    S = SupportSets(k, cfg["dipoles"], cfg["d"], learn_gammas=True,
+                    generator=torch.Generator().manual_seed(0))
+    torch.save(S.to_torch_state_dict(), osp.join(exp, "models", "support_sets.pt"))
+    args_json = {"gan_type": gan, "num_support_sets": k,
+                 "num_support_dipoles": cfg["dipoles"], "learn_alphas": False,
+                 "learn_gammas": True, "gamma": None}
+    if gan == "BigGAN":
+        args_json["biggan_target_classes"] = [239]
+    elif gan == "StyleGAN2":
+        args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
+    with open(osp.join(exp, "args.json"), "w") as f:
+        json.dump(args_json, f)
+    return exp, S
+
+
+def phase_cli(card: str, cfg: dict) -> dict:
+    """One main path: ``sample_gan`` makes a one-code pool, then
+    ``traverse_latent_space`` walks a fabricated experiment at bf16. Returns
+    each kernel's launches on that path."""
     gan, k, steps = cfg["gan"], cfg["k"], cfg["steps"]
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="wgs_smoke_") as tmp:
         os.chdir(tmp)
         try:
-            exp = osp.join("experiments", "complete", "smoke_exp")
-            os.makedirs(osp.join(exp, "models"))
-            S = SupportSets(k, cfg["dipoles"], cfg["d"], learn_gammas=True,
-                            generator=torch.Generator().manual_seed(0))
-            torch.save(S.to_torch_state_dict(), osp.join(exp, "models", "support_sets.pt"))
-            args_json = {"gan_type": gan, "num_support_sets": k,
-                         "num_support_dipoles": cfg["dipoles"], "learn_alphas": False,
-                         "learn_gammas": True, "gamma": None}
-            if gan == "BigGAN":
-                args_json["biggan_target_classes"] = [239]
-            elif gan == "StyleGAN2":
-                args_json.update(shift_in_w_space=True, stylegan2_resolution=cfg["res"])
-            with open(osp.join(exp, "args.json"), "w") as f:
-                json.dump(args_json, f)
+            exp, S = fabricated_experiment(cfg)
             launches, t_sample, t_traverse, err = traverse_and_verify(cfg, exp, S)
         finally:
             os.chdir(cwd)
@@ -1381,6 +1415,442 @@ def phase_cli(card: str, cfg: dict) -> dict:
           f"{' + ' + str(k) + ' GIFs' if cfg['gif'] else ''} in {t_traverse:.2f} s "
           f"({n / t_traverse:.2f} frames/s, JPEG{' and GIF' if cfg['gif'] else ''} writing "
           f"included) on {card}; launches {launches}; codes vs plain warp max abs {err:.3g}")
+    return launches
+
+
+class StageClock:
+    """Per-stage times of the attribute CLI, summed over a run: CUDA events
+    around each device call (recorded on the current stream, read after a
+    synchronise), the host's clock around each host call."""
+
+    def __init__(self):
+        self.events, self.host_s = {}, {}
+
+    def device(self, name, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+        return timed
+
+    def host(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.host_s.setdefault(name, []).append(time.perf_counter() - t0)
+        return timed
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {n: sum(s.elapsed_time(e) for s, e in ev) for n, ev in self.events.items()}
+        out.update({n: 1e3 * sum(v) for n, v in self.host_s.items()})
+        return out
+
+
+class Recorder:
+    """Keeps the arguments and the result of the first call of each wrapped
+    function (path 0 of a run)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __call__(self, name, fn):
+        def rec(*args):
+            out = fn(*args)
+            self.calls.setdefault(name, (args, out))
+            return out
+        return rec
+
+
+def run_attribute_cli(exp: str, cfg: dict, cuda: bool = True, device_wrap=None,
+                      host_wrap=None) -> float:
+    """``traverse_attribute_space`` on ``exp`` (seconds, synchronised). With
+    the wraps, the predictor objects that ``load_predictors`` returns have
+    their calls wrapped: ``device_wrap(name, fn)`` around each forward,
+    ``host_wrap("sfd_nms", fn)`` around the detector's NMS."""
+    import torch
+
+    from warpedganspace_torch.cli import traverse_attribute_space as cli
+
+    argv = ["--exp", exp, "--pool", cfg["pool"], "--shift-steps", str(cfg["steps"]),
+            "--eps", str(cfg["eps"])] + ([] if cuda else ["--no-cuda"])
+    saved = cli.load_predictors
+    if device_wrap is not None:
+        def load(device):
+            preds = saved(device)
+            det = preds["sfd"]
+            det.forward_maps = device_wrap("sfd", det.forward_maps)
+            det.detect_from_boxes = host_wrap("sfd_nms", det.detect_from_boxes)
+            preds["id"].similarities = device_wrap("arcface", preds["id"].similarities)
+            preds["au"].detect_AU = device_wrap("fanau", preds["au"].detect_AU)
+            for name in ("fairface", "hopenet", "celeba"):
+                preds[name] = device_wrap(name, preds[name])
+            return preds
+
+        cli.load_predictors = load
+    try:
+        t0 = time.perf_counter()
+        cli.main(argv)
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    finally:
+        cli.load_predictors = saved
+
+
+def read_eval_tree(h_dir: str) -> tuple:
+    """({eval_np name: array}, {eval_json name: object}) of one hash dir."""
+    import numpy as np
+
+    np_dir, json_dir = osp.join(h_dir, "eval_np"), osp.join(h_dir, "eval_json")
+    arrays = {f[:-4]: np.load(osp.join(np_dir, f)) for f in sorted(os.listdir(np_dir))}
+    objs = {}
+    for f in sorted(os.listdir(json_dir)):
+        with open(osp.join(json_dir, f)) as fh:
+            objs[f[:-5]] = json.load(fh)
+    return arrays, objs
+
+
+def forward_flops(nets, call) -> float:
+    """FLOPs of ``call()``, counted from the shapes: 2 x the multiply-adds of
+    every Conv2d and Linear of ``nets`` that runs in it."""
+    import torch
+
+    total = [0]
+
+    def hook(m, _, out):
+        if isinstance(m, torch.nn.Conv2d):
+            k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+        else:
+            k = m.in_features
+        total[0] += 2 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for net in nets for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        call()
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(total[0])
+
+
+def raw_close(got, want) -> tuple:
+    """(passes, worst error over max|want|) for the predictors' raw-output
+    gate: |got - want| <= 1e-4 max|want| + 1e-3 |want|."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    err = np.abs(got - want)
+    ok = (got.shape == want.shape and bool(np.isfinite(got).all())
+          and bool((err <= 1e-4 * scale + 1e-3 * np.abs(want)).all()))
+    return ok, float(err.max()) / max(scale, 1e-30)
+
+
+def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
+                          warm_runs: int = 0) -> dict:
+    """The attribute stage (``ATTR``): ``traverse_latent_space`` writes a
+    StyleGAN2-1024 W tree of 41-frame paths, six predictor files are
+    fabricated into ``models/pretrained/`` (the detector's heads fitted to the
+    tree's first path), and ``traverse_attribute_space`` runs on the card: a
+    cold run, a warm one with each stage timed (CUDA events; its wall time
+    too), ``warm_runs`` more, and two traced (the second inside the marked
+    window) for the device's busy share. Then the port's CPU run of
+    the first path, and the card held to it: each predictor's raw outputs on
+    the CPU run's inputs, the path's ``eval_np`` rows, the first SFD box of
+    every frame, the face-crop gathers (and one inside every border); the
+    native NMS against the numpy NMS on the run's candidate sets. The host's
+    ``_prep_path``, the upload and the anchor decode are timed apart from the
+    CLI. Returns the traversal's kernel launches (the attribute CLI launches
+    none)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from warpedganspace_torch.cli import traverse_attribute_space as cli
+    from warpedganspace_torch.evalzoo import sfd
+    from warpedganspace_torch.evalzoo.crop_resize import crop_resize, plan_crop_resize
+    from warpedganspace_torch.evalzoo.fabricate import predictor_state_dicts, write_pretrained
+    from warpedganspace_torch.evalzoo.transforms import crop_rect
+    from warpedganspace_torch.native import load_native, native_error
+    from warpedganspace_torch.utils.io import load_pt, save_pt
+
+    cfg = ATTR if cfg is None else cfg
+    k, steps = cfg["k"], cfg["steps"]
+    T = 2 * steps + 1
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+    cwd = os.getcwd()
+    marks = {"start": time.perf_counter()}
+    with tempfile.TemporaryDirectory(prefix="wgs_smoke_attr_") as tmp:
+        os.chdir(tmp)
+        try:
+            # 1. The tree, as scripts/eval/stylegan2_full.sh's traversal writes it.
+            exp, S = fabricated_experiment(cfg)
+            launches, t_sample, t_traverse, err = traverse_and_verify(cfg, exp, S)
+            config = f"{2 * steps}_{cfg['eps']}_{round(2 * steps * cfg['eps'], 3)}"
+            rel = osp.join("results", cfg["pool"], config)
+            h_name = [h for h in os.listdir(osp.join(exp, rel)) if h not in cli.NOT_HASHES][0]
+            h_dir = osp.join(exp, rel, h_name)
+
+            # 2. The predictor files, the detector's heads fitted to path 0.
+            t0 = marks["tree"] = time.perf_counter()
+            calib = cli._prep_path(osp.join(h_dir, "paths_images", "path_000"), cfg["gan"])[0]
+            files = write_pretrained(".", predictor_state_dicts(seed=0, calibration=calib,
+                                                                 device="cuda"))
+            t_fab = time.perf_counter() - t0
+            marks["files"] = time.perf_counter()
+            mb = sum(osp.getsize(p) for p in files.values()) / 2 ** 20
+
+            # 3. The CLI on the card. No kernel of the port runs in it.
+            lib = load_native()
+            check(lib is not None, f"the native NMS did not build on the card's host: "
+                                   f"{native_error()}")
+            reset_launch_counts()
+            t_cold = run_attribute_cli(exp, cfg)
+            clock = StageClock()
+            t_warm = [run_attribute_cli(exp, cfg, device_wrap=clock.device,
+                                        host_wrap=clock.host)]
+            stage_ms = clock.ms()
+            t_warm += [run_attribute_cli(exp, cfg) for _ in range(warm_runs)]
+            card_np, card_json = read_eval_tree(h_dir)
+            marks["card runs"] = time.perf_counter()
+            traced = trace_device(lambda: run_attribute_cli(exp, cfg), rows=profile_rows)
+            marks["traced run"] = time.perf_counter()
+            check(launch_counts() == dict.fromkeys(launch_counts(), 0),
+                  f"the attribute CLI launched {launch_counts()}")
+            # ``sfd.nms`` takes the library whenever ``load_native`` returns one.
+            check(sfd.load_native() is lib, "the native NMS was not loaded through the card runs")
+            check(len(card_np) == 26 and len(card_json) == 12,
+                  f"{len(card_np)} eval_np and {len(card_json)} eval_json files, not 26 and 12")
+            for name, arr in card_np.items():
+                check(arr.shape == (k, T) and bool(np.isfinite(arr).all()),
+                      f"eval_np/{name}: shape {arr.shape}, finite {np.isfinite(arr).all()}")
+
+            # 4. The port's CPU run of path 0, on its own copy of the tree.
+            cpu_exp = "exp_cpu"
+            os.makedirs(osp.join(cpu_exp, rel, h_name))
+            shutil.copy(osp.join(exp, "args.json"), cpu_exp)
+            h_cpu = osp.join(cpu_exp, rel, h_name)
+            save_pt(load_pt(osp.join(h_dir, "paths_latent_codes.pt"))[:1],
+                    osp.join(h_cpu, "paths_latent_codes.pt"))
+            shutil.copytree(osp.join(h_dir, "paths_images", "path_000"),
+                            osp.join(h_cpu, "paths_images", "path_000"))
+            rec = Recorder()
+            t_cpu = run_attribute_cli(cpu_exp, cfg, cuda=False, device_wrap=rec, host_wrap=rec)
+            cpu_np, cpu_json = read_eval_tree(h_cpu)
+            marks["CPU run"] = time.perf_counter()
+
+            # 4a. Each predictor's raw outputs on the CPU run's inputs.
+            preds = cli.load_predictors(torch.device("cuda"))
+
+            def cuda(args):
+                return [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+
+            def flat(out):
+                if isinstance(out, dict):
+                    return [(f".{key}", v) for key, v in out.items()]
+                if isinstance(out, (list, tuple)):
+                    return [(f"[{i}]", v) for i, v in enumerate(out)]
+                return [("", out)]
+
+            calls = {"sfd": preds["sfd"].forward_maps, "arcface": preds["id"].similarities,
+                     "fairface": preds["fairface"], "hopenet": preds["hopenet"],
+                     "fanau": preds["au"].detect_AU, "celeba": preds["celeba"]}
+            nets = {"sfd": [preds["sfd"].net], "arcface": [preds["id"].net],
+                    "fairface": [preds["fairface"]], "hopenet": [preds["hopenet"]],
+                    "fanau": [preds["au"].net], "celeba": [preds["celeba"]]}
+            raw, gflop, class_diff, card_maps = {}, {}, {}, None
+            with torch.no_grad():
+                for name, fn in calls.items():
+                    args, want = rec.calls[name]
+                    out = []
+                    gflop[name] = forward_flops(nets[name],
+                                                lambda: out.append(fn(*cuda(args)))) / 1e9
+                    for (tag, g), (_, w) in zip(flat(out[0]), flat(want)):
+                        ok, worst = raw_close(g.cpu().numpy(), w.numpy())
+                        check(ok, f"{name}{tag}: card against CPU {worst:.3g} of max|out|")
+                        raw[f"{name}{tag}"] = worst
+                        if name == "sfd" and tag in ("[0]", "[2]", "[4]", "[6]", "[8]", "[10]"):
+                            class_diff[4 * 2 ** (int(tag[1:-1]) // 2)] = float(
+                                (g.cpu() - w).abs().max())
+                    if name == "sfd":
+                        card_maps = [m.cpu().numpy() for m in out[0]]
+
+            # 4b. The path's eval_np rows at the oracle's gates, the same
+            # argmaxes, and the same first SFD box in every frame.
+            argmax_n = {"age": 9, "race": 7, "celeba_bangs": 6, "celeba_eyeglasses": 6,
+                        "celeba_beard": 6, "celeba_smiling": 6, "celeba_age": 6}
+            check(sorted(cpu_np) == sorted(card_np), "CPU and card eval_np file sets differ")
+            rows = {}
+            for name, want in cpu_np.items():
+                got = card_np[name][:1]
+                check(np.allclose(got, want, rtol=1e-2, atol=2e-3),
+                      f"eval_np/{name} row 0: card against CPU max abs "
+                      f"{float(np.abs(got - want).max()):.3g}")
+                if name in argmax_n:
+                    check(np.array_equal(np.floor(got * argmax_n[name]),
+                                         np.floor(want * argmax_n[name])),
+                          f"eval_np/{name} row 0: another argmax on the card")
+                rows[name] = float(np.abs(got - want).max())
+            faceless = card_np["face_width"][0] == 256.0
+            check(np.array_equal(faceless, cpu_np["face_width"][0] == 256.0),
+                  "the frames without a face differ between card and CPU")
+            boxes, cpu_boxes = card_json["face_bbox"]["0"], cpu_json["face_bbox"]["0"]
+            check(len(boxes) == len(cpu_boxes) == T - int(faceless.sum())
+                  and np.allclose(boxes, cpu_boxes, rtol=0, atol=1e-2),
+                  "the first SFD boxes of path 0 differ between card and CPU")
+
+            # 4c. The lead of each frame's first box, and the native NMS
+            # against the numpy NMS on the run's own candidate sets.
+            def logit(p):
+                return float(np.log(p / (1 - p)))
+
+            # The first box of a frame flips only if the card moves its score
+            # and the next candidate's by more than their lead: each frame's
+            # lead is held against that, where the card's candidate set is
+            # the CPU's (else against the largest class-map difference).
+            cands = rec.calls["sfd_nms"][0][0]
+            card_cands = sfd.decode_batch(card_maps)
+            same_sets = card_cands.shape == cands.shape
+            lead, margin, lead_kept, n_cands = [], [], [], []
+            for j, dets in enumerate(cands):
+                order = np.argsort(-dets[:, 4], kind="stable")
+                # The decoder repeats a position once per frame that passes
+                # the threshold there: the next candidate is another position.
+                nxt = next((i for i in order[1:] if not np.array_equal(dets[i], dets[order[0]])),
+                           None)
+                if nxt is not None:
+                    pair = [order[0], nxt]
+                    lead.append(float(dets[order[0], 4] - dets[nxt, 4]))
+                    moved = (float(np.abs(card_cands[j, pair, 4] - dets[pair, 4]).sum())
+                             if same_sets else max(class_diff.values()))
+                    margin.append(lead[-1] / max(moved, 1e-12))
+                keep_native = sfd.nms_native(lib, dets, 0.3)
+                keep_numpy = sfd.nms_numpy(dets, 0.3)
+                check(len(keep_native) == len(keep_numpy) and np.array_equal(
+                    dets[keep_native], dets[keep_numpy]),
+                    "the native NMS kept other boxes than the numpy NMS")
+                if len(keep_numpy) > 1:
+                    lead_kept.append(logit(dets[keep_numpy[0], 4]) - logit(dets[keep_numpy[1], 4]))
+                n_cands.append(len(dets))
+            firsts = [tuple(round(v) for v in b[:2]) for b in cpu_boxes]
+
+            # 4d. The face-crop gathers of path 0 on the card against the
+            # CPU's, at the CPU run's first boxes with each crop's padding,
+            # and at one rectangle inside every border.
+            f_cpu = rec.calls["sfd"][0][0]
+            f_card = f_cpu.cuda()
+            faced = [t for t in range(T) if not faceless[t]] + [T // 2]
+            gather_err, n_inner = 0.0, 0
+            for size, padding in ((224, 0.25), (224, 0.0), (256, 0.0)):
+                rects = [crop_rect(b[:4], 256, 256, padding) for b in cpu_boxes] + [INNER_RECT]
+                n_inner += sum(0 < r[0] and r[1] < 256 and 0 < r[2] and r[3] < 256
+                               for r in rects[:-1])
+                plan = plan_crop_resize(rects, size)
+                want = crop_resize(f_cpu[faced], plan)
+                gather_err = max(gather_err, float(
+                    (crop_resize(f_card[faced], plan).cpu() - want).abs().max()))
+            check(gather_err <= 1e-3, f"the crop gathers differ card against CPU by {gather_err:.3g}")
+
+            # 4e. The host stages and the upload, timed apart from the CLI:
+            # _prep_path of each path (the JPEG decode and the two full-frame
+            # resizes the CLI's pool runs), the upload of path 0's two host
+            # batches (CUDA events, best of 3), the anchor decode of path 0's
+            # card maps.
+            t_prep = []
+            for d in range(k):
+                t0 = time.perf_counter()
+                host = cli._prep_path(osp.join(h_dir, "paths_images", f"path_{d:03d}"),
+                                      cfg["gan"])
+                t_prep.append(time.perf_counter() - t0)
+            copies = []
+            for _ in range(3):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                for x in host:
+                    x.cuda()
+                end.record()
+                copies.append((start, end))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sfd.decode_batch(card_maps)
+            apart = {"prep": 1e3 * sum(t_prep) / k, "decode": 1e3 * (time.perf_counter() - t0),
+                     "upload": min(s.elapsed_time(e) for s, e in copies)}
+            marks["comparisons"] = time.perf_counter()
+            check(min(margin) > 100,
+                  f"a first box leads by only {min(margin):.3g}x what the card moved its and the "
+                  f"next candidate's scores (leads from {min(lead):.3g}; the class maps differ by "
+                  f"{class_diff}; candidate sets {'equal' if same_sets else 'unequal'})")
+        finally:
+            os.chdir(cwd)
+
+    marks["clean-up"] = time.perf_counter()
+    frames = k * T
+    per = {name: ms / k for name, ms in stage_ms.items()}
+    per.update(apart)
+    device_ms = sum(per[n] for n in ("upload", "sfd", "arcface", "fairface", "hopenet",
+                                     "fanau", "celeba"))
+    per_frame = sum(gflop.values()) / T
+    print(f"[attribute] tree: sample_gan {t_sample:.2f} s, traverse_latent_space K={k} "
+          f"steps={steps} eps={cfg['eps']} bf16 batch {cfg['batch']}: {frames} frames of "
+          f"{cfg['res']}² in {t_traverse:.2f} s; launches {launches}; codes vs plain warp "
+          f"max abs {err:.3g}; {len(files)} predictor files ({mb:.0f} MiB) fabricated in "
+          f"{t_fab:.2f} s on {card}")
+    print(f"[attribute] traverse_attribute_space on the card: {frames} frames ({k} paths of "
+          f"{T}) in {t_cold:.2f} s cold, "
+          + ", ".join(f"{t:.2f} s" for t in t_warm)
+          + f" warm, the first with its stages timed ({frames / min(t_warm):.1f} frames/s), "
+          f"{traced['ms'] / 1e3:.2f} s traced on the device with it busy "
+          f"{100 * traced['busy']:.1f} % of that ({traced['kernel_ms']:.1f} ms in "
+          f"{traced['launches']} kernels and copies) on {card}; the phase's seconds: "
+          + ", ".join(f"{name} {t - prev:.1f}" for (name, t), prev
+                      in zip(list(marks.items())[1:], list(marks.values())[:-1])))
+    print(f"[attribute] per path of {T} frames on {card}: host _prep_path {per['prep']:.1f} ms "
+          f"(timed apart, one thread; JPEG decode and the two full-frame resizes), upload "
+          f"{per['upload']:.2f} ms (timed apart), SFD forward {per['sfd']:.2f} ms, host decode + "
+          f"NMS {per['decode'] + per['sfd_nms']:.1f} ms ({per['decode']:.1f} timed apart + "
+          f"{per['sfd_nms']:.1f}), ArcFace {per['arcface']:.2f} ms, FairFace "
+          f"{per['fairface']:.2f} ms, Hopenet {per['hopenet']:.2f} ms, FAN-AU "
+          f"{per['fanau']:.2f} ms, CelebA {per['celeba']:.2f} ms (CUDA events); device stages "
+          f"{device_ms:.1f} ms; the CLI {1e3 * min(t_warm) / k:.0f} ms a path on the host's "
+          f"clock")
+    print(f"[attribute] FLOPs a frame, counted from the shapes: "
+          + ", ".join(f"{n} {g / T:.1f} G" for n, g in gflop.items())
+          + f"; {per_frame:.1f} GFLOP a frame, {sum(gflop.values()) / 1e3:.2f} TFLOP a path; "
+          + ", ".join(f"{n} {g / per[n]:.1f} TFLOP/s" for n, g in gflop.items())
+          + f" (f32, TF32 off) on {card}")
+    print(f"[attribute] card against the port's CPU run of path 0 ({t_cpu:.1f} s on the CPU): "
+          f"raw outputs within 1e-3 rel + 1e-4 of max|out| (worst "
+          + ", ".join(f"{n} {v:.2e}" for n, v in raw.items())
+          + f"); eval_np rows within rtol 1e-2 / atol 2e-3, argmaxes equal (worst "
+          + ", ".join(f"{n} {v:.2e}" for n, v in sorted(rows.items()) if v > 0)
+          + f"); the same first SFD box in all {T} frames ({int(faceless.sum())} without a "
+          f"face); the crop gathers of its {len(faced) - 1} first boxes (with each crop's "
+          f"padding; {n_inner} of the {3 * (len(faced) - 1)} rectangles inside every border) "
+          f"and of the rectangle {INNER_RECT} within {gather_err:.2g} of the CPU's")
+    print(f"[attribute] NMS: native ({osp.basename(lib._name)}, g++) loaded before and after "
+          f"the card runs, so every card run's NMS was native; on path 0's "
+          f"{len(cands)} candidate sets ({min(n_cands)}-{max(n_cands)} boxes) native keeps "
+          f"equal numpy's; each first box leads the next candidate by {min(lead):.3g} in score "
+          f"at least, {min(margin):.3g}x at least what the card moved the two scores "
+          f"(candidate sets {'equal' if same_sets else 'unequal'} card against CPU; the class "
+          f"maps differ by " + ", ".join(f"{v:.2g} at stride {k}" for k, v in class_diff.items())
+          + f"), and the next kept box by {min(lead_kept) if lead_kept else float('inf'):.3g} "
+          f"logits at least; {len(set(firsts))} distinct first-box corners in path 0 "
+          f"({firsts[0]} in frame 0)")
+    if profile_rows:
+        print(traced["table"])
     return launches
 
 
@@ -1493,14 +1963,20 @@ def phase_train(card: str, cfg: dict) -> dict:
     return {name: train_launches[name] + trav_launches[name] for name in train_launches}
 
 
-def device_busy(events, lo, hi):
-    """Of the device events that touch [lo, hi] on the tracer's clock (us):
-    their summed time, the length of their intervals' union, their number."""
+def cuda_spans(events) -> list:
+    """(start, end) on the tracer's clock (us) of the device events among a
+    profile's ``events()``."""
     import torch
 
-    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi)) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.end > lo and e.time_range.start < hi)
+    return [(e.time_range.start, e.time_range.end) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_busy(spans, lo, hi):
+    """Of the (start, end) device intervals that touch [lo, hi]: their summed
+    time, the length of their union, their number."""
+    spans = sorted((max(start, lo), min(end, hi)) for start, end in spans
+                   if end > lo and start < hi)
     total, busy, edge = 0.0, 0.0, lo
     for start, end in spans:
         total += end - start
@@ -1716,15 +2192,43 @@ def trace_calls(run, n: int, tag: str | None = None, rows: int = 0) -> dict:
     window = next(e for e in tp.events()
                   if e.name == "traced_window" and e.device_type == cpu).time_range
     events = [e for e in tp.events() if e.name not in host_names]
-    kernels_us, busy_us, n_spans = device_busy(events, window.start, window.end)
+    kernels_us, busy_us, n_spans = device_busy(cuda_spans(events), window.start, window.end)
     out = {"ms": (window.end - window.start) / 1e3 / n,
            "busy": busy_us / (window.end - window.start), "kernel_ms": kernels_us / 1e3 / n,
            "launches": n_spans / n}
     if tag is not None:
-        tag_us, _, tag_n = device_busy([e for e in events if tag in e.name], window.start,
-                                       window.end)
+        tag_us, _, tag_n = device_busy(cuda_spans(e for e in events if tag in e.name),
+                                       window.start, window.end)
         out.update(tag_share=tag_us / max(kernels_us, 1e-9), tag_ms=tag_us / 1e3 / n,
                    tag_launches=tag_n / n)
+    if rows:
+        out["table"] = tp.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
+                                               max_name_column_width=70)
+    return out
+
+
+def trace_device(run, rows: int = 0) -> dict:
+    """One call of ``run`` traced on the device alone by ``torch.profiler``
+    (the host records nothing per operator): its ms on the host's clock, the
+    device's busy share of that, kernel ms and the number of device events,
+    and with ``rows`` the kernel table. The intervals are read from the raw
+    trace, not from ``events()``, whose Python event tree takes about 20 s to
+    build for the 10^5 launches of an attribute-stage run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    spans = [(e.start_ns(), e.end_ns()) for e in tp.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    check(len(spans) > 0, "the device-only trace holds no device event")
+    total, busy, n = device_busy(spans, min(start for start, _ in spans), math.inf)
+    out = {"ms": 1e3 * seconds, "busy": busy / (1e9 * seconds), "kernel_ms": total / 1e6,
+           "launches": n}
     if rows:
         out["table"] = tp.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
                                                max_name_column_width=70)
@@ -2098,11 +2602,13 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
         window = next(e for e in tp.events() if e.name == "traced_window"
                       and e.device_type == cpu_type).time_range
         device_events = [e for e in tp.events() if e.name not in host_names]
-        kernels_us, busy_us, n_spans = device_busy(device_events, window.start, window.end)
+        kernels_us, busy_us, n_spans = device_busy(cuda_spans(device_events), window.start,
+                                                   window.end)
         # The attention's forward and backward kernels (the backward's row-dot
         # prologue included) in the same window.
         attn_us, _, attn_n = device_busy(
-            [e for e in device_events if "sa_attention" in e.name or "rowdot_kernel" in e.name],
+            cuda_spans(e for e in device_events
+                       if "sa_attention" in e.name or "rowdot_kernel" in e.name),
             window.start, window.end)
         window_us = window.end - window.start
         events = tp.key_averages()
@@ -2116,10 +2622,9 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
                 train_step(state, it)
             torch.cuda.synchronize()
             light_s = time.perf_counter() - t0
-        light = [e for e in tq.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        light = cuda_spans(tq.events())
         check(len(light) > 0, "the device-only trace holds no device event")
-        lo = min(e.time_range.start for e in light)
-        hi = max(e.time_range.end for e in light)
+        lo, hi = min(start for start, _ in light), max(end for _, end in light)
         l_kernels_us, l_busy_us, l_spans = device_busy(light, lo, hi)
         print(f"[train step] G {g_dtype}, R {r_dtype}, batch {cfg['batch']} on {card}: "
               f"{1e3 * step_s:.2f} ms per step untraced ({1 / step_s:.2f} steps/s, "
@@ -2146,7 +2651,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
-    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan",),
+    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan", "attribute"),
                         help="instead of the smoke test, say where that main path's time goes")
     parser.add_argument("--steps", type=int, default=None,
                         help="with --profile of a traversal: steps each way (default: the "
@@ -2162,6 +2667,8 @@ def main(argv=None) -> int:
         print(card)
         if args.profile == "train_biggan":
             profile_train(card, TRAIN)
+        elif args.profile == "attribute":
+            phase_attribute_stage(card, profile_rows=24, warm_runs=3)
         else:
             cfg = PATHS[args.profile]
             profile_path(card, cfg if args.steps is None else dict(cfg, steps=args.steps))
@@ -2211,6 +2718,7 @@ def main(argv=None) -> int:
     timed("generator_proggan", phase_generator_proggan)
     timed("generator_sngan", phase_generator_sngan)
     paths = {name: timed(f"cli_{name}", phase_cli, cfg) for name, cfg in PATHS.items()}
+    paths["attribute_stage"] = timed("attribute_stage", phase_attribute_stage)
     paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
     for path, cfg in TRAIN_PATHS.items():
         paths[path] = timed(path, phase_train_path, path, cfg)

@@ -1,5 +1,6 @@
-"""The port and its card smoke test import neither JAX nor the JAX package:
-they must run on a machine that has neither."""
+"""The port and its card smoke test import neither JAX nor the JAX package nor
+cv2: they must run on a machine that has none of them (the card's machine has
+no cv2, so the attribute stage decodes and resizes without it)."""
 import os
 import re
 import subprocess
@@ -7,13 +8,13 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_FOREIGN = ("jax", "warpedganspace_tpu")
+_FOREIGN = ("jax", "warpedganspace_tpu", "cv2")
 
 
 def test_port_imports_no_jax():
     """Import every module of the port (found by walking the package) and
-    ``chip_smoke`` in a fresh interpreter; none of them may pull in ``jax`` or
-    ``warpedganspace_tpu``."""
+    ``chip_smoke`` in a fresh interpreter; none of them may pull in ``jax``,
+    ``warpedganspace_tpu`` or ``cv2``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import warpedganspace_torch as pkg\n"
@@ -31,9 +32,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_foreign_import():
-    """No ``import``/``from`` line of the port's sources names the JAX package
-    or JAX: this also catches an import inside a function."""
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|warpedganspace_tpu)\b")
+    """No ``import``/``from`` line of the port's sources names the JAX package,
+    JAX or cv2: this also catches an import inside a function."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|warpedganspace_tpu|cv2)\b")
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, filenames in os.walk(os.path.join(REPO, "warpedganspace_torch")):
         sources += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]

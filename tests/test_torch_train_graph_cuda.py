@@ -73,7 +73,7 @@ def _perturb(gen, seed):
     return gen
 
 
-def _generator(family, device):
+def _generator(family, device, target_classes=(239,)):
     """(bundle, reconstructor type, image channels, TrainStepConfig overrides)."""
     gen = torch.Generator().manual_seed(11)
     if family == "SNGAN_MNIST":
@@ -83,8 +83,8 @@ def _generator(family, device):
     elif family == "BigGAN":
         from warpedganspace_torch.models.biggan import BigGANGenerator
 
-        net = BigGANGenerator(resolution=32, ch=16, shared_dim=16, n_classes=240,
-                              attention="32", generator=gen)
+        net = BigGANGenerator(resolution=32, ch=16, shared_dim=16, n_classes=241,
+                              attention="32", target_classes=target_classes, generator=gen)
         rtype, ch, kw = "ResNet", 3, {}
     elif family == "StyleGAN2":
         from warpedganspace_torch.models.stylegan2 import StyleGAN2Generator
@@ -105,8 +105,8 @@ def _generator(family, device):
     return bundle, rtype, ch, kw
 
 
-def _state(family, device, batch_size=8, **cfg_kw):
-    G, rtype, ch, kw = _generator(family, device)
+def _state(family, device, batch_size=8, target_classes=(239,), **cfg_kw):
+    G, rtype, ch, kw = _generator(family, device, target_classes)
     init = torch.Generator().manual_seed(13)
     S = SupportSets(K, DIPOLES, G.dim_z, learn_gammas=True, generator=init)
     R = Reconstructor(rtype, dim=K, channels=ch, generator=init)
@@ -131,8 +131,8 @@ def _bit_equal(a, b):
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
-def _eager(family, device, iters):
-    state = _state(family, device)
+def _eager(family, device, iters, **state_kw):
+    state = _state(family, device, **state_kw)
     rows = torch.stack([metric_row(train_step(state, it)) for it in range(1, iters + 1)])
     return _snapshot(state), rows
 
@@ -203,6 +203,44 @@ def test_graphed_chunks_match_eager_steps(cuda, deterministic, family):
             assert _close_as_eager(got[name], w, again[name], start.get(name)), name
     assert float((rows - want_rows).abs().max()) <= max(
         SPREAD * float((again_rows - want_rows).abs().max()), 1e-3)
+
+
+def test_biggan_several_classes_graph(cuda, deterministic):
+    """``--biggan-target-classes 239 240 --steps-per-call 2`` on a small
+    BigGAN: the class draw runs on the card (no host read), so the chunk
+    captures and replays, and three chunks equal six eager steps, bit for bit
+    where the eager step repeats its own bits and as close as a second eager
+    run otherwise. The card's draw equals the CPU's for the same z."""
+    from warpedganspace_torch.models.biggan import class_draw
+
+    z = torch.randn(256, 120, generator=torch.Generator().manual_seed(3))
+    for n in (2, 3, 1000):
+        assert torch.equal(class_draw(z.to(cuda), n).cpu(), class_draw(z, n))
+
+    k, iters, targets = 2, 6, (239, 240)
+    state = _state("BigGAN", cuda, target_classes=targets)
+    start = _snapshot(state)
+    chunk = StepChunk(state, k)
+    rows = torch.cat([chunk(it) for it in range(1, iters + 1, k)])
+    assert chunk.graph is not None
+    got = _snapshot(state)
+    want, want_rows = _eager("BigGAN", cuda, iters, target_classes=targets)
+    again, again_rows = _eager("BigGAN", cuda, iters, target_classes=targets)
+    assert rows.shape == (iters, 4) and bool(torch.isfinite(rows).all())
+    if _bit_equal(want, again):
+        assert _bit_equal(got, want)
+        assert torch.equal(rows, want_rows)
+    else:
+        for name, w in want.items():
+            if name.endswith(".step") or w.dtype == torch.long:
+                assert torch.equal(got[name], w), name
+            else:
+                assert _close_as_eager(got[name], w, again[name], start.get(name)), name
+    from warpedganspace_torch.train.train_step import sample_batch
+
+    drawn = {c for it in range(1, iters + 1)
+             for c in state.G.net.mixed_classes(sample_batch(state, it)[0]).tolist()}
+    assert drawn == set(targets)
 
 
 def test_cli_resume_in_the_middle_of_a_chunk(cuda, deterministic, tmp_path, monkeypatch):

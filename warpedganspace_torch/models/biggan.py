@@ -28,12 +28,14 @@ converted (:mod:`warpedganspace_torch.convert.biggan`), so the module holds
 plain dense weights only.
 
 Class sampling: when ``y`` is not given, a class per batch element is drawn
-from ``target_classes`` with a generator seeded from the bits of ``z[:, 0]``,
-so the same z gives the same classes and a (code, shifted code) pair built
-from one z is consistent, as in the JAX package. With one target class (every
-script of the reference) both packages agree exactly; with several, the draws
-differ from the JAX package's, whose ``jax.random`` stream no torch generator
-reproduces.
+from ``target_classes`` by an integer hash of the bits of ``z[:, 0]`` and the
+row index, computed on z's device (:func:`class_draw`). The same z gives the
+same classes, a (code, shifted code) pair built from one z is consistent, as
+in the JAX package, and the draw reads nothing back to the host, so it runs
+inside a CUDA graph and is bit for bit the same on the card and the CPU. With
+one target class (every script of the reference) both packages agree exactly;
+with several, the draws differ from the JAX package's, whose ``jax.random``
+stream the hash does not reproduce.
 """
 from __future__ import annotations
 
@@ -56,6 +58,28 @@ NCLASS_DICT = {"I32": 1000, "I32_hdf5": 1000, "I64": 1000, "I64_hdf5": 1000,
 
 CONFIG_FILE = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
                        "configs", "biggan_generator_config.json")
+
+
+_MASK31 = 0x7FFFFFFF
+
+
+def _mix31(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of 31-bit integers in int64 arithmetic: xor-shift, multiply
+    by an odd constant and keep the low 31 bits, twice. Every product stays
+    below 2**58, so no step overflows and every device computes the same bits."""
+    for _ in range(2):
+        x = ((x ^ (x >> 16)) * 0x045D9F3B) & _MASK31
+    return x ^ (x >> 16)
+
+
+def class_draw(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Index in ``[0, n)`` for each row of z, on z's device: the salt is the
+    int64 sum of ``z[:, 0]`` read as int32 bits, and row i draws
+    ``mix(mix(salt) ^ i) mod n``."""
+    bits = z[:, 0].detach().float().contiguous().view(torch.int32)
+    salt = bits.sum(dtype=torch.int64).abs() & _MASK31
+    rows = torch.arange(z.shape[0], device=z.device, dtype=torch.int64)
+    return _mix31(_mix31(salt) ^ rows) % n
 
 
 def biggan_arch(ch: int = 96, resolution: int = 128, attention: str = "64") -> dict:
@@ -285,13 +309,7 @@ class BigGANGenerator(nn.Module):
         classes = self.classes
         if len(self.target_classes) == 1:
             return classes.expand(z.shape[0])
-        # The salt is read on the host (one small copy); a single target
-        # class, the case of every script, returns above without it.
-        salt = int(z[:, 0].detach().float().cpu().contiguous().view(torch.int32)
-                   .sum(dtype=torch.int64).abs())
-        idx = torch.randint(len(self.target_classes), (z.shape[0],),
-                            generator=torch.Generator().manual_seed(salt))
-        return classes[idx.to(z.device)]
+        return classes[class_draw(z, len(self.target_classes))]
 
     def apply(self, z, shift=None, y=None, latent_is_w: bool = False):
         """G(z + shift, shared(y)) -> (B, 3, H, W) in tanh range
