@@ -89,7 +89,12 @@ exit and no result line:
    same argmaxes, the same first SFD box in all 41 frames (whose lead over the
    next candidate must exceed 100x the card-vs-CPU difference of the class
    maps); the native NMS must have run on the card, never the numpy one, and
-   keep what the numpy one keeps on the run's candidate sets;
+   keep what the numpy one keeps on the run's candidate sets. Then
+   ``rank_paths``: the port's ranking CLI on that tree with
+   ``stylegan2_full.sh``'s flags and its loop of eight attribute groups (the
+   first, ``Smiling-AU12``, with its top-k GIFs), each ``attr_idx`` CSV held
+   to a plain ``np.cov`` ranking written here and each JSON order to its CSV;
+   it launches none of the port's kernels;
 7. the training path, ``train`` then ``traverse_latent_space``: the experiment
    of ``scripts/train/biggan.sh`` (BigGAN-128 class 239, ResNet reconstructor,
    K=120, D=256, learn-gammas, shifts in [0.1, 0.2], batch 32, bf16 G and R)
@@ -121,7 +126,14 @@ exit and no result line:
    step through the tail kernel against the same step with the plain tail, in
    turns, with peak device memory, and traced for the tail kernel's share of
    the device time. Before the paths, SNGAN-AnimeFaces at full width (B=64)
-   in f32 and bf16 on the card against f32 on the CPU.
+   in f32 and bf16 on the card against f32 on the CPU;
+9. ``discriminators``: StyleGAN2 config-f D at 1024² (B=4), the BigGAN-128 D
+   (D_ch=96, attention at 64²; B=64) and BigGAN's G_D pair at class 239
+   (B=16), f32 with seeded random weights: the attention kernel once per G and
+   D forward (counted from 0 around the path), each D's logits against a
+   float64 run of the same module on the card, BigGAN D's against the plain
+   attention and G_D's three ways of scoring against each other; the
+   attention kernel timed at D's own operands (dk=12, dv=48).
 
 Runs with TF32 off (f32 comparisons). Needs no network. Imports no JAX.
 Prints the card's name and power limit, then one JSON line with each kernel's
@@ -198,9 +210,20 @@ TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_stylegan2_w": SG2_TRAIN,
 # traversal of that length, cut from its K=200 paths x 6 codes to 4 paths of one.
 ATTR = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=20, eps=0.15, batch=16, res=1024,
             gif=False, pool="smoke_attr")
+# The ranking stage on that tree: stylegan2_full.sh's loop of attribute groups,
+# with its flags; the first group also writes its top-k GIFs.
+RANK_GROUPS = ("Smiling-AU12", "Age-FareFace", "Age-CelebA", "Gender", "Rotation",
+               "Smiling-CelebA", "Brow-Lowerer-AU4", "Bangs")
+RANK_FLAGS = ["--num-imgs=5", "--gif-size=256", "--metric=corr+corr_l1"]
 # A crop rectangle (x0, x1, y0, y1) of a 256² frame that touches no border,
 # gathered on the card and on the CPU beside the first boxes' crops.
 INNER_RECT = (61, 190, 37, 203)
+# The discriminators at full width: StyleGAN2 config-f at 1024² (batch), BigGAN-128
+# (D_ch=96, D_attn="64"; batch), and BigGAN's G_D pair at class 239 (batch).
+D_SG2_B, D_BIGGAN_B, GD_B = 4, 64, 16
+# 1 BigGAN D forward, then G_D on fakes, fakes + reals in one D forward, and
+# fakes + reals split: one attention launch per G and per D forward.
+D_PATH_ATTN = 1 + 2 + 2 + 3
 # The three sections of ProgGAN-1024's tail: (C output channels, input height = width, head).
 TAIL_SECTIONS = ((64, 128, False), (32, 256, False), (16, 512, True))
 TAIL_B = 4                                   # batch of the timed sections and generator
@@ -1101,6 +1124,196 @@ def phase_generator_biggan(card: str) -> None:
           f"card-vs-CPU f32 PSNR {pc:.2f} dB")
 
 
+def spectral_normalise(module) -> None:
+    """Divide every conv, linear and embedding weight of ``module`` by its
+    largest singular value, as a trained BigGAN D's spectral norm leaves it."""
+    import torch
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, torch.nn.Embedding)):
+                w = m.weight.reshape(m.weight.shape[0], -1).double()
+                m.weight.div_(float(torch.linalg.matrix_norm(w, ord=2)))
+
+
+def perturb_biases(module, gen, scale: float = 0.1) -> None:
+    """Random biases (0 in the random init, where a dropped bias would not show)."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(scale * torch.randn(p.shape, generator=gen))
+
+
+def phase_discriminators(card: str) -> tuple:
+    """``discriminators``: StyleGAN2 config-f D at 1024² (B=``D_SG2_B``), the
+    BigGAN-128 D (D_ch=96, D_attn="64", B=``D_BIGGAN_B``) and BigGAN's G_D
+    pair at class 239 (B=``GD_B``: fakes, fakes + reals in one D forward, and
+    split), in f32 with seeded random weights (BigGAN's spectrally normalised,
+    attention gammas 1, biases random). The counts are set to 0 just before
+    that path and read just after: the attention kernel once per G and per D
+    forward, ``D_PATH_ATTN`` in all. Then each D's logits against a float64 run
+    of the same module on the card (the attention through its plain version,
+    which the kernel does not take in float64); BigGAN D's against the same D
+    with the plain attention, and with the attention closed, to show the
+    comparison sees it; G_D's joint, split and fake-only logits against each
+    other and against float64. Times each forward, and the attention kernel at
+    D's own operands against plain, SDPA and its bound. Returns (the path's
+    launch counts, the attention's numbers at D's shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from warpedganspace_torch.models import biggan
+    from warpedganspace_torch.models.biggan import BigGAN_GD, BigGANDiscriminator
+    from warpedganspace_torch.models.gan_load import build_gan
+    from warpedganspace_torch.models.stylegan2 import StyleGAN2Discriminator
+    from warpedganspace_torch.ops import attn_cuda
+    from warpedganspace_torch.ops.attn import sa_attention_plain
+
+    marks = {"start": time.perf_counter()}
+    gen = torch.Generator().manual_seed(12)
+    sg2 = StyleGAN2Discriminator(1024, 2, generator=gen)
+    perturb_biases(sg2, gen)
+    bd = BigGANDiscriminator(128, 96, 1000, "64", generator=gen)
+    perturb_biases(bd, gen)
+    sg2, bd = sg2.cuda().eval(), bd.cuda().eval()
+    spectral_normalise(bd)
+    with torch.no_grad():
+        bd.blocks[0].attention.gamma.fill_(1.0)
+    check([b.attention is not None for b in bd.blocks] == [True] + [False] * 5,
+          "BigGAN-128's D must attend once, after its first block (64²)")
+    G = open_attention(build_gan("BigGAN", target_classes=[239], allow_random_init=True,
+                                 device="cuda")).net
+    gd = BigGAN_GD(G, bd)
+    x_sg2 = torch.randn((D_SG2_B, 3, 1024, 1024), generator=gen).cuda()
+    x_bg = torch.randn((D_BIGGAN_B, 3, 128, 128), generator=gen).cuda()
+    y_bg = torch.randint(0, 1000, (D_BIGGAN_B,), generator=gen).cuda()
+    z = torch.randn((GD_B, G.dim_z), generator=gen).cuda()
+    gy = torch.full((GD_B,), 239, dtype=torch.long).cuda()
+    x_real, dy = x_bg[:GD_B], y_bg[:GD_B]
+    marks["models"] = time.perf_counter()
+
+    with torch.no_grad():
+        reset_launch_counts()
+        l_sg2 = sg2(x_sg2)
+        torch.cuda.synchronize()
+        n_sg2 = attn_cuda.launches
+        l_bg = bd(x_bg, y_bg)
+        torch.cuda.synchronize()
+        n_bg = attn_cuda.launches - n_sg2
+        gd_fake = gd(z, gy)
+        gd_joint = gd(z, gy, x_real, dy)
+        gd_split = gd(z, gy, x_real, dy, split_D=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    marks["path"] = time.perf_counter()
+    check(n_sg2 == 0 and n_bg == 1,
+          f"StyleGAN2's D launched the attention {n_sg2} times, BigGAN's {n_bg}; not 0 and 1")
+    want_counts = dict(dict.fromkeys(counts, 0), sa_attention=D_PATH_ATTN)
+    check(counts == want_counts, f"the discriminators' path launched {counts}, not {want_counts}")
+    for name, t, b in (("StyleGAN2 D", l_sg2, D_SG2_B), ("BigGAN D", l_bg, D_BIGGAN_B),
+                       ("G_D fake", gd_fake, GD_B), ("G_D joint fake", gd_joint[0], GD_B),
+                       ("G_D joint real", gd_joint[1], GD_B), ("G_D split fake", gd_split[0], GD_B),
+                       ("G_D split real", gd_split[1], GD_B)):
+        check(tuple(t.shape) == (b, 1) and bool(torch.isfinite(t).all())
+              and float(t.std()) > 0, f"{name} logits: shape {tuple(t.shape)}, finite "
+                                      f"{bool(torch.isfinite(t).all())}")
+
+    # The comparisons, outside the counted path.
+    err = {}
+    with torch.no_grad():
+        kernel_fn = biggan.sa_attention
+        biggan.sa_attention = sa_attention_plain
+        try:
+            before = attn_cuda.launches
+            l_bg_plain = bd(x_bg, y_bg)
+            sg2_64, bd_64 = copy.deepcopy(sg2).double(), copy.deepcopy(bd).double()
+            gd_64 = BigGAN_GD(copy.deepcopy(G).double(), bd_64)
+            l_sg2_64 = sg2_64(x_sg2.double())
+            l_bg_64 = bd_64(x_bg.double(), y_bg)
+            gd_fake_64 = gd_64(z.double(), gy)
+            torch.cuda.synchronize()
+            check(attn_cuda.launches == before, "the plain and float64 runs launched the kernel")
+            ms_bg_plain = cuda_ms(lambda: bd(x_bg, y_bg), iters=10, warmup=2)
+            bd.blocks[0].attention.gamma.zero_()
+            l_bg_closed = bd(x_bg, y_bg)
+            bd.blocks[0].attention.gamma.fill_(1.0)
+            del sg2_64, bd_64, gd_64
+        finally:
+            biggan.sa_attention = kernel_fn
+        marks["plain and float64 runs"] = time.perf_counter()
+        err["BigGAN D kernel vs plain attention"] = rel_err(l_bg, l_bg_plain)
+        err["BigGAN D attention closed"] = rel_err(l_bg_closed, l_bg_plain)
+        err["StyleGAN2 D f32 vs f64"] = rel_err(l_sg2, l_sg2_64)
+        err["BigGAN D f32 vs f64"] = rel_err(l_bg, l_bg_64)
+        err["G_D fake f32 vs f64"] = rel_err(gd_fake, gd_fake_64)
+        err["G_D joint vs fake-only"] = rel_err(gd_joint[0], gd_fake)
+        err["G_D split vs joint"] = max(rel_err(gd_split[0], gd_joint[0]),
+                                        rel_err(gd_split[1], gd_joint[1]))
+
+        ms_sg2 = cuda_ms(lambda: sg2(x_sg2), iters=5, warmup=1)
+        ms_bg = cuda_ms(lambda: bd(x_bg, y_bg), iters=10, warmup=2)
+        ms_gd = cuda_ms(lambda: gd(z, gy), iters=10, warmup=2)
+        marks["forward times"] = time.perf_counter()
+
+        # The attention kernel at D's own operands.
+        seen = []
+
+        def capture(theta, phi, g):
+            seen.append((theta, phi, g))
+            return kernel_fn(theta, phi, g)
+
+        biggan.sa_attention = capture
+        try:
+            bd(x_bg, y_bg)
+        finally:
+            biggan.sa_attention = kernel_fn
+        theta, phi, g = seen[0]
+        b, n, dk = theta.shape
+        m, dv = g.shape[1], g.shape[2]
+        check((b, n, m, dk, dv) == (D_BIGGAN_B, 4096, 1024, 12, 48),
+              f"BigGAN D's attention operands {(b, n, m, dk, dv)}")
+        kern = lambda: attn_cuda.sa_attention(theta, phi, g)  # noqa: E731
+        plain = lambda: sa_attention_plain(theta, phi, g)  # noqa: E731
+        attn_err = float((kern() - plain()).abs().max())
+        check(attn_err <= 1e-4, f"the attention kernel at D's operands: max abs {attn_err:.3g}")
+        p1, k1, k2, p2 = (cuda_ms(f, iters=20) for f in (plain, kern, kern, plain))
+        q, k, v = theta[:, None], phi[:, None], g[:, None]
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
+        lib_err = float((lib()[:, 0] - plain()).abs().max())
+        lib_ms = cuda_ms(lib, iters=20)
+    marks["attention times"] = time.perf_counter()
+    bound_ms, bound_by = bound(4 * b * (n * dk + m * dk + m * dv + n * dv),
+                               2 * b * n * m * (dk + dv))
+    check(err["BigGAN D kernel vs plain attention"] <= 1e-4
+          and err["BigGAN D attention closed"] > 100 * err["BigGAN D kernel vs plain attention"],
+          f"BigGAN D, kernel vs plain attention: {err['BigGAN D kernel vs plain attention']:.3g} "
+          f"of max|logit| (attention closed: {err['BigGAN D attention closed']:.3g})")
+    for name in ("StyleGAN2 D f32 vs f64", "BigGAN D f32 vs f64", "G_D fake f32 vs f64"):
+        check(err[name] <= 1e-3, f"{name}: {err[name]:.3g} of max|logit| > 1e-3")
+    for name in ("G_D joint vs fake-only", "G_D split vs joint"):
+        check(err[name] <= 1e-4, f"{name}: {err[name]:.3g} of max|logit| > 1e-4")
+    attn_d = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": attn_err,
+              "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+    print(f"[discriminators] on {card}, f32, TF32 off: StyleGAN2 config-f D 1024², "
+          f"B={D_SG2_B}: {ms_sg2:.2f} ms a forward; BigGAN-128 D (D_ch=96, attention at 64²), "
+          f"B={D_BIGGAN_B}: {ms_bg:.2f} ms a forward ({ms_bg_plain:.2f} with the plain "
+          f"attention); G_D at class 239, B={GD_B} fakes: {ms_gd:.2f} ms; attention launches "
+          f"on the path {counts['sa_attention']} (1 a D forward); of max|logit|: "
+          + ", ".join(f"{name} {e:.3g}" for name, e in err.items())
+          + "; the phase's seconds: " + ", ".join(
+              f"{name} {t - prev:.1f}" for (name, t), prev
+              in zip(list(marks.items())[1:], list(marks.values())[:-1])))
+    print(f"[discriminators] sa_attention at BigGAN D's operands, {attn_d['shape']} on {card}: "
+          f"kernel {attn_d['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {attn_d['plain_ms']:.4f} ms "
+          f"({p1:.4f}, {p2:.4f}) library SDPA {lib_ms:.4f} ms (its max abs err vs plain "
+          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; kernel max abs err "
+          f"{attn_err:.3g}")
+    return counts, attn_d
+
+
 def phase_generator_biggan_grad(card: str, dtype) -> None:
     """The gradient that training needs, d(scalar of G(z + shift)) / d(shift),
     at full width with the attention open: through the backward kernel against
@@ -1557,6 +1770,116 @@ def raw_close(got, want) -> tuple:
     return ok, float(err.max()) / max(scale, 1e-30)
 
 
+def plain_path_ranking(attrs, names, ranges):
+    """The reference's ranking loop, written apart from ``ranking/engine.py``:
+    for every (code, path, attribute), the attribute's sequence scaled to
+    [-1, 1] on its range and clipped, ``np.cov`` of it with the step index (the
+    distance from the middle frame for ``identity``) over the index's
+    stddev; the mean over the codes. ``attrs`` is (codes, paths, attributes,
+    points) with an odd number of points. Returns (|corr|, its rows L1-normalised)."""
+    import numpy as np
+
+    n_codes, n_paths, n_attrs, n_points = attrs.shape
+    check(n_points % 2 == 1, "the plain ranking takes paths of an odd number of points")
+    steps = np.arange(n_points)
+    corr = np.zeros((n_codes, n_paths, n_attrs))
+    for s_ in range(n_codes):
+        for k in range(n_paths):
+            for a, name in enumerate(names):
+                lo, hi = ranges[name]
+                seq = np.clip(2.0 * (attrs[s_, k, a] - lo) / (hi - lo) - 1.0, -1.0, 1.0)
+                idx = np.abs(steps - n_points // 2) if name == "identity" else steps
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    corr[s_, k, a] = np.cov(seq, idx)[0, 1] / np.sqrt(np.cov(idx))
+    corr = np.abs(corr.mean(0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return corr, corr / corr.sum(axis=1, keepdims=True)
+
+
+def rank_paths(exp: str, cfg: dict, h_dir: str) -> dict:
+    """``rank_paths``: the port's ranking CLI on the attribute stage's tree with
+    ``scripts/eval/stylegan2_full.sh``'s flags, the group loop in its order
+    (GIFs for ``RANK_GROUPS[0]``, ``--no-gif`` for the rest). Every
+    ``attr_idx_<metric>.csv`` is held to :func:`plain_path_ranking` of the
+    tree's ``eval_np`` arrays to the CSV's 3 decimals; each attribute's order
+    in ``interpretable_paths.json`` must be the CSV column's, largest first,
+    its ``_sorted_by_`` CSV the CSV's rows in that order, and the ``_diag``
+    CSV the plain ranking's first rows to 2 decimals. Returns the wall times
+    (s) and counts."""
+    import csv
+
+    import numpy as np
+
+    from warpedganspace_torch.cli import rank_interpretable_paths as rank
+    from warpedganspace_torch.ranking.engine import ATTRIBUTE_GROUPS, ATTRIBUTE_RANGES
+
+    hashes_root = osp.dirname(h_dir)
+    out_root = osp.join(hashes_root, "interpretable_paths")
+    argv = ["--exp", exp, "--pool", cfg["pool"], f"--eps={cfg['eps']}",
+            f"--shift-steps={cfg['steps']}"] + RANK_FLAGS
+    seconds, n_csv, n_gif = {}, 0, 0
+    for i, group in enumerate(RANK_GROUPS):
+        t0 = time.perf_counter()
+        rank.main(argv + [f"--attr-group={group}"] + ([] if i == 0 else ["--no-gif"]))
+        seconds[group] = time.perf_counter() - t0
+
+        names = ATTRIBUTE_GROUPS[group]
+        attrs = np.stack([np.stack([np.load(osp.join(h_dir, "eval_np", f"{a}.npy"))
+                                    for a in names], axis=1)])    # (1 code, K, A, T)
+        plain = dict(zip(("corr", "corr_l1"), plain_path_ranking(attrs, names,
+                                                                 ATTRIBUTE_RANGES)))
+        g_dir = osp.join(out_root, f"Group_{group}")
+        with open(osp.join(g_dir, "interpretable_paths.json")) as f:
+            orders = json.load(f)
+        for metric, want in plain.items():
+            with open(osp.join(g_dir, metric, f"attr_idx_{metric}.csv")) as f:
+                rows = list(csv.reader(f))
+            check(rows[0] == ["path_id"] + list(names), f"{group}/{metric}: header {rows[0]}")
+            got = np.array([[float(v) if v else np.nan for v in r[1:]] for r in rows[1:]])
+            check(got.shape == want.shape
+                  and np.array_equal(np.isnan(got), np.isnan(want))
+                  and bool(np.all(np.abs(got - want)[~np.isnan(want)] <= 5e-4 + 1e-9)),
+                  f"{group}/{metric}: the CSV against the plain ranking, max abs "
+                  f"{float(np.nanmax(np.abs(got - want))) if got.shape == want.shape else 'n/a'}")
+            n_csv += 1
+            for a, name in enumerate(names):
+                order = orders[metric][name]
+                col = got[order, a]
+                finite = col[~np.isnan(col)]
+                check(sorted(order) == list(range(len(got)))
+                      and bool(np.all(np.diff(finite) <= 0))
+                      and bool(np.isnan(col[len(finite):]).all()),
+                      f"{group}/{metric}/{name}: the JSON order does not follow the CSV")
+                with open(osp.join(g_dir, metric,
+                                   f"attr_idx_{metric}_sorted_by_{name}.csv")) as f:
+                    by = list(csv.reader(f))
+                check(by[0] == [""] + list(names)
+                      and [int(r[0]) for r in by[1:]] == order
+                      and [r[1:] for r in by[1:]] == [rows[1 + k][1:] for k in order],
+                      f"{group}/{metric}: the CSV sorted by {name} is not the CSV in the "
+                      "JSON's order")
+                n_csv += 1
+            with open(osp.join(g_dir, metric, f"attr_idx_{metric}_diag.csv")) as f:
+                diag = list(csv.reader(f))
+            firsts = want[[orders[metric][name][0] for name in names]]
+            got_diag = np.array([[float(v) if v else np.nan for v in r[1:]] for r in diag[1:]])
+            check(diag[0] == [""] + list(names)
+                  and [r[0] for r in diag[1:]] == [str(a) for a in range(len(names))]
+                  and np.array_equal(np.isnan(got_diag), np.isnan(firsts))
+                  and bool(np.all(np.abs(got_diag - firsts)[~np.isnan(firsts)] <= 5e-3 + 1e-9)),
+                  f"{group}/{metric}: the diagonal CSV against the plain ranking's first rows")
+            n_csv += 1
+        if i == 0:
+            gifs = [f for d, _, fs in os.walk(g_dir) for f in fs if f.endswith(".gif")]
+            n_gif = len(gifs)
+            top_k = min(3, attrs.shape[1])
+            check(n_gif == top_k * len(names) * 2,
+                  f"{group}: {n_gif} GIFs, not {top_k * len(names) * 2}")
+            check(osp.isfile(osp.join(g_dir, f"top-{top_k}_interpretable_path_{group}.md")),
+                  f"{group}: no top-k summary")
+    return {"seconds": seconds, "csv": n_csv, "gifs": n_gif}
+
+
 def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
                           warm_runs: int = 0) -> dict:
     """The attribute stage (``ATTR``): ``traverse_latent_space`` writes a
@@ -1629,6 +1952,10 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
             marks["traced run"] = time.perf_counter()
             check(launch_counts() == dict.fromkeys(launch_counts(), 0),
                   f"the attribute CLI launched {launch_counts()}")
+            ranked = rank_paths(exp, cfg, h_dir)
+            marks["ranking"] = time.perf_counter()
+            check(launch_counts() == dict.fromkeys(launch_counts(), 0),
+                  f"the ranking stage launched {launch_counts()}")
             # ``sfd.nms`` takes the library whenever ``load_native`` returns one.
             check(sfd.load_native() is lib, "the native NMS was not loaded through the card runs")
             check(len(card_np) == 26 and len(card_json) == 12,
@@ -1849,6 +2176,12 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
           + f"), and the next kept box by {min(lead_kept) if lead_kept else float('inf'):.3g} "
           f"logits at least; {len(set(firsts))} distinct first-box corners in path 0 "
           f"({firsts[0]} in frame 0)")
+    print(f"[rank_paths] rank_interpretable_paths on that tree ({k} paths of {T} points, "
+          f"one code), stylegan2_full.sh's {len(RANK_GROUPS)} groups: "
+          f"{sum(ranked['seconds'].values()):.2f} s wall on the host of {card} ("
+          + ", ".join(f"{g} {t:.2f} s" for g, t in ranked["seconds"].items())
+          + f"; {ranked['gifs']} GIFs of {RANK_GROUPS[0]}); {ranked['csv']} attr_idx CSVs "
+          "held to the plain np.cov ranking, every JSON order and sorted CSV the CSV's")
     if profile_rows:
         print(traced["table"])
     return launches
@@ -2722,6 +3055,7 @@ def main(argv=None) -> int:
     paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
     for path, cfg in TRAIN_PATHS.items():
         paths[path] = timed(path, phase_train_path, path, cfg)
+    paths["discriminators"], attn_d = timed("discriminators", phase_discriminators)
 
     def row(kname, source, replaces, k):
         by_path = {p: launches.get(kname, 0) for p, launches in paths.items()}
@@ -2744,6 +3078,8 @@ def main(argv=None) -> int:
                 "library_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
                 "bound_ms_render_bf16"):
         kernels[1][key] = attn[key]
+    for key, value in attn_d.items():
+        kernels[1][key + "_discriminator"] = value
     kernels.append(row("sa_attention_bwd", "warpedganspace_torch/csrc/sa_attention_bwd.cu",
                        "warpedganspace_tpu/ops/attn_pallas.py:106", attn_bwd))
     for key in ("library_ms_bf16", "bound_ms_bf16", "bound_by_bf16", "max_abs_errs", "err_is"):

@@ -1,4 +1,4 @@
-"""BigGAN torch checkpoint (``G_ema.pth``) -> the port's generator state dict.
+"""BigGAN torch checkpoints -> the port's generator and discriminator state dicts.
 
 Counterpart of :mod:`warpedganspace_tpu.convert.biggan`. Spectral
 normalization is folded here: the reference divides every SN weight by a
@@ -7,7 +7,9 @@ singular-value estimate obtained from ONE power-iteration step off the stored
 given G.eval(); num_svs=num_itrs=1 per generator_config.json). That step is
 reproduced in numpy (v = normalize(u W), u' = normalize(v W^T),
 sigma = ||v W^T||) and W / sigma is stored, in the port's layouts: OIHW
-convolutions and (out, in) linears, which are the checkpoint's own.
+convolutions and (out, in) linears, which are the checkpoint's own. The
+discriminator's SNEmbedding (layers.py:121-135) runs the same step on its
+(num_embeddings, dim) matrix, as an SN linear with one output per class.
 """
 from __future__ import annotations
 
@@ -71,11 +73,36 @@ def biggan_state_dict_from_reference(sd: dict) -> dict[str, torch.Tensor]:
         _ccbn(sd, src + "bn2", dst + "bn2", out)
         for name in ("conv1", "conv2", "conv_sc"):
             _sn(sd, src + name, dst + name, out)
-        if f"blocks.{i}.1.theta.weight" in sd:
-            asrc, adst = f"blocks.{i}.1.", f"blocks.{i}.attention."
-            for name in ("theta", "phi", "g", "o"):
-                _sn(sd, asrc + name, adst + name, out, bias=False)
-            out[adst + "gamma"] = torch.from_numpy(_arr(sd, asrc + "gamma").reshape(()).copy())
+        _attention(sd, i, out)
+        i += 1
+    return out
+
+
+def _attention(sd, i: int, out: dict) -> None:
+    """Block ``i``'s attention, where the checkpoint has one (``blocks.i.1``)."""
+    if f"blocks.{i}.1.theta.weight" in sd:
+        asrc, adst = f"blocks.{i}.1.", f"blocks.{i}.attention."
+        for name in ("theta", "phi", "g", "o"):
+            _sn(sd, asrc + name, adst + name, out, bias=False)
+        out[adst + "gamma"] = torch.from_numpy(_arr(sd, asrc + "gamma").reshape(()).copy())
+
+
+def biggan_d_state_dict_from_reference(sd: dict) -> dict[str, torch.Tensor]:
+    """Reference Discriminator ``state_dict`` (BigGAN.py:281-399; tensors or
+    numpy arrays) -> the ``state_dict`` of
+    :class:`warpedganspace_torch.models.biggan.BigGANDiscriminator`."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+          for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {}
+    _sn(sd, "linear", "linear", out)
+    _sn(sd, "embed", "embed", out, bias=False)
+    i = 0
+    while f"blocks.{i}.0.conv1.weight" in sd:
+        src, dst = f"blocks.{i}.0.", f"blocks.{i}."
+        for name in ("conv1", "conv2", "conv_sc"):
+            if src + name + ".weight" in sd:
+                _sn(sd, src + name, dst + name, out)
+        _attention(sd, i, out)
         i += 1
     return out
 

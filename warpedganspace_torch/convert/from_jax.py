@@ -64,11 +64,37 @@ def stylegan2_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _eq_conv(p, dst, out):
+    """A discriminator ConvLayer: HWIO -> OIHW, with its fused bias if it has one."""
+    out[dst + ".weight"] = _t(p["w"], 3, 2, 0, 1)
+    if "act_bias" in p:
+        out[dst + ".act_bias"] = _t(p["act_bias"])
+
+
+def stylegan2_discriminator_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``StyleGAN2Discriminator.init``/converter params -> port discriminator state dict."""
+    out: dict[str, torch.Tensor] = {}
+    _eq_conv(params["conv_in"], "conv_in", out)
+    for i, block in enumerate(params["blocks"]):
+        for name in ("conv1", "conv2", "skip"):
+            _eq_conv(block[name], f"blocks.{i}.{name}", out)
+    _eq_conv(params["final_conv"], "final_conv", out)
+    _linear(params["final_linear1"], "final_linear1", out)
+    _linear(params["final_linear2"], "final_linear2", out)
+    return out
+
+
 def _ccbn(p, dst, out):
     _linear(p["gain"], dst + ".gain", out)
     _linear(p["bias"], dst + ".bias", out)
     out[dst + ".mean"] = _t(p["mean"])
     out[dst + ".var"] = _t(p["var"])
+
+
+def _attention(p, dst, out):
+    for name in ("theta", "phi", "g", "o"):
+        _conv(p[name], dst + name, out, bias=False)
+    out[dst + "gamma"] = _t(p["gamma"]).reshape(())
 
 
 def biggan_from_jax(params: dict) -> dict[str, torch.Tensor]:
@@ -82,12 +108,24 @@ def biggan_from_jax(params: dict) -> dict[str, torch.Tensor]:
         for name in ("conv1", "conv2", "conv_sc"):
             _conv(block[name], dst + name, out)
         if "attention" in block:
-            for name in ("theta", "phi", "g", "o"):
-                _conv(block["attention"][name], dst + "attention." + name, out, bias=False)
-            out[dst + "attention.gamma"] = _t(block["attention"]["gamma"]).reshape(())
+            _attention(block["attention"], dst + "attention.", out)
     for name in ("scale", "bias", "mean", "var"):
         out["out_bn." + name] = _t(params["out_bn"][name])
     _conv(params["out_conv"], "out_conv", out)
+    return out
+
+
+def biggan_d_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``BigGANDiscriminator.init``/converter params -> port discriminator state dict."""
+    out: dict[str, torch.Tensor] = {"embed.weight": _t(params["embed"])}
+    _linear(params["linear"], "linear", out)
+    for i, block in enumerate(params["blocks"]):
+        dst = f"blocks.{i}."
+        for name in ("conv1", "conv2", "conv_sc"):
+            if name in block:
+                _conv(block[name], dst + name, out)
+        if "attention" in block:
+            _attention(block["attention"], dst + "attention.", out)
     return out
 
 

@@ -23,6 +23,11 @@ shared_dim=128, attention at 64x64, 128x128 output):
   hand-written backward kernel.
 - Output: affine BN -> ReLU -> conv3x3 -> tanh (BigGAN.py:170-174, 242-243).
 
+The projection discriminator and the G_D pair (BigGAN.py:247-445) belong to
+the model family, though the WarpedGANSpace pipeline runs neither: D's
+attention block is the generator's, so on a CUDA device it too goes through
+the forward kernel, one launch per attention block and D forward.
+
 Spectral normalization is folded into the weights when a checkpoint is
 converted (:mod:`warpedganspace_torch.convert.biggan`), so the module holds
 plain dense weights only.
@@ -330,3 +335,128 @@ class BigGANGenerator(nn.Module):
         return torch.tanh(h)
 
     forward = apply
+
+
+def biggan_d_arch(ch: int = 96, resolution: int = 128, attention: str = "64") -> dict:
+    """Discriminator architecture tables, all reference resolutions
+    (reference BigGAN.py:247-279). ``attention`` is the D_attn spec."""
+    tables = {
+        256: {
+            "in_channels": [3] + [ch * m for m in [1, 2, 4, 8, 8, 16]],
+            "out_channels": [ch * m for m in [1, 2, 4, 8, 8, 16, 16]],
+            "downsample": [True] * 6 + [False],
+            "resolution": [128, 64, 32, 16, 8, 4, 4],
+        },
+        128: {
+            "in_channels": [3] + [ch * m for m in [1, 2, 4, 8, 16]],
+            "out_channels": [ch * m for m in [1, 2, 4, 8, 16, 16]],
+            "downsample": [True] * 5 + [False],
+            "resolution": [64, 32, 16, 8, 4, 4],
+        },
+        64: {
+            "in_channels": [3] + [ch * m for m in [1, 2, 4, 8]],
+            "out_channels": [ch * m for m in [1, 2, 4, 8, 16]],
+            "downsample": [True] * 4 + [False],
+            "resolution": [32, 16, 8, 4, 4],
+        },
+        32: {
+            "in_channels": [3] + [ch * m for m in [4, 4, 4]],
+            "out_channels": [ch * m for m in [4, 4, 4, 4]],
+            "downsample": [True, True, False, False],
+            "resolution": [16, 16, 16, 16],
+        },
+    }
+    arch = tables[resolution]
+    attn_res = {int(a) for a in str(attention).split("_")}
+    arch["attention"] = [r in attn_res for r in arch["resolution"]]
+    return arch
+
+
+class DBlock(nn.Module):
+    """Discriminator residual block (layers.py:408-455), wide. Every block but
+    the first is preactivated; the learnable shortcut then convolves before it
+    pools, and without preactivation pools before it convolves."""
+
+    def __init__(self, in_ch: int, out_ch: int, preactivation: bool, downsample: bool,
+                 attention: bool, generator):
+        super().__init__()
+        self.preactivation = preactivation
+        self.downsample = downsample
+        self.conv1 = _conv(in_ch, out_ch, 3, generator)
+        self.conv2 = _conv(out_ch, out_ch, 3, generator)
+        self.conv_sc = (_conv(in_ch, out_ch, 1, generator)
+                        if in_ch != out_ch or downsample else None)
+        self.attention = Attention(out_ch, generator) if attention else None
+
+    def forward(self, x):
+        h = F.relu(x) if self.preactivation else x
+        h = self.conv2(F.relu(self.conv1(h)))
+        if self.downsample:
+            h = F.avg_pool2d(h, 2)
+        sc = x
+        if self.conv_sc is not None and self.preactivation:
+            sc = self.conv_sc(sc)
+        if self.downsample:
+            sc = F.avg_pool2d(sc, 2)
+        if self.conv_sc is not None and not self.preactivation:
+            sc = self.conv_sc(sc)
+        h = h + sc
+        return h if self.attention is None else self.attention(h)
+
+
+class BigGANDiscriminator(nn.Module):
+    """The projection discriminator: (B, 3, H, W) images and (B,) class ids ->
+    (B, 1) logits (reference BigGAN.py:281-399). After the blocks, a ReLU and a
+    global sum pool give h (B, C); the logit is linear(h) + sum(embed[y] * h).
+
+    Random initial weights are N(0, 0.02) from ``generator`` (zero biases and
+    attention gamma), as the JAX package's ``init``; checkpoints are loaded
+    through :mod:`warpedganspace_torch.convert.biggan`, which folds the
+    spectral norm."""
+
+    def __init__(self, resolution: int = 128, ch: int = 96, n_classes: int = 1000,
+                 attention: str = "64", generator: torch.Generator | None = None):
+        super().__init__()
+        self.resolution = resolution
+        self.ch = ch
+        self.n_classes = n_classes
+        self.attention = str(attention)
+        arch = biggan_d_arch(ch, resolution, self.attention)
+        self.blocks = nn.ModuleList(
+            DBlock(cin, cout, i > 0, down, attn, generator)
+            for i, (cin, cout, down, attn) in enumerate(zip(
+                arch["in_channels"], arch["out_channels"], arch["downsample"],
+                arch["attention"])))
+        c = arch["out_channels"][-1]
+        self.linear = _linear(c, 1, generator)
+        self.embed = nn.Embedding(n_classes, c)
+        with torch.no_grad():
+            self.embed.weight.copy_(_normal(self.embed.weight.shape, generator))
+
+    def forward(self, x, y):
+        h = x
+        for block in self.blocks:
+            h = block(h)
+        h = torch.sum(F.relu(h), dim=(2, 3))               # (B, C)
+        return self.linear(h) + torch.sum(self.embed(y) * h, dim=1, keepdim=True)
+
+
+class BigGAN_GD(nn.Module):
+    """G then D (reference G_D, BigGAN.py:404-445): scores a fake batch, and
+    with real images ``x`` (classes ``dy``) the real batch too, as one D
+    forward over the concatenation or, with ``split_D``, one forward each."""
+
+    def __init__(self, G: BigGANGenerator, D: BigGANDiscriminator):
+        super().__init__()
+        self.G = G
+        self.D = D
+
+    def forward(self, z, gy, x=None, dy=None, split_D: bool = False):
+        g_z = self.G.apply(z, y=gy)
+        if split_D:
+            d_fake = self.D(g_z, gy)
+            return d_fake if x is None else (d_fake, self.D(x, dy))
+        if x is None:
+            return self.D(g_z, gy)
+        d_out = self.D(torch.cat([g_z, x], dim=0), torch.cat([gy, dy], dim=0))
+        return d_out[:z.shape[0]], d_out[z.shape[0]:]

@@ -4,7 +4,9 @@ Counterpart of the generator in :mod:`warpedganspace_tpu.models.stylegan2`
 (reference ``models/StyleGAN2/model.py``): a mapping network of PixelNorm and
 ``n_mlp`` equalized-lr linears (lr_mul 0.01), a constant 4x4 input, styled
 modulated/demodulated convs with blurred 2x upsampling, fixed noise buffers,
-skip-accumulated ToRGB, truncation and style mixing.
+skip-accumulated ToRGB, truncation and style mixing; and the discriminator
+(reference model.py:453-503), which the WarpedGANSpace pipeline never runs but
+which belongs to the model family.
 
 As in the JAX package, the equalized-lr scales are folded into the stored
 weights by the converters (the generator is frozen), and modulation uses the
@@ -43,10 +45,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from warpedganspace_torch.ops.fused_act import fused_leaky_relu
-from warpedganspace_torch.ops.sg2_tail import (blur_kernel, modulate, modulated_conv,
-                                               tail_start)
+from warpedganspace_torch.ops.sg2_tail import (BLUR_KERNEL, blur_kernel, modulate,
+                                               modulated_conv, tail_start)
 from warpedganspace_torch.ops.sg2_tail_cuda import fused_section
-from warpedganspace_torch.ops.upfirdn2d import upfirdn2d
+from warpedganspace_torch.ops.upfirdn2d import setup_filter, upfirdn2d
 
 
 REMAT_CHOICES = ("off", "tail", "full")
@@ -275,3 +277,90 @@ class StyleGAN2Generator(nn.Module):
         if shift is not None:
             z = z + shift
         return self.forward([z], input_is_latent=False)
+
+
+# --------------------------------------------------------------- discriminator
+class ConvLayer(nn.Module):
+    """[blur +] equalized-lr conv [+ fused bias/leaky ReLU] (reference ConvLayer,
+    model.py:424-450), the scale folded into ``weight``. Downsampling blurs
+    with pad ((p+1)//2, p//2), p = len(blur) - 2 + (k - 1), then convolves at
+    stride 2 without padding."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, downsample: bool = False,
+                 activate: bool = True, generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            _randn((out_ch, in_ch, kernel, kernel), generator) / math.sqrt(in_ch * kernel * kernel))
+        if activate:
+            self.act_bias = nn.Parameter(torch.zeros(out_ch))
+        else:
+            self.register_parameter("act_bias", None)
+        self.downsample = downsample
+
+    def forward(self, x):
+        k = self.weight.shape[-1]
+        if self.downsample:
+            pb = (len(BLUR_KERNEL) - 2) + (k - 1)
+            x = upfirdn2d(x, setup_filter(BLUR_KERNEL).to(x.device), pad=((pb + 1) // 2, pb // 2))
+            x = F.conv2d(x, self.weight, stride=2)
+        else:
+            x = F.conv2d(x, self.weight, padding=k // 2)
+        return x if self.act_bias is None else fused_leaky_relu(x, self.act_bias)
+
+
+class ResBlock(nn.Module):
+    """conv -> downsampling conv, plus a blurred 1x1 downsampling skip; the sum
+    scaled by 1/sqrt(2) (reference model.py:439-450)."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv1 = ConvLayer(in_ch, in_ch, 3, generator=generator)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True, generator=generator)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, activate=False,
+                              generator=generator)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2.0)
+
+
+def minibatch_stddev(x, group_size: int = 4, eps: float = 1e-8):
+    """Append the minibatch-stddev feature map (reference model.py:489-495):
+    samples i and i + B/G share a group of G = min(B, group_size), and every
+    sample gets the mean over (C, H, W) of its group's population stddev."""
+    b, c, h, w = x.shape
+    group = min(b, group_size)
+    if b % group:
+        raise ValueError(f"the batch {b} is not a multiple of the stddev group {group}")
+    y = x.reshape(group, b // group, c, h, w)
+    std = torch.sqrt(y.var(dim=0, unbiased=False) + eps)      # (B/G, C, H, W)
+    s = std.mean(dim=(1, 2, 3), keepdim=True)                   # (B/G, 1, 1, 1)
+    return torch.cat([x, s.repeat(group, 1, h, w)], dim=1)
+
+
+class StyleGAN2Discriminator(nn.Module):
+    """(B, 3, H, W) images -> (B, 1) realness logits (reference Discriminator,
+    model.py:453-503). The head flattens the 4x4 map in NCHW order, which is
+    the reference's own, so its first linear needs no permutation."""
+
+    def __init__(self, resolution: int = 1024, channel_multiplier: int = 2,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.resolution = resolution
+        ch = channels_dict(channel_multiplier)
+        self.conv_in = ConvLayer(3, ch[resolution], 1, generator=generator)
+        self.blocks = nn.ModuleList()
+        in_ch = ch[resolution]
+        for i in range(int(math.log2(resolution)), 2, -1):
+            self.blocks.append(ResBlock(in_ch, ch[2 ** (i - 1)], generator=generator))
+            in_ch = ch[2 ** (i - 1)]
+        self.final_conv = ConvLayer(in_ch + 1, ch[4], 3, generator=generator)
+        self.final_linear1 = EqualLinear(ch[4] * 16, ch[4], generator=generator)
+        self.final_linear2 = EqualLinear(ch[4], 1, generator=generator)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.blocks:
+            h = block(h)
+        h = self.final_conv(minibatch_stddev(h))
+        h = fused_leaky_relu(self.final_linear1(h.flatten(1)), None)
+        return self.final_linear2(h)

@@ -4,11 +4,14 @@ The port's own copies of what it needs from :mod:`warpedganspace_tpu.utils.aux`
 (reference lib/aux.py): ``experiment_name`` / ``create_exp_dir`` (:56-104; the
 directory name is the experiment's identity for every later stage, so its
 encoding is the reference's byte for byte), ``update_progress`` /
-``update_stdout`` (:107-132) and ``sec2dhms`` (:134-151).
+``update_stdout`` (:107-132), ``sec2dhms`` (:134-151), and ``get_wh`` and
+``create_summarizing_gif`` (:154-260; the ranking stage's GIFs, with the JAX
+package's PIL calls, so that the bytes it writes are the same).
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import os.path as osp
 import sys
@@ -82,3 +85,91 @@ def sec2dhms(t: float) -> str:
     hour, t = divmod(t, 3600)
     minutes, seconds = divmod(t, 60)
     return "%02d days, %02d hours, %02d minutes, and %02d seconds" % (day, hour, minutes, seconds)
+
+
+def get_wh(img_paths):
+    """Common (width, height) of a list of same-resolution images
+    (reference lib/aux.py:154-175)."""
+    from PIL import Image
+
+    widths, heights = [], []
+    for f in img_paths:
+        with Image.open(f) as im:
+            widths.append(im.width)
+            heights.append(im.height)
+    if len(set(widths)) == len(set(heights)) == 1:
+        return widths[0], heights[0]
+    raise ValueError("Inconsistent image resolutions in {}".format(img_paths))
+
+
+def create_summarizing_gif(
+    imgs_root: str,
+    gif_filename: str,
+    num_imgs: int | None = None,
+    gif_size: int | None = None,
+    gif_fps: int = 30,
+    gap: int = 15,
+    progress_bar_h: int = 15,
+    progress_bar_color=(252, 186, 3),
+) -> None:
+    """Summarizing GIF: a static strip of ``num_imgs`` frames, a gap, then an
+    animated pane cycling through all frames with a progress bar
+    (reference lib/aux.py:178-260)."""
+    from PIL import Image, ImageDraw
+
+    if not osp.isdir(imgs_root):
+        raise NotADirectoryError("Invalid directory: {}".format(imgs_root))
+
+    frames = sorted(
+        osp.join(imgs_root, f)
+        for f in os.listdir(imgs_root)
+        if osp.isfile(osp.join(imgs_root, f))
+    )
+    total = len(frames)
+    num_imgs = total if num_imgs is None else min(num_imgs, total)
+
+    static_files = [
+        osp.join(imgs_root, "{:06}.jpg".format(i))
+        for i in range(0, total, math.ceil(total / num_imgs))
+    ]
+    n_static = len(static_files)
+
+    if gif_size is not None:
+        gif_w = gif_h = gif_size
+    else:
+        with Image.open(static_files[0]) as im:
+            gif_w, gif_h = im.width, im.height
+
+    static_strip = Image.new("RGB", size=(n_static * gif_w, gif_h))
+    for i, f in enumerate(static_files):
+        static_strip.paste(Image.open(f).resize((gif_w, gif_h)), (i * gif_w, 0))
+
+    gif_frames = []
+    for i, f in enumerate(frames):
+        frame = Image.new(
+            "RGB", size=((n_static + 1) * gif_w + gap, gif_h), color=(255, 255, 255)
+        )
+        frame.paste(static_strip, (0, 0))
+        frame.paste(Image.open(f).resize((gif_w, gif_h)), (n_static * gif_w + gap, 0))
+        if progress_bar_h > 0:
+            draw = ImageDraw.Draw(frame)
+            progress = (i / total) * gif_w
+            draw.rectangle(
+                xy=[
+                    n_static * gif_w + gap,
+                    gif_h - progress_bar_h,
+                    n_static * gif_w + gap + progress,
+                    gif_h,
+                ],
+                fill=progress_bar_color,
+            )
+        gif_frames.append(frame)
+
+    gif_frames[0].save(
+        fp=gif_filename,
+        append_images=gif_frames[1:],
+        save_all=True,
+        optimize=False,
+        loop=0,
+        duration=1000 // gif_fps,
+    )
