@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile proggan   # instead: where that path's time goes
                                               # (also: biggan, stylegan2, train_biggan,
                                               # attribute; --steps N walks N steps each way)
+    python3 chip_smoke.py --profile dp --cards 4   # data-parallel training, 1 card and 4
 
 Phases, each of which must pass; any failure ends the run with a non-zero
 exit and no result line:
@@ -111,10 +112,10 @@ exit and no result line:
    of its ``scripts/train/*.sh`` at full width, cut in iterations and in the
    cadence of logs and checkpoints, with a resume: SNGAN-MNIST (LeNet, K=64,
    D=128, batch 128, bf16 G, ``--steps-per-call 10``: a CUDA graph of ten
-   steps; 60 iterations, then a resume at 60 to 90 with ``--profile``, and 60
+   steps; 40 iterations, then a resume at 40 to 60 with ``--profile``, and 40
    iterations again with one step a call for its steps/s), StyleGAN2-1024
    in W space (``--z-truncation 0.7``, ResNet, K=200, D=512, batch 12, bf16 G
-   and R; 6 iterations, then a resume at 6 to 12) and ProgGAN-1024 (the same
+   and R; 4 iterations, then a resume at 4 to 8) and ProgGAN-1024 (the same
    at batch 8). Each writes its tree, ``checkpoint2model`` splits the
    checkpoint, and ``traverse_latent_space`` walks the tree without its final
    ``support_sets.pt``, as an interrupted run leaves it. Launch counts as
@@ -127,7 +128,25 @@ exit and no result line:
    turns, with peak device memory, and traced for the tail kernel's share of
    the device time. Before the paths, SNGAN-AnimeFaces at full width (B=64)
    in f32 and bf16 on the card against f32 on the CPU;
-9. ``discriminators``: StyleGAN2 config-f D at 1024² (B=4), the BigGAN-128 D
+9. ``multi_device``: ``--multi-device``, the
+   experiment of ``scripts/train/biggan.sh`` at full width, data parallel
+   over ``torch.distributed`` (``MD``). (a) Two ranks share the card over
+   gloo (worker processes of this script; NCCL refuses two ranks on one
+   card): ``sample_gan``, ``train --multi-device`` in f32 (16 of the global
+   32 rows a rank, 2 iterations) and ``traverse_latent_space --multi-device``
+   (one of two codes a rank), then the same pipeline in this process, a
+   control that trains with PyTorch's native convolutions, and the first
+   step again in float64: one tree; the first step's metrics at the JAX
+   package's gates and its gradients no farther from float64 than twice one
+   process's (f32 computes them to about 1 % of their norm); later windows,
+   codes and frames at those gates or as close as the control
+   (``MD_SPREAD``); the traversal split over the ranks equal to one
+   process's on the same sets; each rank launches the attention forward and
+   backward and the warp. (b) One NCCL rank, bf16 G and R,
+   ``--steps-per-call 5``: the all-reduces captured in the CUDA graph, the
+   run the same bits as the run without a group; the workers print their
+   launch counts for this process to sum;
+10. ``discriminators``: StyleGAN2 config-f D at 1024² (B=4), the BigGAN-128 D
    (D_ch=96, attention at 64²; B=64) and BigGAN's G_D pair at class 239
    (B=16), f32 with seeded random weights: the attention kernel once per G and
    D forward (counted from 0 around the path), each D's logits against a
@@ -180,14 +199,14 @@ ATTN_TRAIN = (TRAIN["batch"],) + ATTN_SHAPE[1:]   # what a training step gives b
 # tree (``steps`` each way, ``render_batch``). ``tail``: the kernel in every
 # generator forward, ``per_forward`` launches each.
 SNGAN_TRAIN = dict(
-    gan="SNGAN_MNIST", k=64, dipoles=128, d=128, iters=60, resume_to=90, log_freq=10,
-    ckp_freq=30, steps=8, eps=0.2, render_batch=128, res=32, channels=1, pool="smoke_sngan",
+    gan="SNGAN_MNIST", k=64, dipoles=128, d=128, iters=40, resume_to=60, log_freq=10,
+    ckp_freq=20, steps=8, eps=0.2, render_batch=128, res=32, channels=1, pool="smoke_sngan",
     tail=None, per_forward=0, chunk=10,
     argv=["--learn-gammas", "--gan-type", "SNGAN_MNIST", "--reconstructor-type", "LeNet",
           "-K", "64", "-D", "128", "--min-shift-magnitude", "0.15", "--max-shift-magnitude",
           "0.25", "--batch-size", "128", "--g-dtype", "bfloat16", "--steps-per-call", "10"])
 SG2_TRAIN = dict(
-    gan="StyleGAN2", k=200, dipoles=512, d=512, iters=6, resume_to=12, log_freq=2, ckp_freq=6,
+    gan="StyleGAN2", k=200, dipoles=512, d=512, iters=4, resume_to=8, log_freq=1, ckp_freq=4,
     steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_sg2_train", tail="sg2_tail",
     per_forward=2, chunk=1,
     argv=["--learn-gammas", "--gan-type", "StyleGAN2", "--stylegan2-resolution", "1024",
@@ -196,7 +215,7 @@ SG2_TRAIN = dict(
           "0.2", "--batch-size", "12", "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
           "--pair-layout", "s2d"])
 PROGGAN_TRAIN = dict(
-    gan="ProgGAN", k=200, dipoles=512, d=512, iters=6, resume_to=12, log_freq=2, ckp_freq=6,
+    gan="ProgGAN", k=200, dipoles=512, d=512, iters=4, resume_to=8, log_freq=1, ckp_freq=4,
     steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_proggan_train",
     tail="proggan_tail", per_forward=3, chunk=1,
     argv=["--learn-gammas", "--gan-type", "ProgGAN", "--reconstructor-type", "ResNet",
@@ -205,6 +224,33 @@ PROGGAN_TRAIN = dict(
           "--pair-layout", "s2d"])
 TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_stylegan2_w": SG2_TRAIN,
                "train_proggan_z": PROGGAN_TRAIN}
+# The multi-device path: the experiment of scripts/train/biggan.sh at full
+# width, data parallel. Part (a): two ranks that share the card over gloo, f32
+# (TF32 off), eager steps, then a traversal of one code a rank; held to the
+# same pipeline in one process. Part (b): one NCCL rank, bf16 as the script
+# runs it, graphed chunks of ``chunk`` steps; held to the same run without a
+# process group in the same process, both with the deterministic algorithms.
+MD = dict(gan="BigGAN", k=120, dipoles=256, d=120, batch=32, iters=2, log_freq=1, ckp_freq=2,
+          steps=1, eps=0.15, render_batch=64, codes=2, res=128, pool="smoke_md",
+          graph_iters=15, graph_log_freq=5, graph_ckp_freq=30, chunk=5)
+# f32 computes this network's first-step gradients to about 1 % of their
+# norm: the phase's witness holds one process's first step, through the CLI's
+# own code and through PyTorch's native convolutions instead of cuDNN's,
+# against the same step in float64, and every route lies about as far from it
+# while R's BatchNorm inputs and logits agree with float64 far more closely
+# (PERF.md's multi-GPU findings). Two ranks change the rounding as another route does. So
+# their first step is held to the float64 step: no farther from it than
+# MD_F64_RATIO times one process's f32 step is.
+MD_F64_RATIO = 2.0
+# After the first step Adam's update is lr * sign(g) for every element, so
+# elements whose gradient lies within that 1 % take either sign and later
+# steps carry it on. The tree of two ranks (later log windows, codes, frames)
+# is held to one process's as far as a control lies from it, times
+# MD_SPREAD, and at least at the JAX package's gates: the control is one
+# process that trains with PyTorch's native convolutions (another f32
+# rounding of the same steps, as far from float64 as cuDNN's) and traverses
+# as the others do.
+MD_SPREAD = 5.0
 # The attribute stage: scripts/eval/stylegan2_full.sh's traverse_attribute_space
 # --eps 0.15 --shift-steps 20 (41 frames a path) on a StyleGAN2-1024 W
 # traversal of that length, cut from its K=200 paths x 6 codes to 4 paths of one.
@@ -2296,6 +2342,618 @@ def phase_train(card: str, cfg: dict) -> dict:
     return {name: train_launches[name] + trav_launches[name] for name in train_launches}
 
 
+def md_argv(cfg: dict, bf16: bool) -> list:
+    """The experiment of scripts/train/biggan.sh, cut in iterations; f32 for
+    part (a), the script's bf16 G and R with graphed chunks for part (b)."""
+    if bf16:
+        return train_argv(dict(cfg, log_freq=cfg["graph_log_freq"],
+                               ckp_freq=cfg["graph_ckp_freq"]),
+                          cfg["graph_iters"]) + ["--steps-per-call", str(cfg["chunk"])]
+    return [a for a in train_argv(cfg, cfg["iters"])
+            if a not in ("--g-dtype", "--r-dtype", "bfloat16")]
+
+
+def md_pipeline(cfg: dict, multi: bool, stages=("sample", "train", "traverse"),
+                native_conv: bool = False, snapshot: bool = False) -> dict:
+    """The ``stages`` of part (a) from the current directory (``sample_gan``,
+    ``train``, ``traverse_latent_space``), the attention opened, every launch
+    count set to 0 before and read after. ``native_conv``: train with
+    PyTorch's native convolutions instead of cuDNN's. Returns the launches,
+    the seconds of each stage, the train state, the gradients the first step
+    handed to Adam (S's, R's; on the host) and with ``snapshot`` what that
+    step started from (copies of S and R, and its batch)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from warpedganspace_torch.cli import sample_gan, train, traverse_latent_space
+    from warpedganspace_torch.models import gan_load
+    from warpedganspace_torch.train import trainer as trainer_module
+
+    step_module = importlib.import_module("warpedganspace_torch.train.train_step")
+    real_step, real_train = trainer_module.train_step, trainer_module.Trainer.train
+    flag = ["--multi-device"] if multi else []
+    out = {"seconds": {}}
+
+    def keep_state(self, *args, **kwargs):
+        out["state"] = real_train(self, *args, **kwargs)
+        return out["state"]
+
+    def first_grads(state, iteration, *args, **kwargs):
+        if snapshot and "first" not in out:
+            out["first"] = (copy.deepcopy(state.S), copy.deepcopy(state.R),
+                            step_module.sample_batch(state, iteration))
+        metrics = real_step(state, iteration, *args, **kwargs)
+        if "grads" not in out:
+            out["grads"] = {name: [p.grad.detach().cpu() for group in opt.param_groups
+                                   for p in group["params"]]
+                            for name, opt in (("S", state.opt_s), ("R", state.opt_r))}
+        return metrics
+
+    runs = {"sample": lambda: sample_gan.main(
+                ["-g", "BigGAN", "--biggan-target-classes", "239", "--num-samples",
+                 str(cfg["codes"]), "--pool", cfg["pool"]]),
+            "train": lambda: train.main(md_argv(cfg, bf16=False) + flag),
+            "traverse": lambda: traverse_latent_space.main(
+                ["--exp", osp.join("experiments", "complete", md_exp_name(cfg)), "--pool",
+                 cfg["pool"], "--shift-steps", str(cfg["steps"]), "--eps", str(cfg["eps"]),
+                 "--batch-size", str(cfg["render_batch"]), "--dtype", "bfloat16"] + flag)}
+    patched = (sample_gan, train, traverse_latent_space)
+    for mod in patched:
+        mod.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
+    trainer_module.Trainer.train = keep_state
+    trainer_module.train_step = first_grads
+    try:
+        reset_launch_counts()
+        for stage in stages:
+            t0 = time.perf_counter()
+            torch.backends.cudnn.enabled = not (native_conv and stage == "train")
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[stage]()
+            out["seconds"][stage] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.enabled = True
+        for mod in patched:
+            mod.build_gan = gan_load.build_gan
+        trainer_module.Trainer.train = real_train
+        trainer_module.train_step = real_step
+    out["launches"] = launch_counts()
+    return out
+
+
+def md_step_timing(state, n: int = 3) -> tuple:
+    """ms per eager step of ``state`` over ``n`` steps after one untimed, and
+    the share of that time inside ``all_reduce`` (None without a group). Each
+    all-reduce is timed between synchronises on the host's clock: gloo copies
+    through the host, so that is its cost."""
+    import torch
+    import torch.distributed as dist
+
+    from warpedganspace_torch.parallel import mesh
+    from warpedganspace_torch.train.train_step import train_step
+
+    real = dist.all_reduce
+    spent = [0.0]
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    train_step(state, 10 ** 6)
+    torch.cuda.synchronize()
+    dist.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        for it in range(n):
+            train_step(state, 10 ** 6 + 1 + it)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = real
+    return 1e3 * total / n, (spent[0] / total if mesh.active() else None)
+
+
+def md_exp_name(cfg: dict) -> str:
+    return f"BigGAN-239-ResNet-K{cfg['k']}-D{cfg['dipoles']}-LearnGammas-eps0.1_0.2"
+
+
+def md_first_step(G, first, cfg, dtype, native_conv: bool = False) -> tuple:
+    """The first step's S and R gradients from ``first`` (copies of S and R
+    and the batch, as :func:`md_pipeline` keeps them) with G, S and R in
+    ``dtype``: the loss of ``train_step.loss_fn`` written out for any float
+    type. In float64 every cast to float32 of the port's modules is held at
+    float64 and the attention is its plain formula (the kernels take f32 and
+    bf16). Returns the gradients (S's, R's, float64 on the device, in the
+    optimisers' order) and each of R's BatchNorm inputs and its logits."""
+    import torch
+    import torch.nn.functional as F
+
+    from warpedganspace_torch.models import biggan
+    from warpedganspace_torch.models.reconstructor import BatchNorm
+
+    S, R, (z, idx, mags) = (copy.deepcopy(first[0]).to(dtype), copy.deepcopy(first[1]).to(dtype),
+                            first[2])
+    G = G if dtype == torch.float32 else copy.deepcopy(G).to(dtype)
+    z, mags = z.to(dtype), mags.to(dtype)
+    seen = {}
+    hooks = [m.register_forward_hook(
+                 lambda mod, inp, out, name=name: seen.__setitem__(name, inp[0].detach()))
+             for name, m in R.named_modules() if isinstance(m, BatchNorm)]
+    real_float, real_attn = torch.Tensor.float, biggan.sa_attention
+    if dtype == torch.float64:
+        torch.Tensor.float = lambda self, *a, **kw: (self if self.dtype == torch.float64
+                                                     else real_float(self, *a, **kw))
+        biggan.sa_attention = lambda t, p, g: torch.softmax(t @ p.transpose(1, 2), -1) @ g
+    torch.backends.cudnn.enabled = not native_conv
+    try:
+        with torch.no_grad():
+            img = G(z)
+        img_shifted = G(z, mags[:, None] * S.direction(z, idx))
+        logits, mag_hat = R(img, img_shifted)
+        total = (cfg.lambda_cls * F.cross_entropy(logits, idx)
+                 + cfg.lambda_reg * torch.mean(torch.abs(mag_hat - mags)))
+        total.backward()
+    finally:
+        torch.Tensor.float, biggan.sa_attention = real_float, real_attn
+        torch.backends.cudnn.enabled = True
+        for h in hooks:
+            h.remove()
+    seen["logits"] = logits.detach()
+    grads = {name: [p.grad.double() for p in m.parameters() if p.requires_grad]
+             for name, m in (("S", S), ("R", R))}
+    seen["names"] = [n for m in (S, R) for n, p in m.named_parameters() if p.requires_grad]
+    return grads, seen
+
+
+def multi_device_worker(part: str, workdir: str, cfg_json: str) -> int:
+    """A process of the ``multi_device`` phase (``python3 -c``, started by
+    :func:`phase_multi_device`). Part ``a``: a rank of the gloo group the
+    parent's environment describes, running :func:`md_pipeline`, then timing
+    its steps; rank 0 saves the first step's gradients. Part ``b``:
+    the graphed run without a group, then the same run as the one rank of an
+    NCCL group, both with the deterministic algorithms; the two trees must be
+    the same bits. ``cfg_json`` is the phase's configuration (``MD``). Prints
+    its report as ``MD_REPORT {json}``."""
+    import torch
+    import torch.distributed as dist
+
+    from warpedganspace_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+    os.chdir(workdir)
+    cfg = json.loads(cfg_json)
+    report = {}
+    if part == "a":
+        mesh.initialize_distributed(backend="gloo")
+        run = md_pipeline(cfg, True)
+        step_ms, share = md_step_timing(run["state"])
+        report.update(launches=run["launches"], seconds=run["seconds"], rank=mesh.rank(),
+                      world=mesh.world_size(), step_ms=step_ms, all_reduce_share=share)
+        if mesh.rank() == 0:
+            torch.save(run["grads"], osp.join(workdir, "first_step_grads.pt"))
+        dist.destroy_process_group()
+    else:
+        import contextlib
+        import io
+
+        from warpedganspace_torch.cli import train
+        from warpedganspace_torch.models import gan_load
+        from warpedganspace_torch.train.train_step import train_step
+        from warpedganspace_torch.train.trainer import Trainer
+
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        train.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
+        states, trees = [], {}
+        real_train = Trainer.train
+
+        def keep_state(self, *args, **kwargs):
+            states.append(real_train(self, *args, **kwargs))
+            return states[-1]
+
+        Trainer.train = keep_state
+        calls = []
+        real_all_reduce = dist.all_reduce
+
+        def counting(tensor, *args, **kwargs):
+            calls.append(tuple(tensor.shape))
+            return real_all_reduce(tensor, *args, **kwargs)
+
+        for run in ("plain", "dp"):
+            os.makedirs(run)
+            os.chdir(run)
+            if run == "dp":
+                mesh.initialize_distributed(init_method=f"tcp://127.0.0.1:{md_free_port()}",
+                                            world_size=1, rank=0)
+                report["backend"] = dist.get_backend()
+                dist.all_reduce = counting
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer = train.main(md_argv(cfg, bf16=True) + (["--multi-device"]
+                                                                if run == "dp" else []))
+            torch.cuda.synchronize()
+            dist.all_reduce = real_all_reduce
+            # ms per step over the log windows of replays (after the eager
+            # warm-up's and the capture's), without a checkpoint.
+            windows = [w for w in trainer.window_times[2:] if not w[2]]
+            report[run] = {"s": time.perf_counter() - t0, "launches": launch_counts(),
+                           "step_ms": 1e3 * sum(w[1] for w in windows)
+                           / sum(w[0] for w in windows)}
+            reset_launch_counts()
+            wip = osp.join("experiments", "wip", md_exp_name(cfg))
+            with open(osp.join(wip, "stats.json")) as f:
+                stats = json.load(f)
+            trees[run] = (stats, torch.load(osp.join(wip, "models", "support_sets.pt")),
+                          torch.load(osp.join(wip, "models", "reconstructor.pt")))
+            os.chdir(workdir)
+        Trainer.train = real_train
+        report["all_reduce_calls"] = len(calls)
+        report["stats"] = trees["dp"][0]
+        report["stats_equal"] = trees["dp"][0] == trees["plain"][0]
+        report["tensors_equal"] = all(
+            torch.equal(a[key], b[key]) for a, b in zip(trees["dp"][1:], trees["plain"][1:])
+            for key in a)
+        report["max_stat_diff"] = max(
+            abs(trees["dp"][0][it][k] - v) for it, row in trees["plain"][0].items()
+            for k, v in row.items())
+        state = states[-1]
+        traced = trace_calls(lambda: train_step(state, 10 ** 6), 3, tag="nccl")
+        report["traced"] = {k: traced[k] for k in ("ms", "busy", "kernel_ms", "tag_share",
+                                                    "tag_ms", "tag_launches")}
+        dist.destroy_process_group()
+    print("MD_REPORT " + json.dumps(report))
+    return 0
+
+
+def md_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def md_spawn(part: str, workdir: str, world: int, cfg: dict) -> list:
+    """Start ``world`` worker processes of part ``part`` (a group of that size
+    from torchrun's environment for part ``a``; none for ``b``), wait for each
+    with a timeout, and return their reports. Fails with a worker's output
+    when it did not exit 0."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    root = osp.dirname(osp.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    port = md_free_port()
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.multi_device_worker(*sys.argv[1:]))"
+    procs = []
+    for r in range(world):
+        e = dict(env)
+        if part == "a":
+            e.update(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, "-c", code, part, workdir,
+                                       json.dumps(cfg)], cwd=root,
+                                      env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MD_REPORT ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"multi_device part ({part}) worker {r} exited {p.returncode}:\n{out[-6000:]}")
+        reports.append(json.loads(lines[0][len("MD_REPORT "):]))
+    return reports
+
+
+def md_tree(root: str, cfg: dict) -> dict:
+    """What part (a) compares of the tree under ``root``: stats.json, the
+    traversal's codes by hash and frames by (hash, path, frame) where it was
+    traversed, and the relative file set."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    exp = osp.join(root, "experiments", "complete", md_exp_name(cfg))
+    tree = {"stats": None, "codes": {}, "frames": {}}
+    if osp.isfile(osp.join(exp, "stats.json")):
+        with open(osp.join(exp, "stats.json")) as f:
+            tree["stats"] = json.load(f)
+    steps = cfg["steps"]
+    res = osp.join(exp, "results", cfg["pool"],
+                   f"{2 * steps}_{cfg['eps']}_{round(2 * steps * cfg['eps'], 3)}")
+    for h in sorted(os.listdir(res)) if osp.isdir(res) else ():
+        tree["codes"][h] = torch.load(osp.join(res, h, "paths_latent_codes.pt")).numpy()
+        for p in range(cfg["k"]):
+            d = osp.join(res, h, "paths_images", f"path_{p:03d}")
+            for f in sorted(os.listdir(d)):
+                tree["frames"][h, p, f] = np.asarray(Image.open(osp.join(d, f)),
+                                                     dtype=np.int16)
+    tree["files"] = set()
+    for dirpath, _, filenames in os.walk(osp.join(root, "experiments")):
+        tree["files"] |= {osp.relpath(osp.join(dirpath, f), root) for f in filenames}
+    return tree
+
+
+def md_rel(got: list, want: list) -> float:
+    """|got - want| / |want|, in norm over a list of tensors."""
+    num = sum(float((a - b).double().pow(2).sum()) for a, b in zip(got, want))
+    return math.sqrt(num / sum(float(b.double().pow(2).sum()) for b in want))
+
+
+def phase_multi_device(card: str, cfg: dict = MD) -> dict:
+    """The multi-device path (``--multi-device``), in two parts on the one card.
+
+    (a) Two ranks share the card over gloo (NCCL refuses two ranks on one
+    card): ``sample_gan`` (rank 0 samples, rank 1 waits), ``train
+    --multi-device`` (f32, TF32 off; 16 of the 32 rows a rank; the attention
+    opened) and ``traverse_latent_space --multi-device`` (one code a rank,
+    bf16 frames). Then in this process: the same pipeline ("single"); its
+    training again with PyTorch's native convolutions, traversed as the
+    others ("control"); one process's traversal of the two ranks' own sets
+    and pool ("retraverse"); and the first step in float64 and in float32
+    from the single run's first state and batch (:func:`md_first_step`).
+    One tree: the two ranks' files are the one process's. The first step:
+    its metrics within rtol 1e-4 / atol 1e-5 (the JAX package's gates); its
+    S and R gradients, the two ranks' no farther from the float64 step than
+    ``MD_F64_RATIO`` times one process's (float32 computes them to about
+    1 %); the witness's float32 step is the CLI's within 1e-4. Later log
+    windows, codes and frames against the single tree: within ``MD_SPREAD``
+    times as far as the control lies from it, and at least at the JAX
+    package's gates (1e-4 for codes, 2 grey levels). The traversal split
+    over the ranks: codes within 1e-4 and frames within 2 grey levels of
+    one process's traversal of the same sets. Each rank launches the
+    attention forward twice and its backward once an iteration, the
+    attention once a render batch and the warp once a step.
+
+    (b) One NCCL rank (world size 1), bf16 G and R as the script runs them,
+    ``--steps-per-call``: the all-reduces are captured in the CUDA graph and
+    replayed (Python calls ``all_reduce`` only in the eager warm-up and the
+    capture). Held to the same run without a process group in the same
+    process, with the deterministic algorithms: the same bits.
+
+    Returns each kernel's launches on the path, the workers' summed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    torch.cuda.empty_cache()                  # the workers share the card with this process
+    cwd = os.getcwd()
+    exp = osp.join("experiments", "complete", md_exp_name(cfg))
+    pool = osp.join("experiments", "latent_codes")
+    with tempfile.TemporaryDirectory(prefix="wgs_smoke_md_") as tmp:
+        roots = {d: osp.join(tmp, d) for d in ("multi", "single", "control", "retraverse",
+                                               "graphed")}
+        for d in roots.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        ranks = md_spawn("a", roots["multi"], 2, cfg)
+        t_a = time.perf_counter() - t0
+        # One process's traversal of the two ranks' tree: their sets and pool.
+        for sub in (osp.join(exp, "args.json"), osp.join(exp, "models"), pool):
+            copy_fn = shutil.copytree if osp.isdir(osp.join(roots["multi"], sub)) else shutil.copy
+            os.makedirs(osp.dirname(osp.join(roots["retraverse"], sub)), exist_ok=True)
+            copy_fn(osp.join(roots["multi"], sub), osp.join(roots["retraverse"], sub))
+        os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+        runs = {}
+        for name, stages in (("single", ("sample", "train", "traverse")),
+                             ("control", ("train", "traverse")), ("retraverse", ("traverse",))):
+            if name == "control":                # the single run's pool
+                shutil.copytree(osp.join(roots["single"], pool), osp.join(roots["control"], pool))
+            os.chdir(roots[name])
+            try:
+                runs[name] = md_pipeline(cfg, False, stages, native_conv=name == "control",
+                                         snapshot=name == "single")
+            finally:
+                os.chdir(cwd)
+        single = runs["single"]
+        one_ms, _ = md_step_timing(single["state"])
+        # The witness: the first step again from its state and batch, in f32
+        # through cuDNN and through the native convolutions, and in float64.
+        t_w = time.perf_counter()
+        G, step_cfg = single["state"].G, single["state"].cfg
+        witness = {name: md_first_step(G, single["first"], step_cfg, dtype, native)
+                   for name, dtype, native in (("f32", torch.float32, False),
+                                               ("native", torch.float32, True),
+                                               ("f64", torch.float64, False))}
+        t_w = time.perf_counter() - t_w
+        for run in runs.values():
+            run.pop("state", None)
+            run.pop("first", None)
+        del G
+        grads_dp = torch.load(osp.join(roots["multi"], "first_step_grads.pt"))
+        t_single = time.perf_counter() - t0 - t_a
+        trees = {name: md_tree(roots[name], cfg) for name in ("multi", "single", "control",
+                                                               "retraverse")}
+        t1 = time.perf_counter()
+        (b,) = md_spawn("b", roots["graphed"], 1, cfg)
+        t_b = time.perf_counter() - t1
+
+    # (a) The first step, from one state on both sides, against float64.
+    exact = witness["f64"][0]
+    f64_err = {part: {"ranks": md_rel([g.to(exact[part][0].device) for g in grads_dp[part]],
+                                      exact[part]),
+                      "single": md_rel([g.to(exact[part][0].device)
+                                        for g in single["grads"][part]], exact[part]),
+                      "f32": md_rel(witness["f32"][0][part], exact[part]),
+                      "native": md_rel(witness["native"][0][part], exact[part])}
+               for part in ("S", "R")}
+    replica = {part: md_rel(witness["f32"][0][part], [g.to(exact[part][0].device).double()
+                                                      for g in single["grads"][part]])
+               for part in ("S", "R")}
+    seen32, seen64 = witness["f32"][1], witness["f64"][1]
+    names = seen64.pop("names")
+    for w in witness.values():
+        w[1].pop("names", None)
+    # Where one process's f32 step departs from float64, parameter by parameter.
+    param_err = sorted(((md_rel([a], [b]), n) for n, a, b in zip(
+        names, witness["f32"][0]["S"] + witness["f32"][0]["R"], exact["S"] + exact["R"])),
+        reverse=True)
+    layer_err = {name: md_rel([seen32[name].double()], [seen64[name]]) for name in seen64}
+    bn_err = max(v for name, v in layer_err.items() if name != "logits")
+    seen_native = witness["native"][1]
+    bn_err_native = max(md_rel([seen_native[name].double()], [seen64[name]])
+                        for name in seen64 if name != "logits")
+    grad_err = {part: md_rel(grads_dp[part], single["grads"][part]) for part in ("S", "R")}
+    for part in ("S", "R"):
+        e = f64_err[part]
+        check(replica[part] <= 1e-4,
+              f"the witness's f32 first step is {replica[part]:.3g} of {part}'s norm from the "
+              "CLI's: it no longer computes the CLI's loss")
+        check(e["ranks"] <= MD_F64_RATIO * e["single"],
+              f"the first step's {part} gradient: two ranks {e['ranks']:.3g} of its norm from "
+              f"float64, one process {e['single']:.3g} (gate {MD_F64_RATIO}x)")
+    # One tree, the one process's, and its statistics.
+    one, ctl, multi = trees["single"], trees["control"], trees["multi"]
+    check(multi["files"] == one["files"],
+          f"the two ranks' tree differs in its files: {sorted(multi['files'] ^ one['files'])}")
+    s1, s2, s3 = one["stats"], multi["stats"], ctl["stats"]
+    check(set(s1) == set(s2) == set(s3) == {str(i) for i in range(1, cfg["iters"] + 1)},
+          f"stats.json windows {sorted(s1)}, {sorted(s2)}, {sorted(s3)}")
+    stat_err, stat_spread = ({it: max(abs(s[it][k] - v) for k, v in row.items())
+                              for it, row in s1.items()} for s in (s2, s3))
+    for it, row in s1.items():
+        for k, v in row.items():
+            gate = 1e-5 + 1e-4 * abs(v)
+            if it != "1":
+                gate = max(gate, MD_SPREAD * abs(s3[it][k] - v))
+            check(abs(s2[it][k] - v) <= gate,
+                  f"stats.json[{it}][{k}]: two ranks {s2[it][k]!r}, one process {v!r}, "
+                  f"control {s3[it][k]!r}")
+    # Codes and frames of the two ranks' tree against the single tree, and
+    # the traversal split over the ranks against one process on the same sets.
+    c1, c2, c3, c4 = (trees[n]["codes"] for n in ("single", "multi", "control", "retraverse"))
+    f1, f2, f3, f4 = (trees[n]["frames"] for n in ("single", "multi", "control", "retraverse"))
+    check(len(c1) == cfg["codes"] and set(c1) == set(c2) == set(c3) == set(c4)
+          and f1.keys() == f2.keys() == f3.keys() == f4.keys(),
+          "the traversals' codes or frames")
+
+    def code_diff(a, b):
+        return max(float(np.abs(a[h] - b[h]).max()) for h in b)
+
+    def frame_diff(a, b):
+        return max(int(np.abs(a[key] - b[key]).max()) for key in b)
+
+    code_err, code_spread, code_split = code_diff(c2, c1), code_diff(c3, c1), code_diff(c2, c4)
+    frame_err, frame_spread, frame_split = (frame_diff(f2, f1), frame_diff(f3, f1),
+                                            frame_diff(f2, f4))
+    check(code_err <= max(1e-4, MD_SPREAD * code_spread),
+          f"codes of two ranks vs one process max abs {code_err:.3g} (control {code_spread:.3g})")
+    check(frame_err <= max(2, MD_SPREAD * frame_spread),
+          f"frames of two ranks vs one process differ by {frame_err} grey levels (control "
+          f"{frame_spread})")
+    check(all(bool(np.all(np.abs(c2[h] - c4[h]) <= 1e-4 + 1e-4 * np.abs(c4[h]))) for h in c4),
+          f"codes of two ranks vs one process on the same sets max abs {code_split:.3g}")
+    check(frame_split <= 2, f"frames of two ranks vs one process on the same sets differ by "
+                            f"{frame_split} grey levels")
+    iters, n_frames = cfg["iters"], cfg["k"] * (2 * cfg["steps"] + 1)
+    renders = math.ceil(n_frames / cfg["render_batch"])
+    for rep in ranks:
+        want = {"rbf_warp": cfg["steps"], "sa_attention": 2 * iters + renders
+                + (cfg["codes"] if rep["rank"] == 0 else 0), "sa_attention_bwd": iters,
+                "proggan_tail": 0, "sg2_tail": 0}
+        check(rep["launches"] == want, f"rank {rep['rank']} of 2 launched {rep['launches']}, "
+                                       f"not {want}")
+    wants = {"single": (cfg["steps"], 2 * iters + cfg["codes"] * (renders + 1), iters),
+             "control": (cfg["steps"], 2 * iters + cfg["codes"] * renders, iters),
+             "retraverse": (cfg["steps"], cfg["codes"] * renders, 0)}
+    for name, (warp, fwd, bwd) in wants.items():
+        want = {"rbf_warp": warp, "sa_attention": fwd, "sa_attention_bwd": bwd,
+                "proggan_tail": 0, "sg2_tail": 0}
+        check(runs[name]["launches"] == want, f"the one-process run ({name}) launched "
+                                              f"{runs[name]['launches']}, not {want}")
+
+    # (b): the graphed one-rank NCCL run is the run without a group, bit for bit.
+    k = cfg["chunk"]
+    want_b = {"rbf_warp": 0, "sa_attention": 2 * 2 * k, "sa_attention_bwd": 2 * k,
+              "proggan_tail": 0, "sg2_tail": 0}
+    for run in ("plain", "dp"):
+        check(b[run]["launches"] == want_b, f"part (b), {run}: {cfg['graph_iters']} graphed "
+              f"iterations launched {b[run]['launches']}, not {want_b} (the eager warm-up "
+              "and the capture; replays are not counted)")
+    check(b["backend"] == "nccl", f"part (b) ran on {b['backend']}, not NCCL")
+    # ResNet-18 has 20 BatchNorms: each all-reduces its moments forward and
+    # backward; then the flat gradient and the metric row. Replays call nothing.
+    per_step = 2 * 20 + 2
+    check(b["all_reduce_calls"] == 2 * k * per_step,
+          f"part (b) called all_reduce {b['all_reduce_calls']} times, not "
+          f"{2 * k * per_step} (the warm-up's and the capture's {2 * k} steps)")
+    check(all(math.isfinite(v) for row in b["stats"].values() for v in row.values()),
+          "part (b): non-finite statistics")
+    check(b["stats_equal"] and b["tensors_equal"],
+          f"part (b): the graphed one-rank NCCL run is not the run without a group, bit for "
+          f"bit (stats max abs difference {b['max_stat_diff']:.3g}; S and R equal: "
+          f"{b['tensors_equal']})")
+
+    a_ms = [rep["step_ms"] for rep in ranks]
+    secs = [rep["seconds"] for rep in ranks]
+    print(f"[multi_device] (a) 2 gloo ranks on one card, BigGAN-128 class 239, K={cfg['k']} "
+          f"D={cfg['dipoles']} ResNet R, f32 (TF32 off), global batch {cfg['batch']} "
+          f"({cfg['batch'] // 2} a rank), {iters} iterations, then one code a rank traversed "
+          f"({n_frames} frames of bf16 render batches of {cfg['render_batch']}) on {card}: "
+          f"{t_a:.2f} s wall for both ranks (start-up and generator builds included; rank 0's "
+          + ", ".join(f"{st} {sec:.2f} s" for st, sec in secs[0].items())
+          + f"); eager steps {a_ms[0]:.1f} / {a_ms[1]:.1f} ms on ranks 0 / 1 against "
+          f"{one_ms:.1f} ms in one process on the whole batch ({t_single:.2f} s for the "
+          f"one-process runs, {t_w:.2f} s of them the witness); the gloo all-reduces (host "
+          f"copies) {100 * ranks[0]['all_reduce_share']:.1f} / "
+          f"{100 * ranks[1]['all_reduce_share']:.1f} % of an eager step; launches by rank "
+          f"{[rep['launches'] for rep in ranks]}")
+    print("[multi_device] (a) the first step against float64 on " + card + ", of S's / R's "
+          "gradient norm: two ranks " + " / ".join(f"{f64_err[p]['ranks']:.3g}" for p in "SR")
+          + ", one process " + " / ".join(f"{f64_err[p]['single']:.3g}" for p in "SR")
+          + ", its first state and batch again through the witness's f32 code "
+          + " / ".join(f"{f64_err[p]['f32']:.3g}" for p in "SR") + " (the CLI's within "
+          + " / ".join(f"{replica[p]:.3g}" for p in "SR") + ") and through PyTorch's native "
+          "convolutions " + " / ".join(f"{f64_err[p]['native']:.3g}" for p in "SR")
+          + "; two ranks from one process " + " / ".join(f"{grad_err[p]:.3g}" for p in "SR")
+          + f"; R's {len(layer_err) - 1} BatchNorm inputs within {bn_err:.3g} (native "
+          f"convolutions: {bn_err_native:.3g}) and its logits within "
+          f"{layer_err['logits']:.3g} of float64 (relative in norm; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in layer_err.items() if k != "logits")
+          + "); one process's worst parameters against float64: "
+          + ", ".join(f"{n} {e:.3g}" for e, n in param_err[:6]))
+    print(f"[multi_device] (a) the tree of two ranks against one process's (the control, "
+          f"trained with the native convolutions, against it): stats max abs difference by "
+          f"log window " + ", ".join(f"{it}: {stat_err[it]:.3g} ({stat_spread[it]:.3g})"
+                                      for it in s1)
+          + f"; codes {code_err:.3g} ({code_spread:.3g}); frames {frame_err} ({frame_spread}) "
+          f"grey levels; against one process's traversal of the same sets: codes "
+          f"{code_split:.3g}, frames {frame_split} grey levels")
+    tr = b["traced"]
+    print(f"[multi_device] (b) 1 NCCL rank, bf16 G and R, --steps-per-call {k}, "
+          f"{cfg['graph_iters']} iterations, deterministic algorithms, on {card}: "
+          f"{t_b:.2f} s wall for both runs; {b['dp']['step_ms']:.2f} ms per step graphed with "
+          f"the group against {b['plain']['step_ms']:.2f} ms without (log windows of "
+          f"replays); {b['all_reduce_calls']} all_reduce calls for {cfg['graph_iters']} "
+          f"iterations; the same bits as the run without a group; an eager data-parallel step "
+          f"traced on host and device: {tr['ms']:.2f} ms, device busy {100 * tr['busy']:.1f} %, "
+          f"NCCL kernels {tr['tag_ms']:.3f} ms ({100 * tr['tag_share']:.2f} % of "
+          f"{tr['kernel_ms']:.2f} ms of kernels) in {tr['tag_launches']:.0f} launches")
+    total = dict.fromkeys(ranks[0]["launches"], 0)
+    for launches in ([rep["launches"] for rep in ranks] + [run["launches"] for run in runs.values()]
+                     + [b["plain"]["launches"], b["dp"]["launches"]]):
+        for name, n in launches.items():
+            total[name] += n
+    return total
+
+
 def cuda_spans(events) -> list:
     """(start, end) on the tracer's clock (us) of the device events among a
     profile's ``events()``."""
@@ -2374,7 +3032,8 @@ def direct_train_state(cfg: dict):
     from warpedganspace_torch.train.train_step import TrainStepConfig, init_train_state
 
     a = train.build_parser().parse_args(cfg["argv"])
-    G = build_gan(a.gan_type, stylegan2_resolution=a.stylegan2_resolution,
+    G = build_gan(a.gan_type, target_classes=a.biggan_target_classes,
+                  stylegan2_resolution=a.stylegan2_resolution,
                   shift_in_w_space=a.shift_in_w_space, allow_random_init=True, device="cuda")
     gen = torch.Generator().manual_seed(a.seed)
     S = SupportSets(a.num_support_sets, a.num_support_dipoles, G.dim_z, learn_gammas=a.learn_gammas,
@@ -2980,25 +3639,149 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
         del state, G, S, R
 
 
+# ``--profile dp``: the experiment of scripts/train/biggan.sh at full width
+# (bf16 G and R, global batch 32), data parallel over the cards of one host.
+DP = dict(iters=40, log_freq=10, batch=32, traced_steps=5)
+
+
+def dp_worker(run_dir: str, steps_per_call: int) -> None:
+    """One rank of one ``--profile dp`` run, started by torch's launcher: the
+    training CLI with ``--multi-device``, then traced eager steps of the
+    trained state (every rank traces, so that all take the same steps);
+    rank 0 writes ``result.json``."""
+    import contextlib
+    import io
+
+    from warpedganspace_torch.cli import train
+    from warpedganspace_torch.models import gan_load
+    from warpedganspace_torch.parallel import mesh
+    from warpedganspace_torch.train import trainer as trainer_module
+    from warpedganspace_torch.train.train_step import train_step
+
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+    os.chdir(run_dir)
+    train.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
+    states = []
+    real_train = trainer_module.Trainer.train
+
+    def keep_state(self, *args, **kwargs):
+        states.append(real_train(self, *args, **kwargs))
+        return states[-1]
+
+    trainer_module.Trainer.train = keep_state
+    cfg = dict(MD, batch=DP["batch"], log_freq=DP["log_freq"], ckp_freq=1000)
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = train.main(train_argv(cfg, DP["iters"])
+                             + ["--multi-device", "--steps-per-call", str(steps_per_call)])
+    # The log windows after the first (one step a call) or the first two
+    # (graphed: the eager warm-up, the capture), without a checkpoint.
+    windows = [w for w in trainer.window_times[1 if steps_per_call == 1 else 2:] if not w[2]]
+    state = states[-1]
+    it = iter(range(10 ** 6, 2 * 10 ** 6))
+    traced = trace_calls(lambda: train_step(state, next(it)), DP["traced_steps"], tag="nccl")
+    if mesh.is_coordinator():
+        with open(osp.join("experiments", "wip", md_exp_name(cfg), "stats.json")) as f:
+            stats = json.load(f)
+        result = {"step_ms": 1e3 * sum(w[1] for w in windows) / sum(w[0] for w in windows),
+                  "steps_timed": sum(w[0] for w in windows), "stats": stats,
+                  "traced": {k: traced[k] for k in ("ms", "busy", "kernel_ms", "tag_ms",
+                                                     "tag_share", "tag_launches")}}
+        with open(osp.join(run_dir, "result.json"), "w") as f:
+            json.dump(result, f)
+    mesh.sync_processes("profile-dp-done")
+
+
+def dp_launch(cards: int, steps_per_call: int, run_dir: str) -> dict:
+    """One ``--profile dp`` run: ``cards`` processes under torch's launcher
+    (``python -m torch.distributed.run``, NCCL), each this script as a
+    worker."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(cards),
+           "--master-addr", "127.0.0.1", "--master-port", str(md_free_port()),
+           osp.abspath(__file__), "--dp-run-dir", run_dir, "--dp-steps-per-call",
+           str(steps_per_call)]
+    root = osp.dirname(osp.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    # A session of its own, so that a run cut by the timeout takes its ranks along.
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=1200)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"--profile dp, {cards} card(s), --steps-per-call "
+                                f"{steps_per_call}: exit {proc.returncode}\n{stdout[-4000:]}\n"
+                                f"{stderr[-8000:]}")
+    with open(osp.join(run_dir, "result.json")) as f:
+        return json.load(f)
+
+
+def profile_dp(card: str, cards: int) -> None:
+    """Data-parallel training on 1 card and on ``cards``, one step a call and
+    ``--steps-per-call 10`` (a CUDA graph of ten steps, its collectives
+    captured): ms per step over the log windows, steps/s, images/s and the
+    speed against one card; an eager step traced on rank 0 for the NCCL
+    kernels' share of the kernel time and the device's busy share; the
+    statistics of ``cards`` cards against one."""
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="wgs_dp_") as tmp:
+        for k in (1, 10):
+            for n in sorted({1, cards}):
+                run_dir = osp.join(tmp, f"cards{n}_k{k}")
+                os.makedirs(run_dir)
+                results[n, k] = res = dp_launch(n, k, run_dir)
+                base, tr, batch = results[1, k]["step_ms"], res["traced"], DP["batch"]
+                print(f"[dp] {n} card(s), global batch {batch} ({batch // n} a card), "
+                      f"--steps-per-call {k}: {res['step_ms']:.2f} ms per step over "
+                      f"{res['steps_timed']} steps = {1e3 / res['step_ms']:.2f} steps/s = "
+                      f"{batch * 1e3 / res['step_ms']:.1f} images/s ({base / res['step_ms']:.2f}x "
+                      f"one card); an eager step traced on rank 0: {tr['ms']:.2f} ms, device "
+                      f"busy {100 * tr['busy']:.1f} %, {tr['kernel_ms']:.2f} ms of kernels, "
+                      f"NCCL {tr['tag_ms']:.3f} ms ({100 * tr['tag_share']:.2f} %) in "
+                      f"{tr['tag_launches']:.0f} launches; on {card}", flush=True)
+    for k in (1, 10):
+        one, many = results[1, k]["stats"], results[cards, k]["stats"]
+        print(f"[dp] --steps-per-call {k}: stats of {cards} cards against one, max abs "
+              "difference by log window " + ", ".join(
+                  f"{it}: {max(abs(many[it][m] - v) for m, v in row.items()):.3g}"
+                  for it, row in one.items()))
+
+
 def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
-    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan", "attribute"),
-                        help="instead of the smoke test, say where that main path's time goes")
+    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan", "attribute", "dp"),
+                        help="instead of the smoke test, say where that main path's time goes "
+                             "(dp: data-parallel training on 1 card and on --cards)")
     parser.add_argument("--steps", type=int, default=None,
                         help="with --profile of a traversal: steps each way (default: the "
                              "smoke test's)")
+    parser.add_argument("--cards", type=int, default=None,
+                        help="with --profile dp: the cards of the data-parallel run "
+                             "(default: every card of the host)")
+    parser.add_argument("--dp-run-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-steps-per-call", type=int, default=1, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.dp_run_dir:                       # a rank of --profile dp, under torch's launcher
+        dp_worker(args.dp_run_dir, args.dp_steps_per_call)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     if args.profile:
         card = card_line()
         print(card)
-        if args.profile == "train_biggan":
+        if args.profile == "dp":
+            print(f"{torch.cuda.device_count()} x {card}; torch {torch.__version__}")
+            profile_dp(card, args.cards or torch.cuda.device_count())
+        elif args.profile == "train_biggan":
             profile_train(card, TRAIN)
         elif args.profile == "attribute":
             phase_attribute_stage(card, profile_rows=24, warm_runs=3)
@@ -3055,6 +3838,7 @@ def main(argv=None) -> int:
     paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
     for path, cfg in TRAIN_PATHS.items():
         paths[path] = timed(path, phase_train_path, path, cfg)
+    paths["multi_device"] = timed("multi_device", phase_multi_device)
     paths["discriminators"], attn_d = timed("discriminators", phase_discriminators)
 
     def row(kname, source, replaces, k):

@@ -189,14 +189,24 @@ def test_port_cli_matches_jax_cli(gan_type, weights, tmp_path, monkeypatch):
                                    rtol=RTOL, atol=ATOL, err_msg=key)
 
 
-@pytest.mark.parametrize("argv, error", [
-    (["--multi-device"], SystemExit),
-    (["--shard-index", "2", "--num-shards", "2"], ValueError),
-    (["--num-shards", "0"], ValueError),
+@pytest.mark.parametrize("argv, grouped, error", [
+    (["--multi-device", "--num-shards", "2"], True, SystemExit),
+    ([], True, SystemExit),
+    (["--shard-index", "2", "--num-shards", "2"], False, ValueError),
+    (["--num-shards", "0"], False, ValueError),
 ])
-def test_refused_before_anything_is_read_or_written(argv, error, tmp_path, monkeypatch):
+def test_refused_before_anything_is_read_or_written(argv, grouped, error, tmp_path,
+                                                     monkeypatch):
+    """Invalid splits and launches. A ``grouped`` case runs as rank 0 of a
+    group of two, where the ranks split the hashes: manual shards would split
+    them twice, and without ``--multi-device`` each rank would evaluate all."""
     exp, h_dir = make_tree(str(tmp_path), "StyleGAN2")
     before = sorted(os.walk(exp))
+    if grouped:
+        from warpedganspace_torch.parallel import mesh
+
+        monkeypatch.setattr(mesh, "world_size", lambda: 2)
+        monkeypatch.setattr(mesh, "rank", lambda: 0)
 
     def refuse(device):
         raise AssertionError("predictors loaded")

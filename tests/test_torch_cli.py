@@ -561,15 +561,21 @@ def test_train_cli_rules(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--checkpoint-backend", "orbax"], ["--multi-device"]])
 def test_train_cli_rejects_jax_only_flags_before_writing(flag, tmp_path, monkeypatch, capsys):
-    """The JAX package's orbax checkpoints and data parallelism are refused
+    """The JAX package's orbax checkpoints, and its data parallelism over the
+    cards of one process (here one process that sees two cards), are refused
     before the experiment directory exists, so the failed launch leaves no
-    tree behind."""
+    tree behind; the refusal names the port's route, one process per card."""
     from warpedganspace_torch.cli import train as t_train
 
     monkeypatch.chdir(tmp_path)
+    extra = ["--no-cuda"]
+    if "--multi-device" in flag:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        extra = []
     with pytest.raises(SystemExit):
-        t_train.main(TRAIN_FLAGS + flag + ["--no-cuda"])
-    assert ("orbax" if "orbax" in flag else "Queue 1 item 7") in capsys.readouterr().err
+        t_train.main(TRAIN_FLAGS + flag + extra)
+    assert ("orbax" if "orbax" in flag else "torchrun") in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
 
 

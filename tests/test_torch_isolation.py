@@ -20,6 +20,7 @@ def test_port_imports_no_jax():
         "import warpedganspace_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
+        "assert 'warpedganspace_torch.parallel.mesh' in names, names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         f"foreign = {_FOREIGN!r}\n"

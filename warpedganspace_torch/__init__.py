@@ -20,6 +20,8 @@ reference it is tested against. Module names mirror the JAX package:
 - :mod:`warpedganspace_torch.train`    — the contrastive training step (and a CUDA
   graph of k steps) and the trainer;
 - :mod:`warpedganspace_torch.traverse` — path integration, rendering, JPEG/GIF output;
+- :mod:`warpedganspace_torch.parallel` — ranks, barriers and split work lists
+  over ``torch.distributed``, one process per card (``--multi-device``);
 - :mod:`warpedganspace_torch.cli`      — ``sample_gan``, ``train``,
   ``checkpoint2model`` and ``traverse_latent_space``.
 

@@ -4,7 +4,10 @@ Samples N latent codes, renders their images, and stores each pair under
 experiments/latent_codes/<gan_type>(<classes>)/<pool>/<sha1(z)>/
 {latent_code.pt, image.jpg}: the pool the traversal stage reads. The tree and
 the files are those of :mod:`warpedganspace_tpu.cli.sample_gan`, so pools are
-interchangeable between the two packages and the reference.
+interchangeable between the two packages and the reference. Under a process
+group (``torchrun``) only the coordinator samples; the other ranks wait at a
+barrier that every path of the coordinator reaches, so the pool is complete
+when any rank goes on.
 
     python -m warpedganspace_torch.cli.sample_gan -g StyleGAN2 --num-samples 4 --pool demo
 """
@@ -21,6 +24,7 @@ import torch
 from warpedganspace_torch.config import GAN_RESOLUTIONS, GAN_WEIGHTS
 from warpedganspace_torch.core.sampling import sample_z
 from warpedganspace_torch.models.gan_load import build_gan
+from warpedganspace_torch.parallel import mesh
 from warpedganspace_torch.traverse.images import tensor2image
 from warpedganspace_torch.utils.aux import update_progress, update_stdout
 from warpedganspace_torch.utils.io import save_pt
@@ -53,20 +57,37 @@ def build_parser():
 
 
 def select_device(use_cuda: bool) -> torch.device:
-    """``--cuda`` means the CUDA device and fails without one; ``--no-cuda`` the CPU."""
+    """``--cuda`` means the CUDA device and fails without one; ``--no-cuda`` the
+    CPU. Under a process group the CUDA device is the rank's own card."""
     if not use_cuda:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--cuda was given (the default) but no CUDA device is "
                            "available; pass --no-cuda to run on the CPU")
+    if mesh.active():
+        return mesh.local_device()
     return torch.device("cuda")
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
+    # Checks that fail on every rank alike come before the coordinator's
+    # gate, so that no rank waits at the barrier for one that has left.
     if args.gan_type == "BigGAN" and args.biggan_target_classes is None:
         parser.error("In case of BigGAN, a list of classes needs to be determined.")
+    mesh.initialize_distributed(backend=None if args.cuda else "gloo")
+    if not mesh.is_coordinator():
+        mesh.sync_processes("sample-gan-done")
+        return
+    try:
+        _sample_pool(args)
+    finally:
+        mesh.sync_processes("sample-gan-done")
+
+
+def _sample_pool(args):
+    """The coordinator's sampling (reference sample_gan.py:32-184)."""
     device = select_device(args.cuda)
 
     out_dir = osp.join("experiments", "latent_codes", args.gan_type)

@@ -19,11 +19,22 @@ so the commands of ``scripts/train/*.sh`` run as they are:
   (StyleGAN2 and ProgGAN; see their modules).
 - ``--profile``: a ``torch.profiler`` trace of the loop under ``<wip>/profile``.
 - ``--pair-layout``: accepted; the port has one layout, NCHW.
-- ``--checkpoint-backend orbax`` and ``--multi-device`` are the JAX package's
-  and are refused before anything is written.
+- ``--multi-device``: data parallel over the processes of a group, one
+  process per card, as ``torchrun`` launches them: each rank takes its slice
+  of the global ``--batch-size``, only the S and R gradients and R's
+  BatchNorm moments are reduced, and rank 0 writes the one tree
+  (:mod:`warpedganspace_torch.parallel.mesh`). Without a group it is the
+  single-card run. Refused before anything is written: several processes
+  without it, a batch the ranks do not split evenly, and one process that
+  sees several cards (the JAX package's in-process mesh; here each card is a
+  process of its own).
+- ``--checkpoint-backend orbax`` is the JAX package's and is refused before
+  anything is written.
 
 ``--cuda`` (the default) trains on the CUDA device and fails without one;
-``--no-cuda`` trains on the CPU.
+``--no-cuda`` trains on the CPU (a group on gloo).
+
+    torchrun --nproc-per-node 4 -m warpedganspace_torch.cli.train --multi-device ...
 
     python -m warpedganspace_torch.cli.train --gan-type BigGAN \\
         --biggan-target-classes 239 -K 120 -D 256 --learn-gammas \\
@@ -41,6 +52,7 @@ from warpedganspace_torch.config import GAN_RESOLUTIONS, GAN_WEIGHTS, RECONSTRUC
 from warpedganspace_torch.models.gan_load import build_gan
 from warpedganspace_torch.models.reconstructor import Reconstructor
 from warpedganspace_torch.models.support_sets import SupportSets
+from warpedganspace_torch.parallel import mesh
 from warpedganspace_torch.train.trainer import Trainer
 from warpedganspace_torch.utils.aux import create_exp_dir
 
@@ -131,7 +143,8 @@ def build_parser():
     parser.add_argument("--no-cuda", dest="cuda", action="store_false",
                         help="train on the CPU")
     parser.add_argument("--multi-device", action="store_true",
-                        help="the JAX package's data parallelism; not ported, refused")
+                        help="data parallel over the ranks of a process group, one card "
+                             "each (launch with torchrun --nproc-per-node N)")
     parser.set_defaults(cuda=True)
     return parser
 
@@ -139,6 +152,10 @@ def build_parser():
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
+    # A group from torchrun's environment (none without it); every check
+    # below runs on every rank before anything is written.
+    mesh.initialize_distributed(backend=None if args.cuda else "gloo")
+    world = mesh.world_size()
 
     # Check what every run needs BEFORE the experiment directory exists, so a
     # wrong launch leaves no 'None-...-KNone-DNone' tree behind.
@@ -151,8 +168,13 @@ def main(argv=None):
         parser.error("In case of BigGAN, a list of classes needs to be determined.")
     if args.checkpoint_backend == "orbax":
         parser.error("--checkpoint-backend orbax is the JAX package's; the port writes 'pt'")
-    if args.multi_device:
-        parser.error("--multi-device is not ported yet (ROADMAP.md, Queue 1 item 7)")
+    error = mesh.launch_error(args.multi_device, args.cuda)
+    if error:
+        parser.error(error)
+    data_parallel = args.multi_device and mesh.active()
+    if data_parallel and args.batch_size % world:
+        parser.error(f"--batch-size {args.batch_size} does not split evenly over "
+                     f"{world} ranks")
     if args.steps_per_call < 1:
         parser.error(f"--steps-per-call must be at least 1, got {args.steps_per_call}")
     for flag, freq in (("--ckp-freq", args.ckp_freq), ("--log-freq", args.log_freq)):
@@ -160,35 +182,37 @@ def main(argv=None):
             parser.error(f"--steps-per-call {args.steps_per_call} must divide {flag} ({freq})")
     device = select_device(args.cuda)
 
-    # Create output dir and save current arguments (the args.json contract).
-    exp_dir = create_exp_dir(args)
+    # Create output dir and save current arguments (the args.json contract);
+    # under a group the coordinator writes them.
+    exp_dir = create_exp_dir(args, write=mesh.is_coordinator())
+    say = print if mesh.is_coordinator() else (lambda *a, **kw: None)
 
-    print("#. Build GAN generator model G and load with pre-trained weights...")
-    print("  \\__GAN type: {}".format(args.gan_type))
+    say("#. Build GAN generator model G and load with pre-trained weights...")
+    say("  \\__GAN type: {}".format(args.gan_type))
     if args.gan_type == "StyleGAN2":
-        print("  \\__Search for paths in {}-space".format("W" if args.shift_in_w_space else "Z"))
+        say("  \\__Search for paths in {}-space".format("W" if args.shift_in_w_space else "Z"))
     if args.z_truncation:
-        print("  \\__Input noise truncation: {}".format(args.z_truncation))
-    print("  \\__Pre-trained weights: {}".format(
+        say("  \\__Input noise truncation: {}".format(args.z_truncation))
+    say("  \\__Pre-trained weights: {}".format(
         GAN_WEIGHTS[args.gan_type]["weights"][args.stylegan2_resolution]
         if args.gan_type == "StyleGAN2"
         else GAN_WEIGHTS[args.gan_type]["weights"][GAN_RESOLUTIONS[args.gan_type]]))
     if args.pair_layout != "auto":
-        print("  \\__Pair layout: NCHW, the port's one layout (--pair-layout {} has no "
+        say("  \\__Pair layout: NCHW, the port's one layout (--pair-layout {} has no "
               "effect)".format(args.pair_layout))
     G = build_gan(gan_type=args.gan_type,
                   target_classes=args.biggan_target_classes,
                   stylegan2_resolution=args.stylegan2_resolution,
                   shift_in_w_space=args.shift_in_w_space, device=device, remat=args.remat)
 
-    print("#. Build Support Sets S...")
-    print("  \\__Number of Support Sets    : {}".format(args.num_support_sets))
-    print("  \\__Number of Support Dipoles : {}".format(args.num_support_dipoles))
-    print("  \\__Support Vectors dim       : {}".format(G.dim_z))
-    print("  \\__Learn RBF alphas          : {}".format(args.learn_alphas))
-    print("  \\__Learn RBF gammas          : {}".format(args.learn_gammas))
+    say("#. Build Support Sets S...")
+    say("  \\__Number of Support Sets    : {}".format(args.num_support_sets))
+    say("  \\__Number of Support Dipoles : {}".format(args.num_support_dipoles))
+    say("  \\__Support Vectors dim       : {}".format(G.dim_z))
+    say("  \\__Learn RBF alphas          : {}".format(args.learn_alphas))
+    say("  \\__Learn RBF gammas          : {}".format(args.learn_gammas))
     if not args.learn_gammas:
-        print("  \\__RBF gamma                 : {}".format(
+        say("  \\__RBF gamma                 : {}".format(
             1.0 / G.dim_z if args.gamma is None else args.gamma))
     # One seeded generator gives the initial S, then the initial R.
     init_gen = torch.Generator().manual_seed(args.seed)
@@ -200,14 +224,17 @@ def main(argv=None):
                     gamma=1.0 / G.dim_z if args.gamma is None else args.gamma,
                     generator=init_gen)
 
-    print("#. Build reconstructor model R...")
+    say("#. Build reconstructor model R...")
     R = Reconstructor(reconstructor_type=args.reconstructor_type,
                       dim=args.num_support_sets,
                       channels=1 if args.gan_type == "SNGAN_MNIST" else 3,
                       generator=init_gen)
 
-    print("#. Experiment: {}".format(exp_dir))
-    trn = Trainer(params=args, exp_dir=exp_dir, seed=args.seed)
+    if data_parallel:
+        say("#. Data parallel over {} ranks, {} images each".format(
+            world, args.batch_size // world))
+    say("#. Experiment: {}".format(exp_dir))
+    trn = Trainer(params=args, exp_dir=exp_dir, seed=args.seed, data_parallel=data_parallel)
     trn.train(generator=G, support_sets=S, reconstructor=R, profile=args.profile)
     return trn
 

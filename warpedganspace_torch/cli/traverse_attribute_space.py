@@ -22,8 +22,11 @@ frame) is the path's second upload.
 ``--cuda`` (the default) runs on the CUDA device, in float32 with TF32 off, and
 fails without one; ``--no-cuda`` runs on the CPU. ``--num-shards`` and
 ``--shard-index`` split the sorted hash list, ``hashes[i::n]``, between
-unconnected processes. ``--multi-device`` is the JAX package's and is refused
-before anything is read or written.
+unconnected processes; under a process group (``torchrun`` with
+``--multi-device``, which a group requires: one card per rank) the split is
+over the ranks, and a barrier at the end holds every rank until all hash dirs
+are written. The JAX package's split of one path's frames over the cards of
+one process has no counterpart: a rank evaluates its paths on its own card.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from warpedganspace_torch.evalzoo import load as zoo
 from warpedganspace_torch.evalzoo.crop_resize import crop_resize, plan_crop_resize
 from warpedganspace_torch.evalzoo.hopenet import Hopenet
 from warpedganspace_torch.evalzoo.transforms import crop_rect, normalize_imagenet, resize_center
+from warpedganspace_torch.parallel import mesh
 from warpedganspace_torch.utils.aux import update_progress, update_stdout
 from warpedganspace_torch.utils.data import PathImages
 from warpedganspace_torch.utils.io import load_pt
@@ -86,7 +90,9 @@ def build_parser():
     parser.add_argument("--shard-index", type=int, default=0,
                         help="this process's shard index in [0, num-shards)")
     parser.add_argument("--multi-device", action="store_true",
-                        help="the JAX package's data parallelism; not ported, refused")
+                        help="split the hash dirs over the ranks of a process group, one "
+                             "card each (launch with torchrun --nproc-per-node N); required "
+                             "under a group")
     parser.set_defaults(cuda=True)
     return parser
 
@@ -258,14 +264,21 @@ def evaluate_hash_dir(h_dir: str, predictors: dict, gan_type: str, device,
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.multi_device:
-        parser.error("--multi-device is not ported yet (ROADMAP.md, Queue 1 item 7)")
+    mesh.initialize_distributed(backend=None if args.cuda else "gloo")
     # An invalid split must fail, not evaluate everything.
     if args.num_shards < 1:
         raise ValueError(f"--num-shards must be >= 1 (got {args.num_shards})")
     if not 0 <= args.shard_index < args.num_shards:
         raise ValueError(f"--shard-index {args.shard_index} out of range for "
                          f"{args.num_shards} shards")
+    error = mesh.launch_error(args.multi_device, args.cuda)
+    if error:
+        parser.error(error)
+    if mesh.world_size() > 1:
+        if args.num_shards != 1:
+            parser.error("--num-shards is for unconnected processes; under a process "
+                         "group the hash dirs are split over the ranks")
+        args.num_shards, args.shard_index = mesh.world_size(), mesh.rank()
     device = select_device(args.cuda)
     if device.type == "cuda":
         # float32 as in the JAX package: cuDNN would otherwise take TF32.
@@ -303,12 +316,15 @@ def main(argv=None):
         hashes_dir = osp.join(latent_traversal_dir, l_config)
         hashes = sorted(d for d in os.listdir(hashes_dir)
                         if osp.isdir(osp.join(hashes_dir, d)) and d not in NOT_HASHES)
-        hashes = hashes[args.shard_index::args.num_shards]
+        hashes = mesh.partition_work(hashes, args.num_shards, args.shard_index)
         for cnt, h in enumerate(hashes, start=1):
             if args.verbose:
                 print("           \\__.hash: {} [{}/{}]".format(h, cnt, len(hashes)))
             evaluate_hash_dir(osp.join(hashes_dir, h), predictors, gan_type, device,
                               verbose=args.verbose)
+    # What a later stage reads (the ranking, on the coordinator) is whole
+    # once every rank is done.
+    mesh.sync_processes("attribute-eval-done")
     if args.verbose:
         update_stdout(1)
         print()

@@ -13,7 +13,17 @@ The path integration runs one warp call per step for all codes and paths
 (the CUDA kernel on a CUDA device, see traverse/engine.py); the frames are
 rendered in device batches and JPEG-encoded on a host thread pool.
 
+Several processes split the sorted latent codes, ``codes[i::n]``, and each
+writes the hash dirs of its own codes (no collective): under a process group
+(``torchrun`` with ``--multi-device``, which a group requires: one card per
+rank) the split is over the ranks, and after a barrier the coordinator alone
+collates the GIFs; with
+``--num-shards``/``--shard-index`` it is over unconnected processes, which
+cannot collate (``--gif`` is refused there).
+
     python -m warpedganspace_torch.cli.traverse_latent_space --exp <EXP_DIR> --pool <POOL>
+    torchrun --nproc-per-node 4 -m warpedganspace_torch.cli.traverse_latent_space \
+        --multi-device --exp <EXP_DIR> --pool <POOL> --gif
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from warpedganspace_torch.cli.sample_gan import select_device
 from warpedganspace_torch.models.api import cast_params_bf16
 from warpedganspace_torch.models.gan_load import build_gan
 from warpedganspace_torch.models.support_sets import SupportSets
+from warpedganspace_torch.parallel import mesh
 from warpedganspace_torch.traverse.engine import iter_rendered_u8, traverse_paths
 from warpedganspace_torch.traverse.gifs import collate_traversal_gifs
 from warpedganspace_torch.traverse.writer import AsyncImageWriter
@@ -63,6 +74,15 @@ def build_parser():
                         help="run on the CPU")
     parser.add_argument("--dtype", type=str, default="float32", choices=("float32", "bfloat16"),
                         help="generator render dtype (the warp integration always runs in float32)")
+    parser.add_argument("--multi-device", action="store_true",
+                        help="split the codes over the ranks of a process group, one card "
+                             "each (launch with torchrun --nproc-per-node N); required "
+                             "under a group")
+    parser.add_argument("--num-shards", type=int, default=1,
+                        help="unconnected processes splitting the latent codes (each "
+                             "traverses codes shard-index::num-shards)")
+    parser.add_argument("--shard-index", type=int, default=0,
+                        help="this process's shard index in [0, num-shards)")
     parser.add_argument("--warp-backend", type=str, default="auto",
                         choices=("auto", "cuda", "torch"),
                         help="RBF warp implementation for path integration: the CUDA kernel "
@@ -91,7 +111,28 @@ def _support_sets_file(models_dir: str) -> str:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    mesh.initialize_distributed(backend=None if args.cuda else "gloo")
+    # An invalid split must fail even when splitting is off, not traverse
+    # every code in every process.
+    if args.num_shards < 1:
+        raise ValueError(f"--num-shards must be >= 1 (got {args.num_shards})")
+    if not 0 <= args.shard_index < args.num_shards:
+        raise ValueError(f"--shard-index {args.shard_index} out of range for "
+                         f"{args.num_shards} shards")
+    error = mesh.launch_error(args.multi_device, args.cuda)
+    if error:
+        parser.error(error)
+    grouped = mesh.world_size() > 1
+    if grouped:
+        if args.num_shards != 1:
+            parser.error("--num-shards is for unconnected processes; under a process "
+                         "group the codes are split over the ranks")
+        args.num_shards, args.shard_index = mesh.world_size(), mesh.rank()
+    elif args.num_shards > 1 and args.gif:
+        raise ValueError("--gif needs every code's frames on disk: collate the GIFs in "
+                         "an unsplit pass after all shards have finished")
     device = select_device(args.cuda)
 
     if not osp.isdir(args.exp):
@@ -137,7 +178,6 @@ def main(argv=None):
                     learn_gammas=args_json.learn_gammas,
                     gamma=1.0 / G.dim_z if args_json.gamma is None else args_json.gamma)
     S.from_torch_state_dict(load_pt(support_sets_model)).to(device)
-    num_gen_paths = S.num_support_sets
 
     out_dir = osp.join(args.exp, "results", args.pool, "{}_{}_{}".format(
         2 * args.shift_steps, args.eps, round(2 * args.shift_steps * args.eps, 3)))
@@ -149,7 +189,28 @@ def main(argv=None):
         print("#. Use latent codes from pool {}...".format(args.pool))
     latent_codes_dirs = sorted(d for d in os.listdir(pool) if osp.isdir(osp.join(pool, d)))
     if not latent_codes_dirs:
+        # Empty everywhere: a failed sampling, not a split with nothing left.
         raise ValueError(f"latent-code pool {pool} contains no latent codes")
+    latent_codes_dirs = mesh.partition_work(latent_codes_dirs, args.num_shards,
+                                            args.shard_index)
+    if latent_codes_dirs:
+        _traverse_codes(args, G, S, pool, latent_codes_dirs, out_dir, shift_in_w_space,
+                        device)
+    elif not grouped:
+        print("#. Shard {}/{} has no latent codes; nothing to do.".format(
+            args.shard_index, args.num_shards))
+        return
+
+    # The tree is whole once every rank's writer is done; the GIFs read it all.
+    mesh.sync_processes("traversal-frames-done")
+    if args.gif and mesh.is_coordinator():
+        collate_traversal_gifs(out_dir, S.num_support_sets, gif_size=args.gif_size,
+                               gif_fps=args.gif_fps, verbose=args.verbose)
+
+
+def _traverse_codes(args, G, S, pool, latent_codes_dirs, out_dir, shift_in_w_space, device):
+    """Integrate the paths of these codes and write their hash dirs."""
+    num_gen_paths = S.num_support_sets
     zs = np.concatenate([np.asarray(load_pt(osp.join(pool, d, "latent_code.pt")))
                          for d in latent_codes_dirs]).astype(np.float32)
 
@@ -174,10 +235,6 @@ def main(argv=None):
     with AsyncImageWriter() as writer:
         _traverse_all(args, G_render, render_dtype, codes, shifts, codes_np, latent_codes_dirs,
                       num_gen_paths, out_dir, shift_in_w_space, writer)
-
-    if args.gif:
-        collate_traversal_gifs(out_dir, num_gen_paths, gif_size=args.gif_size,
-                               gif_fps=args.gif_fps, verbose=args.verbose)
 
 
 def _traverse_all(args, G, render_dtype, codes, shifts, codes_np, latent_codes_dirs,

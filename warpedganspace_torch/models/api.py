@@ -5,7 +5,9 @@ GAN behind one interface (models/gan_load.py): ``G(z, shift=None)`` returns
 an image, with ``G.dim_z`` and, for StyleGAN2, ``G.get_w(z)``. Here that is an
 ``nn.Module`` around the frozen network:
 
-- ``G(z, shift=None, latent_is_w=False)`` -> NCHW image in roughly tanh range;
+- ``G(z, shift=None, latent_is_w=False, y=None)`` -> NCHW image in roughly
+  tanh range; ``y`` (BigGAN's classes, one per row) is drawn from z when not
+  given;
 - ``G.get_w(z)`` -> the mapping network for StyleGAN2, identity otherwise;
 - ``dim_z``, ``resolution``, ``shift_in_w_space``.
 
@@ -30,8 +32,10 @@ class GeneratorBundle(nn.Module):
         self.resolution = resolution
         self.shift_in_w_space = shift_in_w_space
 
-    def forward(self, z, shift=None, latent_is_w: bool = False):
-        return self.net.apply(z, shift, latent_is_w=latent_is_w)
+    def forward(self, z, shift=None, latent_is_w: bool = False, y=None):
+        if y is None:
+            return self.net.apply(z, shift, latent_is_w=latent_is_w)
+        return self.net.apply(z, shift, y=y, latent_is_w=latent_is_w)
 
     def get_w(self, z):
         get_w = getattr(self.net, "get_w", None)

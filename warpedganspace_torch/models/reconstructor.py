@@ -21,6 +21,15 @@ masters, BatchNorm takes its moments, keeps its running statistics (momentum
 0.1, unbiased variance into the running value, eps 1e-5) and forms its affine
 in float32 and applies it as one ``x * A + B`` in x's type, and the global
 pool and both heads run in float32.
+
+Data-parallel training (``cli/train.py --multi-device``) sets ``sync_moments``
+on every BatchNorm (:func:`set_sync_moments`): in train mode the float32 mean
+and mean square of each rank's slice are averaged over the process group and
+the count is the global batch's, as the JAX package's
+``nn/core.py::batch_norm(axis_name=...)`` does with ``pmean``/``psum``. The
+average carries gradients (its backward sums the cotangents over the group),
+so the step equals the one-process step on the global batch up to the order
+of the sums. Eval mode and a module without the flag are unchanged.
 """
 from __future__ import annotations
 
@@ -30,6 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from warpedganspace_torch.parallel.mesh import all_reduce_sum
+from warpedganspace_torch.parallel.mesh import world_size as group_size
+
 _RESNET18_LAYERS = ((64, 1), (128, 2), (256, 2), (512, 2))  # (channels, first stride)
 
 
@@ -37,7 +49,8 @@ class BatchNorm(nn.Module):
     """BatchNorm over all axes but the channel axis 1, torch semantics, with
     the float32 statistics policy of the module docstring. Names follow
     ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var,
-    num_batches_tracked)."""
+    num_batches_tracked). With ``sync_moments`` set, train mode takes its
+    moments over the process group (see the module docstring)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -48,6 +61,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.sync_moments = False
 
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -55,9 +69,18 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
             xf = x.float()
-            mean = xf.mean(axes)
-            var = (xf * xf).mean(axes) - mean * mean        # biased, for the normalization
             n = x.numel() // x.shape[1]
+            if self.sync_moments:
+                # Equal slices on every rank: the mean of the ranks' moments
+                # is the global batch's, one all-reduce of both.
+                w = group_size()
+                mean, mean_sq = all_reduce_sum(torch.stack([xf.mean(axes),
+                                                            (xf * xf).mean(axes)])) / w
+                var = mean_sq - mean * mean
+                n = n * w
+            else:
+                mean = xf.mean(axes)
+                var = (xf * xf).mean(axes) - mean * mean    # biased, for the normalization
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(
@@ -72,6 +95,14 @@ class BatchNorm(nn.Module):
             return x * a.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
         return (x - mean.view(shape)) * inv.view(shape) * self.weight.view(shape) \
             + self.bias.view(shape)
+
+
+def set_sync_moments(module: nn.Module, sync: bool = True) -> nn.Module:
+    """Set ``sync_moments`` on every :class:`BatchNorm` of ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_moments = sync
+    return module
 
 
 def _conv(conv: nn.Conv2d, x):

@@ -24,19 +24,33 @@ device), so that a graphed chunk and an eager step run the same arithmetic.
 :class:`StepChunk` runs k iterations per call (``--steps-per-call``), the
 counterpart of the JAX package's ``lax.scan`` of k steps: on a CUDA device
 one replay of a CUDA graph of k steps, on the CPU k eager steps.
+
+Data parallelism (``init_train_state(..., data_parallel=True)``, under a
+process group; the JAX package's step on a mesh): every rank draws the global
+batch of ``cfg.batch_size`` and takes its contiguous slice, BigGAN's classes
+are drawn on the global z and sliced the same way, R's BatchNorm averages its
+moments over the group, and after the backward the S and R gradients, one
+flat buffer, and the metric row are averaged over the group. G is frozen and
+the same on every rank, so nothing of it is reduced. With equal slices the
+mean of the ranks' means is the global batch's: the step is the one-process
+step on the global batch up to the order of the sums. The collectives run at
+world size 1 too, and on a card they are captured in a chunk's CUDA graph
+(NCCL's communicator is made by the eager warm-up chunk).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from warpedganspace_torch.core.sampling import reseed, sample_batch_directives
 from warpedganspace_torch.core.stats import STAT_KEYS
 from warpedganspace_torch.models.api import GeneratorBundle, cast_params_bf16
-from warpedganspace_torch.models.reconstructor import Reconstructor
+from warpedganspace_torch.models.reconstructor import Reconstructor, set_sync_moments
 from warpedganspace_torch.models.support_sets import SupportSets
+from warpedganspace_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +102,8 @@ def make_optimizers(S: SupportSets, R: Reconstructor, cfg: TrainStepConfig):
 class TrainState:
     """What a step reads and updates in place. ``G`` is the frozen generator in
     the step's compute dtype (a bfloat16 copy, made once, with
-    ``generator_dtype='bfloat16'``)."""
+    ``generator_dtype='bfloat16'``). ``world`` ranks share each batch when
+    ``data_parallel``; this one takes slice ``rank``."""
 
     G: GeneratorBundle
     S: SupportSets
@@ -98,28 +113,45 @@ class TrainState:
     cfg: TrainStepConfig
     generator: torch.Generator
     seed: int
+    data_parallel: bool = False
+    rank: int = 0
+    world: int = 1
 
 
 def init_train_state(G: GeneratorBundle, S: SupportSets, R: Reconstructor,
-                     cfg: TrainStepConfig, seed: int = 0) -> TrainState:
+                     cfg: TrainStepConfig, seed: int = 0,
+                     data_parallel: bool = False) -> TrainState:
     """Move S and R to G's device, put R in train mode and build the optimizers
-    and the batch generator there."""
+    and the batch generator there. ``data_parallel`` needs an active process
+    group whose size divides ``cfg.batch_size``."""
     device = next(G.parameters()).device
     S.to(device)
     R.to(device).train()
+    rank, world = 0, 1
+    if data_parallel:
+        if not mesh.active():
+            raise RuntimeError("data-parallel training needs a process group "
+                               "(parallel.initialize_distributed)")
+        rank, world = mesh.rank(), mesh.world_size()
+        if cfg.batch_size % world:
+            raise ValueError(f"the batch size {cfg.batch_size} does not split over "
+                             f"{world} ranks")
+        set_sync_moments(R)
     if cfg.generator_dtype == "bfloat16":
         G = cast_params_bf16(G)
     opt_s, opt_r = make_optimizers(S, R, cfg)
     return TrainState(G=G, S=S, R=R, opt_s=opt_s, opt_r=opt_r, cfg=cfg,
-                      generator=torch.Generator(device=device), seed=seed)
+                      generator=torch.Generator(device=device), seed=seed,
+                      data_parallel=data_parallel, rank=rank, world=world)
 
 
 def loss_fn(S: SupportSets, R: Reconstructor, G: GeneratorBundle, z, idx, mags,
-            cfg: TrainStepConfig):
+            cfg: TrainStepConfig, y=None):
     """total loss and (classification loss, regression loss, accuracy).
 
     ``G`` is already in ``cfg.generator_dtype``; z (B, d) float32, idx (B,)
-    int64, mags (B,) float32.
+    int64, mags (B,) float32; ``y`` BigGAN's classes of the rows, drawn by G
+    from z when not given.
     """
     g_dtype = torch.bfloat16 if cfg.generator_dtype == "bfloat16" else torch.float32
     r_dtype = torch.bfloat16 if cfg.reconstructor_dtype == "bfloat16" else None
@@ -131,11 +163,11 @@ def loss_fn(S: SupportSets, R: Reconstructor, G: GeneratorBundle, z, idx, mags,
 
     z_g = z.to(g_dtype)
     with torch.no_grad():
-        img = for_r(G(z_g))
+        img = for_r(G(z_g, y=y))
         latent = G.get_w(z_g).float() if cfg.shift_in_w_space else z
     direction = S.direction(latent, idx)
     shift = mags[:, None] * direction
-    img_shifted = for_r(G(z_g, shift.to(g_dtype)))
+    img_shifted = for_r(G(z_g, shift.to(g_dtype), y=y))
     logits, mag_hat = R(img, img_shifted, dtype=r_dtype)
     cls_loss = F.cross_entropy(logits, idx)
     reg_loss = torch.mean(torch.abs(mag_hat - mags))
@@ -145,7 +177,8 @@ def loss_fn(S: SupportSets, R: Reconstructor, G: GeneratorBundle, z, idx, mags,
 
 
 def sample_batch(state: TrainState, iteration: int):
-    """(z, idx, mags) of ``iteration``: a pure function of (seed, iteration)."""
+    """(z, idx, mags) of ``iteration``, the global batch: a pure function of
+    (seed, iteration)."""
     cfg = state.cfg
     reseed(state.generator, state.seed, iteration)
     return sample_batch_directives(
@@ -158,21 +191,58 @@ def metric_row(metrics: dict) -> torch.Tensor:
     return torch.stack([metrics[k] for k in STAT_KEYS])
 
 
+def _rank_slice(state: TrainState, z, idx, mags):
+    """This rank's rows of the global batch, and BigGAN's classes of them drawn
+    on the global z (a draw on the slice alone would read other bits)."""
+    b = state.cfg.batch_size // state.world
+    rows = slice(state.rank * b, (state.rank + 1) * b)
+    draw = getattr(state.G.net, "mixed_classes", None)
+    y = None
+    if draw is not None:
+        g_dtype = torch.bfloat16 if state.cfg.generator_dtype == "bfloat16" else torch.float32
+        y = draw(z.to(g_dtype))[rows]
+    return z[rows], idx[rows], mags[rows], y
+
+
+def _all_reduce_mean_(tensors, world: int) -> None:
+    """Average ``tensors`` over the group in place, through one flat buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat.div_(world)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def train_step(state: TrainState, iteration: int, batch=None) -> dict:
-    """One iteration, in place. The batch is a pure function of (seed,
-    iteration) unless ``batch = (z, idx, mags)`` is given. Returns the four
-    metrics of ``STAT_KEYS`` as detached tensors on the device."""
+    """One iteration, in place. The (global) batch is a pure function of
+    (seed, iteration) unless ``batch = (z, idx, mags)`` is given. Returns the
+    four metrics of ``STAT_KEYS`` as detached tensors on the device, those of
+    the global batch under data parallelism."""
     cfg = state.cfg
     z, idx, mags = sample_batch(state, iteration) if batch is None else batch
+    y = None
+    if state.data_parallel:
+        z, idx, mags, y = _rank_slice(state, z, idx, mags)
     state.opt_s.zero_grad(set_to_none=True)
     state.opt_r.zero_grad(set_to_none=True)
-    total, (cls_loss, reg_loss, acc) = loss_fn(state.S, state.R, state.G, z, idx, mags, cfg)
+    total, (cls_loss, reg_loss, acc) = loss_fn(state.S, state.R, state.G, z, idx, mags, cfg,
+                                               y=y)
     total.backward()
+    if state.data_parallel:
+        _all_reduce_mean_([p.grad for opt in (state.opt_s, state.opt_r)
+                           for group in opt.param_groups for p in group["params"]], state.world)
     state.opt_s.step()
     state.opt_r.step()
     metrics = {"accuracy": acc, "classification_loss": cls_loss,
                "regression_loss": reg_loss, "total_loss": total}
-    return {k: metrics[k].detach() for k in STAT_KEYS}
+    out = {k: metrics[k].detach() for k in STAT_KEYS}
+    if state.data_parallel:
+        row = metric_row(out)
+        dist.all_reduce(row)
+        out = dict(zip(STAT_KEYS, (row / state.world).unbind()))
+    return out
 
 
 class StepChunk:

@@ -2,7 +2,13 @@
 :func:`warpedganspace_torch.train.train_step.train_step`.
 
 Counterpart of :mod:`warpedganspace_tpu.train.trainer` (reference
-``lib/trainer.py``), one process on one device:
+``lib/trainer.py``), on one device, or data parallel over a process group
+(``data_parallel=True``, one process per card; see
+:mod:`warpedganspace_torch.parallel.mesh`), where the coordinator (rank 0)
+writes every file of the tree below, prints the progress and owns
+TensorBoard, every rank reads the checkpoint on a resume, the state is
+checked to be the same bytes on every rank before the first step, and a
+barrier holds the others until the coordinator has finished the tree:
 
 - experiments/wip/<EXP_DIR>/ with models/, stats.json and, with
   ``--tensorboard``, tensorboard/ (:36-63); a finished run is copied to
@@ -47,6 +53,8 @@ import torch
 from warpedganspace_torch.convert.reconstructor import (load_reference_state_dict,
                                                         to_reference_state_dict)
 from warpedganspace_torch.core.stats import STAT_KEYS, TrainingStatTracker
+from warpedganspace_torch.parallel.mesh import (assert_identical_across_processes,
+                                               is_coordinator, sync_processes)
 from warpedganspace_torch.train.train_step import (StepChunk, TrainState, TrainStepConfig,
                                                    init_train_state, metric_row, train_step)
 from warpedganspace_torch.utils.aux import sec2dhms, update_progress, update_stdout
@@ -87,17 +95,19 @@ def _restore_adam(name: str, opt: torch.optim.Optimizer, blob) -> None:
 class Trainer:
     """Owns the experiment directory tree, checkpointing, statistics and the loop."""
 
-    def __init__(self, params=None, exp_dir=None, seed: int = 0):
+    def __init__(self, params=None, exp_dir=None, seed: int = 0, data_parallel: bool = False):
         if params is None:
             raise ValueError("Cannot build a Trainer instance with empty params")
         self.params = params
         self.seed = seed
+        self.data_parallel = data_parallel
+        self.is_coord = is_coordinator()
 
         self.wip_dir = osp.join("experiments", "wip", exp_dir)
         self.complete_dir = osp.join("experiments", "complete", exp_dir)
         self.stats_json = osp.join(self.wip_dir, "stats.json")
         os.makedirs(self.wip_dir, exist_ok=True)
-        if not osp.isfile(self.stats_json):
+        if self.is_coord and not osp.isfile(self.stats_json):
             with open(self.stats_json, "w") as f:
                 json.dump({}, f)
         self.models_dir = osp.join(self.wip_dir, "models")
@@ -106,7 +116,7 @@ class Trainer:
         self.opt_sidecar = osp.join(self.models_dir, "optimizer_state.npz")
 
         self.tb_writer = None
-        if bool(getattr(params, "tensorboard", False)):
+        if self.is_coord and bool(getattr(params, "tensorboard", False)):
             self.tb_dir = osp.join(self.wip_dir, "tensorboard")
             os.makedirs(self.tb_dir, exist_ok=True)
             try:
@@ -134,6 +144,8 @@ class Trainer:
 
     # ------------------------------------------------------------- checkpoints
     def save_checkpoint(self, iteration: int, state: TrainState) -> None:
+        if not self.is_coord:
+            return
         torch.save({"iter": iteration,
                     "support_sets": state.S.to_torch_state_dict(),
                     "reconstructor": to_reference_state_dict(state.R)}, self.checkpoint)
@@ -171,6 +183,9 @@ class Trainer:
 
     # ------------------------------------------------------------------- stats
     def log_progress(self, iteration, mean_iter_time, elapsed_time, eta):
+        if not self.is_coord:
+            self.stat_tracker.flush()
+            return
         stats = self.stat_tracker.get_means()
         with open(self.stats_json) as f:
             stats_dict = json.load(f)
@@ -196,13 +211,16 @@ class Trainer:
         update_stdout(10)
 
     def _copy_to_complete(self) -> None:
-        print("#. Copy {} to {}...".format(self.wip_dir, self.complete_dir))
-        try:
-            shutil.copytree(src=self.wip_dir, dst=self.complete_dir,
-                            ignore=shutil.ignore_patterns("checkpoint.pt"))
-            print("  \\__Done!")
-        except (IOError, FileExistsError) as e:
-            print("  \\__Already exists -- {}".format(e))
+        """The coordinator copies wip to complete; every rank waits for it."""
+        if self.is_coord:
+            print("#. Copy {} to {}...".format(self.wip_dir, self.complete_dir))
+            try:
+                shutil.copytree(src=self.wip_dir, dst=self.complete_dir,
+                                ignore=shutil.ignore_patterns("checkpoint.pt"))
+                print("  \\__Done!")
+            except (IOError, FileExistsError) as e:
+                print("  \\__Already exists -- {}".format(e))
+        sync_processes("trainer-complete")
 
     # ------------------------------------------------------------------- train
     def train(self, generator, support_sets, reconstructor, profile: bool = False) -> TrainState:
@@ -214,23 +232,32 @@ class Trainer:
         p = self.params
         k_chunk = int(getattr(p, "steps_per_call", 1) or 1)
         state = init_train_state(generator, support_sets, reconstructor,
-                                 TrainStepConfig.from_params(p), seed=self.seed)
+                                 TrainStepConfig.from_params(p), seed=self.seed,
+                                 data_parallel=self.data_parallel)
+        say = print if self.is_coord else (lambda *a, **kw: None)
 
         # Save initial support sets (reference trainer.py:139).
-        torch.save(state.S.to_torch_state_dict(),
-                   osp.join(self.models_dir, "support_sets_init.pt"))
+        if self.is_coord:
+            torch.save(state.S.to_torch_state_dict(),
+                       osp.join(self.models_dir, "support_sets_init.pt"))
 
         starting_iter = self.get_starting_iteration(state)
         if starting_iter == p.max_iter:
-            print("#. This experiment has already been completed and can be found @ {}".format(
+            say("#. This experiment has already been completed and can be found @ {}".format(
                 self.wip_dir))
             self._copy_to_complete()
             sys.exit()
-        print("#. Start training from iteration {}".format(starting_iter))
+        # Every rank built or read its own copy of the state; train only on
+        # copies that are the same bytes.
+        assert_identical_across_processes(
+            {"S": state.S.to_torch_state_dict(), "R": state.R.state_dict(),
+             "opt_s": state.opt_s.state_dict()["state"],
+             "opt_r": state.opt_r.state_dict()["state"]}, "the training state")
+        say("#. Start training from iteration {}".format(starting_iter))
         chunk = StepChunk(state, k_chunk) if k_chunk > 1 else None
 
         prof = None
-        if profile:
+        if profile and self.is_coord:
             from torch.profiler import ProfilerActivity
             from torch.profiler import profile as torch_profile
 
@@ -292,11 +319,13 @@ class Trainer:
             self.tb_writer.flush()
 
         # Final model exports (reference trainer.py:302-308).
-        torch.save(state.S.to_torch_state_dict(), osp.join(self.models_dir, "support_sets.pt"))
-        torch.save(to_reference_state_dict(state.R), osp.join(self.models_dir, "reconstructor.pt"))
-
-        for _ in range(10):
-            print()
-        print("#.Training completed -- Total elapsed time: {}.".format(sec2dhms(elapsed)))
+        if self.is_coord:
+            torch.save(state.S.to_torch_state_dict(),
+                       osp.join(self.models_dir, "support_sets.pt"))
+            torch.save(to_reference_state_dict(state.R),
+                       osp.join(self.models_dir, "reconstructor.pt"))
+            for _ in range(10):
+                print()
+            print("#.Training completed -- Total elapsed time: {}.".format(sec2dhms(elapsed)))
         self._copy_to_complete()
         return state

@@ -40,21 +40,25 @@ def experiment_name(args: dict) -> str:
     return name
 
 
-def create_exp_dir(args, root: str = "experiments") -> str:
+def create_exp_dir(args, root: str = "experiments", write: bool = True) -> str:
     """Create experiments/wip/<name>/, write args.json and command.sh, return the name.
 
     ``args`` is an argparse.Namespace or a dict. args.json is what the
     traversal and evaluation stages read back (reference lib/aux.py:95-97).
+    ``write=False`` (every rank but the coordinator of a multi-process run)
+    creates the directory and returns the name, and leaves the two files to
+    the coordinator.
     """
     args_dict = args if isinstance(args, dict) else vars(args)
     name = experiment_name(args_dict)
     wip_dir = osp.join(root, "wip", name)
     os.makedirs(wip_dir, exist_ok=True)
-    with open(osp.join(wip_dir, "args.json"), "w") as f:
-        json.dump(args_dict, f)
-    with open(osp.join(wip_dir, "command.sh"), "w") as f:
-        f.write("#!/usr/bin/bash\n")
-        f.write(" ".join(sys.argv) + "\n")
+    if write:
+        with open(osp.join(wip_dir, "args.json"), "w") as f:
+            json.dump(args_dict, f)
+        with open(osp.join(wip_dir, "command.sh"), "w") as f:
+            f.write("#!/usr/bin/bash\n")
+            f.write(" ".join(sys.argv) + "\n")
     return name
 
 
