@@ -11,7 +11,7 @@ exit and no result line:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels of ``warpedganspace_torch/csrc``, one ``nvcc`` per
-   source, started together;
+   source, started together (the CUDA-core designs kept for comparison too);
 3. kernels, each against its plain PyTorch version and timed with CUDA events
    (plain, kernel, kernel, plain):
    - the RBF warp at the five shapes of ``scripts/ablate_warp_cuda.py``
@@ -23,18 +23,24 @@ exit and no result line:
      products at the bf16 tensor-core peak, whichever is larger; then at the
      shapes the three traversals below give it;
    - the SA attention at BigGAN-128's shape (B=16, N=4096, M=1024, dk=24,
-     dv=96) in f32 (its CUDA-core design) and bf16 (its tensor-core design),
-     at the two shapes the BigGAN path below gives it (a bf16 render batch of
-     64, one f32 sample) and at a ragged shape, with
-     ``F.scaled_dot_product_attention`` timed beside it (at B=16 and at the
-     render batch) as a yardstick the port never calls;
+     dv=96) in f32 (its split-precision tensor-core design, 3xTF32) and bf16
+     (its bf16 tensor-core design), at the two shapes the BigGAN path below
+     gives it (a bf16 render batch of 64, one f32 sample), at the render batch
+     and BigGAN D's operands (B=64, dk=12, dv=48) in f32, at a ragged shape and
+     at logits near +-200 (lse too), with ``F.scaled_dot_product_attention``
+     timed beside it (at B=16 and at the render batch) as a yardstick the port
+     never calls; in f32 also the CUDA-core design it replaced, through that
+     design's own C entry, all four in turns at B=16, B=1 and D's operands,
+     with two bounds: the least arithmetic at the TF32 tensor-core rate beside
+     the exponentials and the bytes, and the products on the CUDA cores;
    - the SA attention's backward at BigGAN-128's training shape (B=32, N=4096,
-     M=1024, dk=24, dv=96) in f32 and bf16, at B=1 and at the ragged shape,
-     each gradient within a tolerance of its largest entry, with the backward
-     of ``F.scaled_dot_product_attention`` through autograd as the yardstick;
-     at each of those shapes also what the training forward saves for it, the
-     forward kernel's output and its rows' log-sum-exp, against their plain
-     versions;
+     M=1024, dk=24, dv=96) in f32 and bf16, at B=1, at the ragged shape and in
+     f32 at logits near +-200, each gradient within a tolerance of its largest
+     entry, with the backward of ``F.scaled_dot_product_attention`` through
+     autograd as the yardstick (and in f32 the CUDA-core design it replaced,
+     in turns, with the same two bounds); at each of those shapes also what
+     the training forward saves for it, the forward kernel's output and its
+     rows' log-sum-exp, against their plain versions;
    - ProgGAN's fused tail section at the three full-width sections of the
      1024^2 generator (128 -> 64 channels at 256^2, 64 -> 32 at 512^2,
      32 -> 16 at 1024^2 with the RGB head; B=4) in f32 and bf16, at the shapes
@@ -187,6 +193,8 @@ ATTN_SHAPE = (16, 4096, 1024, 24, 96)        # B, N, M, dk, dv of BigGAN-128's a
 ATTN_RENDER = (BIGGAN["batch"],) + ATTN_SHAPE[1:]
 ATTN_SAMPLE = (1,) + ATTN_SHAPE[1:]
 ATTN_RAGGED = (2, 1000, 250, 20, 80)
+ATTN_D = (64, 4096, 1024, 12, 48)             # BigGAN-128 D's attention (D_ch=96, at 64²)
+ATTN_LARGE = (2, 200, 100, 16, 32)            # with queries and keys x8: logits near +-200
 # The training path: the experiment of scripts/train/biggan.sh, cut in iterations.
 TRAIN = dict(gan="BigGAN", k=120, dipoles=256, d=120, batch=32, iters=20, resume_to=30,
              log_freq=5, ckp_freq=10, steps=3, eps=0.15, render_batch=64, res=128,
@@ -282,6 +290,12 @@ SG2_SECTIONS = ((64, 256, True), (32, 512, False))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# The dense tensor-core rate for TF32 operands (the f32 attention's split
+# products, three TF32 products each, are counted as one: the least arithmetic).
+PEAK_TF32_FLOPS = 495e12
+# Exponentials on the special-function units: 16 a cycle per SM, 132 SMs, at
+# the 1.83 GHz at which the data sheet's bf16 rate is 4,096 operations a cycle per SM.
+PEAK_EXP_PER_S = 16 * 132 * 1.83e9
 
 
 def check(cond: bool, msg: str) -> None:
@@ -323,6 +337,31 @@ def bound(bytes_moved: float, flops: float, bf16: bool = False) -> tuple[float, 
     t_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
     t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_bounds(b, n, m, dk, dv, elem: int, backward: bool = False) -> dict:
+    """The attention's least times (ms) at one shape, forward or backward: the
+    bytes (each input read and each output written once), the products
+    (2 B N M (dk + dv) forward, 2 B N M (3 dk + 2 dv) backward) and the B N M
+    exponentials (beta is recomputed once in the backward). ``tc``: at the unit
+    the kernel runs on, the tensor cores (bf16 for bf16 operands, TF32 for f32
+    ones: one product, not the split's three) beside the special-function
+    units, the larger of products and exponentials against the bytes;
+    ``cuda_cores``: the products at the f32 rate outside the tensor cores (for
+    f32 operands; the figure of the earlier CUDA-core designs)."""
+    if backward:
+        nbytes = elem * b * (2 * n * dk + 2 * m * dk + 2 * m * dv + 2 * n * dv) + 4 * b * n
+        flops = 2 * b * n * m * (3 * dk + 2 * dv)
+    else:
+        nbytes = elem * b * (n * dk + m * dk + m * dv + n * dv)
+        flops = 2 * b * n * m * (dk + dv)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = max(1e3 * flops / (PEAK_BF16_FLOPS if elem == 2 else PEAK_TF32_FLOPS),
+                1e3 * b * n * m / PEAK_EXP_PER_S)
+    res = {"tc": (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")}
+    if elem == 4:
+        res["cuda_cores"] = bound(nbytes, flops)
+    return res
 
 
 def warp_ablation():
@@ -467,6 +506,8 @@ def phase_attn_kernel(card: str) -> dict:
         for shape, dtype, tol in ((ATTN_SHAPE, torch.float32, 1e-4),
                                   (ATTN_SHAPE, torch.bfloat16, 3e-2),
                                   (ATTN_RENDER, torch.bfloat16, 3e-2),
+                                  (ATTN_RENDER, torch.float32, 1e-4),
+                                  (ATTN_D, torch.float32, 1e-4),
                                   (ATTN_SAMPLE, torch.float32, 1e-4),
                                   (ATTN_RAGGED, torch.float32, 1e-4),
                                   (ATTN_RAGGED, torch.bfloat16, 3e-2)):
@@ -483,23 +524,56 @@ def phase_attn_kernel(card: str) -> dict:
             e = float((out.float() - ref.float()).abs().max())
             check(e <= tol, f"attention kernel vs plain at {name}: max abs {e:.3g} > {tol}")
             errs[name] = e
+        # Logits near +-200 in f32: the running maximum keeps every exp() in
+        # range; lse within 2e-5 + 1e-6 of itself.
+        theta, phi, g = (t * 8 if i < 2 else t
+                         for i, t in enumerate(attn_inputs(ATTN_LARGE, 2, torch.float32)))
+        out, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+        e = float((out - sa_attention_plain(theta, phi, g)).abs().max())
+        check(e <= 1e-4, f"attention kernel vs plain at logits near +-200: max abs {e:.3g}")
+        errs[f"{ATTN_LARGE} float32 x8"] = e
+        want = torch.logsumexp(torch.bmm(theta, phi.transpose(1, 2)), -1)
+        e = float(((lse - want).abs() - 1e-6 * want.abs()).max())
+        check(e <= 2e-5, f"lse at logits near +-200: {e:.3g} past rtol 1e-6 > 2e-5")
+        errs[f"{ATTN_LARGE} float32 x8 lse past rtol 1e-6"] = e
 
-        times = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            theta, phi, g = attn_inputs(ATTN_SHAPE, 2, dtype)
-            kern = lambda: attn_cuda.sa_attention(theta, phi, g)  # noqa: E731
-            plain = lambda: sa_attention_plain(theta, phi, g)  # noqa: E731
-            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-            # The yardstick: one library call for the same function (one head,
-            # no scale). Timed here, never called by the port.
+        # bf16 in turns: plain, kernel, kernel, plain, then the yardstick: one
+        # library call for the same function (one head, no scale), timed here,
+        # never called by the port.
+        theta, phi, g = attn_inputs(ATTN_SHAPE, 2, torch.bfloat16)
+        kern = lambda: attn_cuda.sa_attention(theta, phi, g)  # noqa: E731
+        plain = lambda: sa_attention_plain(theta, phi, g)  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+        q, k, v = theta[:, None], phi[:, None], g[:, None]
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
+        lib_err16 = float((lib()[:, 0].float() - plain().float()).abs().max())
+        ms16, plain_ms16, lib_ms16 = (k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(lib)
+        # f32 in turns: plain, kernel, the CUDA-core design it replaced (its own
+        # C entry), SDPA, and back, at B=16, one sampled code and BigGAN D's operands.
+        from warpedganspace_torch.ops.attn_cuda_cores import cc_forward
+
+        f32 = {}
+        for shape in (ATTN_SHAPE, ATTN_SAMPLE, ATTN_D):
+            theta, phi, g = attn_inputs(shape, 2, torch.float32)
             q, k, v = theta[:, None], phi[:, None], g[:, None]
-            lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
-            lib_err = float((lib()[:, 0].float()
-                             - sa_attention_plain(theta, phi, g).float()).abs().max())
-            times[dtype] = ((k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(lib), lib_err,
-                            (k1, k2, p1, p2))
+            fns = {"plain": lambda: sa_attention_plain(theta, phi, g),
+                   "kernel": lambda: attn_cuda.sa_attention(theta, phi, g),
+                   "cuda_cores": lambda: cc_forward(theta, phi, g),
+                   "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)}
+            cc_err = float((fns["cuda_cores"]()[0] - fns["plain"]()).abs().max())
+            check(cc_err <= 1e-4, f"the CUDA-core design vs plain at {shape}: {cc_err:.3g}")
+            runs = {name: [] for name in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                runs[name].append(cuda_ms(fns[name], iters=20 if shape[0] > 16 else 50))
+            bounds = attn_bounds(*shape, 4)
+            f32[shape] = {f"{name}_ms": sum(r) / 2 for name, r in runs.items()}
+            f32[shape].update(runs=runs, cc_err=cc_err, bound_ms=bounds["tc"][0],
+                              bound_by=bounds["tc"][1],
+                              bound_ms_cuda_cores=bounds["cuda_cores"][0])
         # The render batch's own shape, timed too (bf16, the CLI's batch size).
-        theta, phi, g = attn_inputs(ATTN_RENDER, 2, torch.bfloat16)   # kern and plain read these
+        theta, phi, g = attn_inputs(ATTN_RENDER, 2, torch.bfloat16)
+        kern = lambda: attn_cuda.sa_attention(theta, phi, g)  # noqa: E731
+        plain = lambda: sa_attention_plain(theta, phi, g)  # noqa: E731
         p1, k1, k2, p2 = (cuda_ms(f, iters=20) for f in (plain, kern, kern, plain))
         render_ms, render_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         q, k, v = theta[:, None], phi[:, None], g[:, None]
@@ -509,31 +583,32 @@ def phase_attn_kernel(card: str) -> dict:
               for dt in (torch.float32, torch.bfloat16)}
 
     b, n, m, dk, dv = ATTN_SHAPE
-    # f32 theta, phi, g read once and the output written once; two products of
-    # B * N * M * (dk + dv) multiply-adds (the B * N * M exponentials are not counted).
-    def attn_bound(b, elem):
-        return bound(elem * b * (n * dk + m * dk + m * dv + n * dv),
-                     2 * b * n * m * (dk + dv), bf16=elem == 2)
-
-    bound_ms, bound_by = attn_bound(b, 4)
-    bound_ms16, bound_by16 = attn_bound(b, 2)
-    bound_render, _ = attn_bound(ATTN_RENDER[0], 2)
-    ms, plain_ms, lib_ms, lib_err, runs = times[torch.float32]
-    ms16, plain_ms16, lib_ms16, lib_err16, _ = times[torch.bfloat16]
+    bound_ms16, bound_by16 = attn_bounds(*ATTN_SHAPE, 2)["tc"]
+    bound_render, _ = attn_bounds(*ATTN_RENDER, 2)["tc"]
+    main = f32[ATTN_SHAPE]
     res = {"max_abs_err": errs[f"{ATTN_SHAPE} float32"], "max_abs_errs": errs,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+           "library_ms": main["library_ms"], "cc_ms": main["cuda_cores_ms"],
            "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
            "ms_render_bf16": render_ms, "plain_ms_render_bf16": render_plain_ms,
            "library_ms_render_bf16": lib_render_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "bound_ms_cuda_cores": main["bound_ms_cuda_cores"],
            "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16,
            "bound_ms_render_bf16": bound_render, "design": design,
+           "f32_shapes": {str(shape): {key: val for key, val in t.items() if key != "runs"}
+                          for shape, t in f32.items()},
            "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+    f32_text = "; ".join(
+        f"f32 {shape}: kernel {t['kernel_ms']:.4f} ms, CUDA-core design {t['cuda_cores_ms']:.4f} "
+        f"ms, plain {t['plain_ms']:.4f} ms, library SDPA {t['library_ms']:.4f} ms (each "
+        + ", ".join(f"{name} " + "/".join(f"{x:.4f}" for x in r)
+                    for name, r in t["runs"].items())
+        + f"); bound {t['bound_ms']:.4f} ms by {t['bound_by']} at the TF32 tensor cores, "
+        f"{t['bound_ms_cuda_cores']:.4f} ms on the CUDA cores; CUDA-core design's max abs err "
+        f"{t['cc_err']:.3g}" for shape, t in f32.items())
     print(f"[kernel] sa_attention {res['shape']} on {card}; design f32: {design['float32']}, "
-          f"bf16: {design['bfloat16']}: f32 kernel {ms:.4f} ms "
-          f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
-          f"{runs[3]:.4f}) library SDPA {lib_ms:.4f} ms (its max abs err vs plain "
-          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
+          f"bf16: {design['bfloat16']}: {f32_text}; bf16 kernel {ms16:.4f} ms "
           f"plain {plain_ms16:.4f} ms library SDPA {lib_ms16:.4f} ms (err {lib_err16:.3g}), "
           f"bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 tensor-core peak; "
           f"bf16 at the render batch B={ATTN_RENDER[0]}: kernel {render_ms:.4f} ms plain "
@@ -607,58 +682,85 @@ def phase_attn_bwd_kernel(card: str) -> dict:
                 errs[f"{name} {gname}"] = e
             del got, ref, saved, out, lse
 
+        # Logits near +-200 in f32: the saved log-sum-exp keeps exp() in range.
+        theta, phi, g, ct = problem(ATTN_LARGE, torch.float32)
+        theta, phi = theta * 8, phi * 8
+        got = attn_cuda.sa_attention_bwd(theta, phi, g, ct)
+        ref = sa_attention_bwd_plain(theta, phi, g, ct)
+        for gname, a, b in zip(("dtheta", "dphi", "dg"), got, ref):
+            e = rel_err(a, b)
+            check(bool(torch.isfinite(a).all()) and e <= 1e-4,
+                  f"attention backward kernel vs plain, {gname} at logits near +-200: {e:.3g}")
+            errs[f"{ATTN_LARGE} float32 x8 {gname}"] = e
+
+    # In turns: plain, kernel, (f32: the CUDA-core design it replaced, through
+    # its own C entry,) the library's backward, and back.
+    from warpedganspace_torch.ops.attn_cuda_cores import cc_backward
+
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         theta, phi, g, ct = problem(ATTN_TRAIN, dtype)
-        with torch.no_grad():
-            saved = attn_cuda.sa_attention_saved(theta, phi, g)
-            kern = lambda: attn_cuda.sa_attention_bwd(theta, phi, g, ct, saved=saved)  # noqa: E731
-            plain = lambda: sa_attention_bwd_plain(theta, phi, g, ct)  # noqa: E731
-            p1, k1, k2, p2 = (cuda_ms(f, iters=10, warmup=2) for f in (plain, kern, kern, plain))
-            ref = plain()
         # The yardstick: the backward of one library call for the same function
         # (one head, no scale) through autograd. Timed here, never called by the port.
         q, k, v = (t[:, None].detach().requires_grad_() for t in (theta, phi, g))
         out = F.scaled_dot_product_attention(q, k, v, scale=1.0)
-        lib = lambda: torch.autograd.grad(out, (q, k, v), ct[:, None], retain_graph=True)  # noqa: E731
-        lib_err = max(rel_err(a[:, 0], b) for a, b in zip(lib(), ref))
-        times[dtype] = ((k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(lib, iters=10, warmup=2), lib_err,
-                        (k1, k2, p1, p2))
-        del out, q, k, v, ref, saved
+        with torch.no_grad():
+            saved = attn_cuda.sa_attention_saved(theta, phi, g)
+            fns = {"plain": lambda: sa_attention_bwd_plain(theta, phi, g, ct),
+                   "kernel": lambda: attn_cuda.sa_attention_bwd(theta, phi, g, ct, saved=saved)}
+            if dtype == torch.float32:
+                fns["cuda_cores"] = lambda: cc_backward(theta, phi, g, *saved, ct)
+        fns["library"] = lambda: torch.autograd.grad(out, (q, k, v), ct[:, None],
+                                                     retain_graph=True)
+        with torch.no_grad():
+            ref = fns["plain"]()
+            cc_err = (max(rel_err(a, b) for a, b in zip(fns["cuda_cores"](), ref))
+                      if "cuda_cores" in fns else None)
+        lib_err = max(rel_err(a[:, 0], b) for a, b in zip(fns["library"](), ref))
+        runs = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            with torch.no_grad() if name != "library" else torch.enable_grad():
+                runs[name].append(cuda_ms(fns[name], iters=10, warmup=2))
+        times[dtype] = {f"{name}_ms": sum(r) / 2 for name, r in runs.items()}
+        times[dtype].update(runs=runs, lib_err=lib_err, cc_err=cc_err)
+        del out, q, k, v, ref, saved, fns
+    check(times[torch.float32]["cc_err"] <= 1e-4, "the CUDA-core backward design vs plain: "
+          f"{times[torch.float32]['cc_err']:.3g}")
 
     b, n, m, dk, dv = ATTN_TRAIN
     design = {str(dt).split(".")[-1]: attn_cuda.bwd_design(dt)
               for dt in (torch.float32, torch.bfloat16)}
-
-    # theta, phi, g, ct, the saved output and the row statistics read once, the
-    # three gradients written once; five products of B * N * M multiply-adds
-    # over dk (three) or dv (two) (the B * N * M exponentials are not counted).
-    def bwd_bound(elem):
-        return bound(elem * b * (2 * n * dk + 2 * m * dk + 2 * m * dv + 2 * n * dv) + 4 * b * n,
-                     2 * b * n * m * (3 * dk + 2 * dv), bf16=elem == 2)
-
-    bound_ms, bound_by = bwd_bound(4)
-    bound_ms16, bound_by16 = bwd_bound(2)
-    ms, plain_ms, lib_ms, lib_err, runs = times[torch.float32]
-    ms16, plain_ms16, lib_ms16, lib_err16, _ = times[torch.bfloat16]
+    bounds = attn_bounds(*ATTN_TRAIN, 4, backward=True)
+    bound_ms, bound_by = bounds["tc"]
+    bound_cc, _ = bounds["cuda_cores"]
+    bound_ms16, bound_by16 = attn_bounds(*ATTN_TRAIN, 2, backward=True)["tc"]
+    t32, t16 = times[torch.float32], times[torch.bfloat16]
     f32_name = f"{ATTN_TRAIN} float32"
     res = {"max_abs_err": max(errs[f"{f32_name} {gname}"] for gname in ("dtheta", "dphi", "dg")),
            "max_abs_errs": errs, "err_is": "relative to each gradient's largest entry; max abs for the forward's out, lse",
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "ms_bf16": ms16, "plain_ms_bf16": plain_ms16, "library_ms_bf16": lib_ms16,
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms": t32["kernel_ms"], "plain_ms": t32["plain_ms"], "library_ms": t32["library_ms"],
+           "cc_ms": t32["cuda_cores_ms"],
+           "ms_bf16": t16["kernel_ms"], "plain_ms_bf16": t16["plain_ms"],
+           "library_ms_bf16": t16["library_ms"],
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_cuda_cores": bound_cc,
            "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16, "design": design,
            "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+
+    def each(t):
+        return ", ".join(f"{name} " + "/".join(f"{x:.4f}" for x in r)
+                         for name, r in t["runs"].items())
+
     print(f"[kernel] sa_attention_bwd {res['shape']} on {card}; design f32: "
-          f"{design['float32']}, bf16: {design['bfloat16']}: f32 kernel {ms:.4f} ms "
-          f"({runs[0]:.4f}, {runs[1]:.4f}) plain {plain_ms:.4f} ms ({runs[2]:.4f}, "
-          f"{runs[3]:.4f}) library SDPA backward {lib_ms:.4f} ms (its error vs plain "
-          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; bf16 kernel {ms16:.4f} ms "
-          f"plain {plain_ms16:.4f} ms library SDPA backward {lib_ms16:.4f} ms (err "
-          f"{lib_err16:.3g}), bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 "
-          "tensor-core peak; error relative to each gradient's largest entry (max abs for "
-          "the forward's out and lse) "
-          + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
+          f"{design['float32']}, bf16: {design['bfloat16']}: f32 kernel {res['ms']:.4f} ms, "
+          f"CUDA-core design {res['cc_ms']:.4f} ms (its error vs plain {t32['cc_err']:.3g}), "
+          f"plain {res['plain_ms']:.4f} ms, library SDPA backward {res['library_ms']:.4f} ms "
+          f"(its error vs plain {t32['lib_err']:.3g}; each {each(t32)}); bound {bound_ms:.4f} ms "
+          f"by {bound_by} at the TF32 tensor cores, {bound_cc:.4f} ms on the CUDA cores; bf16 "
+          f"kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms library SDPA "
+          f"backward {res['library_ms_bf16']:.4f} ms (err {t16['lib_err']:.3g}; each "
+          f"{each(t16)}), bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 tensor-core "
+          "peak; error relative to each gradient's largest entry (max abs for the forward's "
+          "out and lse) " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
     return res
 
 
@@ -1330,8 +1432,9 @@ def phase_discriminators(card: str) -> tuple:
         lib_err = float((lib()[:, 0] - plain()).abs().max())
         lib_ms = cuda_ms(lib, iters=20)
     marks["attention times"] = time.perf_counter()
-    bound_ms, bound_by = bound(4 * b * (n * dk + m * dk + m * dv + n * dv),
-                               2 * b * n * m * (dk + dv))
+    bounds = attn_bounds(b, n, m, dk, dv, 4)
+    bound_ms, bound_by = bounds["tc"]
+    bound_cc = bounds["cuda_cores"][0]
     check(err["BigGAN D kernel vs plain attention"] <= 1e-4
           and err["BigGAN D attention closed"] > 100 * err["BigGAN D kernel vs plain attention"],
           f"BigGAN D, kernel vs plain attention: {err['BigGAN D kernel vs plain attention']:.3g} "
@@ -1341,7 +1444,8 @@ def phase_discriminators(card: str) -> tuple:
     for name in ("G_D joint vs fake-only", "G_D split vs joint"):
         check(err[name] <= 1e-4, f"{name}: {err[name]:.3g} of max|logit| > 1e-4")
     attn_d = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": attn_err,
+              "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_cuda_cores": bound_cc,
+              "max_abs_err": attn_err,
               "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
     print(f"[discriminators] on {card}, f32, TF32 off: StyleGAN2 config-f D 1024², "
           f"B={D_SG2_B}: {ms_sg2:.2f} ms a forward; BigGAN-128 D (D_ch=96, attention at 64²), "
@@ -1355,8 +1459,8 @@ def phase_discriminators(card: str) -> tuple:
     print(f"[discriminators] sa_attention at BigGAN D's operands, {attn_d['shape']} on {card}: "
           f"kernel {attn_d['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {attn_d['plain_ms']:.4f} ms "
           f"({p1:.4f}, {p2:.4f}) library SDPA {lib_ms:.4f} ms (its max abs err vs plain "
-          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by}; kernel max abs err "
-          f"{attn_err:.3g}")
+          f"{lib_err:.3g}); bound {bound_ms:.4f} ms by {bound_by} at the TF32 tensor cores, "
+          f"{bound_cc:.4f} ms on the CUDA cores; kernel max abs err {attn_err:.3g}")
     return counts, attn_d
 
 
@@ -3790,8 +3894,8 @@ def main(argv=None) -> int:
             profile_path(card, cfg if args.steps is None else dict(cfg, steps=args.steps))
         return 0
 
-    from warpedganspace_torch.ops import (_build, attn_cuda, proggan_tail_cuda, rbf_cuda,
-                                          sg2_tail_cuda)
+    from warpedganspace_torch.ops import (_build, attn_cuda, attn_cuda_cores, proggan_tail_cuda,
+                                          rbf_cuda, sg2_tail_cuda)
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -3804,9 +3908,11 @@ def main(argv=None) -> int:
     builds = {rbf_cuda.SOURCE: rbf_cuda.build, attn_cuda.SOURCE: attn_cuda.build,
               attn_cuda.BWD_SOURCE: attn_cuda.build_bwd,
               proggan_tail_cuda.SOURCE: proggan_tail_cuda.build,
-              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build,
-              # the warp's CUDA-core design, timed beside the shipped one
-              warp_ablation().CC_SOURCE: lambda: _build.load_library(warp_ablation().CC_SOURCE)}
+              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build}
+    # the CUDA-core designs of the warp and the f32 attention, timed beside the shipped ones
+    for cc_source in (warp_ablation().CC_SOURCE, attn_cuda_cores.SOURCE,
+                      attn_cuda_cores.BWD_SOURCE):
+        builds[cc_source] = lambda src=cc_source: _build.load_library(src)
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, all started together
         list(pool.map(lambda build: build(), builds.values()))
     print(f"[build] {', '.join(builds)} side by side: "
@@ -3860,13 +3966,14 @@ def main(argv=None) -> int:
         kernels[0][key] = warp[key]
     for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
                 "library_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
-                "bound_ms_render_bf16"):
+                "bound_ms_render_bf16", "cc_ms", "bound_ms_cuda_cores", "f32_shapes"):
         kernels[1][key] = attn[key]
     for key, value in attn_d.items():
         kernels[1][key + "_discriminator"] = value
     kernels.append(row("sa_attention_bwd", "warpedganspace_torch/csrc/sa_attention_bwd.cu",
                        "warpedganspace_tpu/ops/attn_pallas.py:106", attn_bwd))
-    for key in ("library_ms_bf16", "bound_ms_bf16", "bound_by_bf16", "max_abs_errs", "err_is"):
+    for key in ("library_ms_bf16", "bound_ms_bf16", "bound_by_bf16", "max_abs_errs", "err_is",
+                "cc_ms", "bound_ms_cuda_cores"):
         kernels[2][key] = attn_bwd[key]
     kernels.append(row("proggan_tail", "warpedganspace_torch/csrc/proggan_tail.cu",
                        "warpedganspace_tpu/ops/proggan_tail_pallas.py:173", tail))

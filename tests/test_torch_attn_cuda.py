@@ -10,7 +10,7 @@ JAX conftest:
 import pytest
 import torch
 
-from warpedganspace_torch.ops import attn_cuda
+from warpedganspace_torch.ops import attn_cuda, attn_cuda_cores
 from warpedganspace_torch.ops.attn import sa_attention_bwd_plain, sa_attention_plain
 
 torch.set_num_threads(1)
@@ -50,7 +50,8 @@ def _check(theta, phi, g, tol):
     assert err <= tol, err
 
 
-# f32: sums over M in another order, exp from the fast-math unit.
+# f32: sums over M in another order, exp from the fast-math unit, products in
+# split precision (tests/test_torch_attn_f32_split_numerics.py).
 # bf16: one ulp of outputs below 1 is 2^-8; 3e-2 is the smoke test's bound.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
@@ -245,7 +246,7 @@ def test_biggan_block_reaches_the_kernel(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
 
 
-# The bf16 designs run on the tensor cores, the f32 ones on the CUDA cores.
+# Both dtypes run on the tensor cores: bf16 as it is, f32 in split precision.
 BF16 = torch.bfloat16
 DKS = [8, 16, 20, 24, 40, 48, 192]      # one and two k16 steps, ragged, 12 steps
 DVS = [57, 80, 96, 192, 200]            # ragged, one column tile, two tiles
@@ -253,28 +254,74 @@ DVS = [57, 80, 96, 192, 200]            # ragged, one column tile, two tiles
 
 def test_designs(cuda):
     assert attn_cuda.design(BF16) == "tensor cores, mma.sync bf16"
-    assert attn_cuda.design(torch.float32) == "CUDA cores"
+    assert attn_cuda.design(torch.float32) == "tensor cores, mma.sync 3xTF32"
     assert attn_cuda.bwd_design(BF16) == "tensor cores, mma.sync bf16"
-    assert attn_cuda.bwd_design(torch.float32) == "CUDA cores"
+    assert attn_cuda.bwd_design(torch.float32) == "tensor cores, mma.sync 3xTF32"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("dv", DVS)
 @pytest.mark.parametrize("dk", DKS)
-def test_bf16_dk_dv_sweep(cuda, dk, dv):
-    """N=200 (not a multiple of the 64-query tile), M=150 (a partial chunk)."""
-    _check(*_problem(10, 2, 200, 150, dk, dv, cuda, BF16), TOL[BF16])
+def test_dk_dv_sweep(cuda, dk, dv, dtype):
+    """N=200 (not a multiple of a query tile), M=150 (a partial chunk);
+    f32 keeps theta in registers up to dk=32 and reads it again above."""
+    _check(*_problem(10, 2, 200, 150, dk, dv, cuda, dtype), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("dv", DVS)
 @pytest.mark.parametrize("dk", DKS)
-def test_bf16_backward_dk_dv_sweep(cuda, dk, dv):
+def test_backward_dk_dv_sweep(cuda, dk, dv, dtype):
     """Within the limit against the plain backward; above it the wrapper raises."""
-    ops = _problem(10, 2, 200, 150, dk, dv, cuda, BF16)
+    ops = _problem(10, 2, 200, 150, dk, dv, cuda, dtype)
     if dv > attn_cuda.build_bwd().sa_attention_bwd_max_dv(dk):
         with pytest.raises(ValueError, match="dv <= "):
-            attn_cuda.sa_attention_bwd(*ops, torch.zeros((2, 200, dv), device=cuda, dtype=BF16))
+            attn_cuda.sa_attention_bwd(*ops, torch.zeros((2, 200, dv), device=cuda, dtype=dtype))
         return
-    _check_bwd(*ops, TOL[BF16])
+    _check_bwd(*ops, TOL[dtype])
+
+
+@pytest.mark.parametrize("dk", [48, 192])
+def test_f32_saved_lse_above_dk_32(cuda, dk):
+    """Above dk=32 the f32 forward sums each k8 step of its logits apart: lse
+    within 2e-5 of float64 (logits up to about 60 at dk=192, where the float32
+    logsumexp itself lies up to about 3e-5 from float64)."""
+    theta, phi, g = _problem(16, 2, 200, 150, dk, 96, cuda)
+    out, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+    torch.cuda.synchronize()
+    assert float((out - sa_attention_plain(theta, phi, g)).abs().max()) <= TOL[torch.float32]
+    want = torch.logsumexp(torch.bmm(theta.double(), phi.double().transpose(1, 2)), -1)
+    assert float((lse.double() - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("b,dk,dv", [
+    (16, 24, 96),                # BigGAN-128, the timed shape
+    (64, 12, 48),                # BigGAN-128 D's operands (D_ch=96)
+    (1, 24, 96),                 # one sampled code
+])
+def test_f32_design_agrees_with_the_cuda_core_design(cuda, b, dk, dv):
+    """The shipped f32 design and the CUDA-core design it replaced, at the
+    timed shapes: outputs within the f32 bound, lse within 2e-5."""
+    theta, phi, g = _problem(14, b, 4096, 1024, dk, dv, cuda)
+    out, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+    out_cc, lse_cc = attn_cuda_cores.cc_forward(theta, phi, g, want_lse=True)
+    torch.cuda.synchronize()
+    assert float((out - out_cc).abs().max()) <= TOL[torch.float32]
+    assert float((lse - lse_cc).abs().max()) <= 2e-5
+
+
+def test_f32_backward_agrees_with_the_cuda_core_design(cuda):
+    """The same at the training shape, B=32: each gradient within the f32
+    bound of its largest entry."""
+    theta, phi, g = _problem(15, 32, 4096, 1024, 24, 96, cuda)
+    ct = torch.randn((32, 4096, 96), generator=torch.Generator().manual_seed(16)).to(cuda)
+    saved = attn_cuda.sa_attention_saved(theta, phi, g)
+    got = attn_cuda.sa_attention_bwd(theta, phi, g, ct, saved=saved)
+    ref = attn_cuda_cores.cc_backward(theta, phi, g, *saved, ct)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dtheta", "dphi", "dg"), got, ref):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= TOL[torch.float32], (name, err)
 
 
 @pytest.mark.parametrize("m", [1, 63, 1000])

@@ -13,290 +13,33 @@
 // row's statistic lse = max_m(s) + log(sum_m exp(s - max)) is written too, one
 // f32 per query: the backward kernel recomputes the softmax from it.
 //
-// Two designs, chosen by the operands' type inside the C launch function:
-// float32 on the CUDA cores (namespace cc), bfloat16 on the tensor cores
-// (namespace tc, below it).
+// Two designs, chosen by the operands' type inside the C launch function,
+// both on the tensor cores: float32 in split precision (namespace tf, at the
+// end), bfloat16 as it is (namespace tc). The CUDA-core float32 design that
+// came first is kept for comparison only, in csrc/sa_attention_cuda_cores.cu.
 //
 // What bounds it: at the BigGAN-128 render shape (B=16, N=4096, M=1024, dk=24,
 // dv=96) the work is 2 B N M (dk + dv) = 16.1 GFLOP and B N M = 67 M
 // exponentials against 39 MB of operands in f32 (each read or written once).
-// In f32 the arithmetic bounds it: about 0.24 ms at the H100 data-sheet
-// 67 TFLOP/s outside the tensor cores (a TF32 product keeps 10 mantissa bits,
-// too few for the f32 checks), against 0.012 ms for the bytes at 3.35 TB/s.
+// One TF32 product keeps 10 mantissa bits, too few for the float32 checks, but
+// three TF32 products of split operands (hi and lo pieces) keep about 22 bits
+// and hold them (tests/test_torch_attn_f32_split_numerics.py); that is three
+// times the least arithmetic at the tensor cores' 495 TFLOP/s in TF32, about
+// 0.1 ms, against 0.033 ms for one product, 0.012 ms for the bytes at
+// 3.35 TB/s and 0.24 ms for the same products on the CUDA cores (67 TFLOP/s).
 // In bf16 the tensor cores' 989 TFLOP/s put the arithmetic at 0.016 ms, the
 // 20 MB of operands at 0.006 ms, and the exponentials (16 a cycle per SM)
 // near 0.02 ms: what bounds the bf16 design is the softmax between its two
 // products, not the products.
 //
-// f32 design (cc). The TPU kernel holds one sample's whole phi and g beside a
-// block of 512 queries in VMEM and needs no running maximum; here g alone
-// (384 KB in f32) exceeds the 227 KB of shared memory a block may use, so the
-// keys are streamed and the softmax is the online (running-maximum) one:
-// - One block (8 warps) per (tile of 128 queries of one sample, tile of at
-//   most 128 value columns). A block owns its query rows' whole reduction over
-//   M, so nothing crosses blocks. dv above 128 is split into equal column
-//   tiles along blockIdx.y, each recomputing the logits (dk is dv / 4 in
-//   BigGAN, so that costs little).
-// - The theta tile is staged once in shared memory; phi and g are streamed
-//   through shared memory in chunks of 64 keys, converted to f32. This loop
-//   takes the place of the TPU kernel's resident phi and g blocks.
-// - Each warp owns 16 query rows for both products, so the softmax statistics
-//   never leave the warp. Logits: a lane holds 16 rows x 2 keys in registers,
-//   reading theta as broadcast float4s and phi as float4s from rows padded to
-//   an odd number of 16-byte units (conflict-free). The running maximum m and
-//   the running sum l of row r live in lane r; the chunk maximum and sum are
-//   warp reductions. The weights exp(s - m) go to a warp-private tile in shared
-//   memory, and the accumulators are rescaled by exp(m_old - m_new).
-// - Values: a lane holds 16 rows x CPT columns (columns lane + 32 c, so g is
-//   read conflict-free and the output is written coalesced); per key it reads
-//   the 16 weights as 4 broadcast float4s.
-// - Ragged edges are masked, not padded: query rows past N are never written,
-//   keys past M get a logit of -inf, columns past dk or dv are zero in shared
-//   memory. dk is limited by the shared-memory tile (kMaxDk).
-//
-// bf16 design (tc), flash-attention style on mma.sync (see the tc namespace).
+// bf16 design (tc) and f32 design (tf), flash-attention style on mma.sync (see
+// their namespaces).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "tc_bf16.cuh"
-
-namespace cc {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;
-constexpr int kTileRows = kWarps * kRowsPerWarp;   // queries per block
-constexpr int kChunk = 64;                         // keys per chunk, 2 per lane
-constexpr int kPStride = 20;                       // floats per key of the weight tile:
-                                                   // 16 rows + pad, 5 units of 16 bytes
-constexpr int kMaxDvTile = 128;                    // value columns per block (CPT <= 4)
-constexpr int kMaxDk = 192;                        // (128 + 64) padded rows must fit
-constexpr unsigned kFull = 0xffffffffu;
-static_assert(kChunk == 64 && kRowsPerWarp == 16, "lane and register maps assume these");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-// Row stride (floats) of the staged theta and phi rows: an odd number of
-// 16-byte units, so float4 reads of 8 consecutive rows hit 8 bank groups.
-__host__ __device__ __forceinline__ int row_stride(int dkp) {
-  return ((dkp / 4) % 2 == 1) ? dkp : dkp + 4;
-}
-
-__host__ __device__ __forceinline__ size_t smem_floats(int dkp, int cpt) {
-  return (size_t)(kTileRows + kChunk) * row_stride(dkp)   // theta tile, phi chunk
-         + (size_t)kChunk * 32 * cpt                      // g chunk
-         + (size_t)kWarps * kChunk * kPStride;            // per-warp weight tiles
-}
-
-// CPT: value columns per lane; the block's column tile is at most 32 * CPT wide.
-template <typename T, int CPT>
-__global__ void __launch_bounds__(kThreads, 2)
-sa_attention_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
-                    const T* __restrict__ g, T* __restrict__ out, float* __restrict__ lse,
-                    int qtiles, int n, int m, int dk, int dv, int dkp, int dvt) {
-  extern __shared__ float4 smem4[];
-  constexpr int kGStride = 32 * CPT;
-  const int kst = row_stride(dkp);
-  float* ths = reinterpret_cast<float*>(smem4);   // kTileRows x kst
-  float* phs = ths + kTileRows * kst;             // kChunk x kst
-  float* gs = phs + kChunk * kst;                 // kChunk x kGStride
-  float* ps = gs + kChunk * kGStride;             // kWarps x kChunk x kPStride
-
-  const int b = blockIdx.x / qtiles;
-  const int row0 = (blockIdx.x % qtiles) * kTileRows;
-  const int col0 = blockIdx.y * dvt;
-  const int width = min(dvt, dv - col0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  const T* thb = theta + (size_t)b * n * dk;
-  const T* phb = phi + (size_t)b * m * dk;
-  const T* gb = g + (size_t)b * m * dv + col0;
-
-  for (int r = warp; r < kTileRows; r += kWarps) {
-    const int gr = row0 + r;
-    for (int c = lane; c < dkp; c += 32)
-      ths[r * kst + c] = (gr < n && c < dk) ? to_f32(thb[(size_t)gr * dk + c]) : 0.f;
-  }
-
-  const int kst4 = kst / 4;
-  const int d4 = dkp / 4;
-  const float4* th4 = reinterpret_cast<const float4*>(ths) + warp * kRowsPerWarp * kst4;
-  const float4* ph4 = reinterpret_cast<const float4*>(phs);
-  float* pw = ps + warp * kChunk * kPStride;
-  const float4* pw4 = reinterpret_cast<const float4*>(pw);
-
-  float acc[kRowsPerWarp][CPT];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[r][cc] = 0.f;
-  // Lane r < 16 keeps the running maximum and sum of this warp's row r.
-  float mrun = -CUDART_INF_F;
-  float lrun = 0.f;
-
-  for (int j0 = 0; j0 < m; j0 += kChunk) {
-    __syncthreads();  // the previous chunk (and, first, nothing) is no longer read
-#pragma unroll
-    for (int i = 0; i < kChunk / kWarps; ++i) {
-      const int j = warp + i * kWarps;
-      const int gj = j0 + j;
-      const bool valid = gj < m;
-      for (int c = lane; c < dkp; c += 32)
-        phs[j * kst + c] = (valid && c < dk) ? to_f32(phb[(size_t)gj * dk + c]) : 0.f;
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const int c = lane + 32 * cc;
-        gs[j * kGStride + c] = (valid && c < width) ? to_f32(gb[(size_t)gj * dv + c]) : 0.f;
-      }
-    }
-    __syncthreads();  // also orders the theta tile before its first read
-
-    // Logits of 16 rows x keys (lane, lane + 32).
-    float s[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
-    for (int c4 = 0; c4 < d4; ++c4) {
-      const float4 f0 = ph4[lane * kst4 + c4];
-      const float4 f1 = ph4[(lane + 32) * kst4 + c4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 t = th4[r * kst4 + c4];
-        s[r][0] = dot4(t, f0, s[r][0]);
-        s[r][1] = dot4(t, f1, s[r][1]);
-      }
-    }
-    const bool v0 = j0 + lane < m;
-    const bool v1 = j0 + lane + 32 < m;
-
-    // Online softmax: new maximum, rescale, weights. Key 0 of every chunk is
-    // valid, so the new maximum is finite and exp(-inf - max) is 0.
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float s0 = v0 ? s[r][0] : -CUDART_INF_F;
-      const float s1 = v1 ? s[r][1] : -CUDART_INF_F;
-      const float m_old = __shfl_sync(kFull, mrun, r);
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float scale = __expf(m_old - m_new);
-      s[r][0] = __expf(s0 - m_new);
-      s[r][1] = __expf(s1 - m_new);
-      const float psum = warp_sum(s[r][0] + s[r][1]);
-      if (lane == r) {
-        mrun = m_new;
-        lrun = lrun * scale + psum;
-      }
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) acc[r][cc] *= scale;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      float4* dst = reinterpret_cast<float4*>(pw + (lane + 32 * kk) * kPStride);
-#pragma unroll
-      for (int q = 0; q < kRowsPerWarp / 4; ++q)
-        dst[q] = make_float4(s[4 * q][kk], s[4 * q + 1][kk], s[4 * q + 2][kk],
-                             s[4 * q + 3][kk]);
-    }
-    __syncwarp();
-
-    // Values: acc[r][c] += w[r][j] * g[j][c] over the chunk's valid keys.
-    const int cj = min(kChunk, m - j0);
-#pragma unroll 2
-    for (int j = 0; j < cj; ++j) {
-      const float4 p0 = pw4[j * (kPStride / 4)];
-      const float4 p1 = pw4[j * (kPStride / 4) + 1];
-      const float4 p2 = pw4[j * (kPStride / 4) + 2];
-      const float4 p3 = pw4[j * (kPStride / 4) + 3];
-      const float pv[kRowsPerWarp] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w,
-                                      p2.x, p2.y, p2.z, p2.w, p3.x, p3.y, p3.z, p3.w};
-      float gv[CPT];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) gv[cc] = gs[j * kGStride + lane + 32 * cc];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) acc[r][cc] = fmaf(pv[r], gv[cc], acc[r][cc]);
-    }
-    __syncwarp();  // the weight tile is rewritten in the next chunk
-  }
-
-  // The first column tile writes the row statistics (lane r holds row r's).
-  if (lse != nullptr && blockIdx.y == 0 && lane < kRowsPerWarp) {
-    const int gr = row0 + warp * kRowsPerWarp + lane;
-    if (gr < n) lse[(size_t)b * n + gr] = mrun + logf(lrun);
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const float l = __shfl_sync(kFull, lrun, r);
-    const int gr = row0 + warp * kRowsPerWarp + r;
-    if (gr >= n) continue;  // uniform over the warp
-    const float inv = 1.f / l;
-    T* o = out + ((size_t)b * n + gr) * dv + col0;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int c = lane + 32 * cc;
-      if (c < width) from_f32(acc[r][cc] * inv, o + c);
-    }
-  }
-}
-
-template <typename T, int CPT>
-cudaError_t launch_cpt(const void* theta, const void* phi, const void* g, void* out,
-                       float* lse, int b, int n, int m, int dk, int dv, int ntiles, int dvt,
-                       cudaStream_t stream) {
-  const int dkp = (dk + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * smem_floats(dkp, CPT);
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_attention_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int qtiles = (n + kTileRows - 1) / kTileRows;
-  const dim3 grid((unsigned)b * (unsigned)qtiles, ntiles);
-  sa_attention_kernel<T, CPT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(theta), static_cast<const T*>(phi), static_cast<const T*>(g),
-      static_cast<T*>(out), lse, qtiles, n, m, dk, dv, dkp, dvt);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* theta, const void* phi, const void* g, void* out, float* lse,
-                   int b, int n, int m, int dk, int dv, cudaStream_t stream) {
-  // Equal column tiles of at most kMaxDvTile values.
-  const int ntiles = (dv + kMaxDvTile - 1) / kMaxDvTile;
-  const int dvt = (dv + ntiles - 1) / ntiles;
-  switch ((dvt + 31) / 32) {
-    case 1: return launch_cpt<T, 1>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
-                                    stream);
-    case 2: return launch_cpt<T, 2>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
-                                    stream);
-    case 3: return launch_cpt<T, 3>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
-                                    stream);
-    default: return launch_cpt<T, 4>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt,
-                                    stream);
-  }
-}
-
-}  // namespace cc
+#include "tc_tf32.cuh"
 
 // ---------------------------------------------------------------------------
 // bf16 design: flash-attention style on the tensor cores.
@@ -564,35 +307,350 @@ cudaError_t launch(const void* theta_, const void* phi_, const void* g_, void* o
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32 design: flash-attention style on the tensor cores in split precision.
+//
+// The bf16 design above, with float32 operands carried as 3xTF32 pieces
+// (csrc/tc_tf32.cuh) on mma.sync m16n8k8: every product is three TF32
+// products (lo hi, hi lo, hi hi) into one f32 accumulator, which keeps about
+// 22 bits of each operand and holds the float32 checks where one TF32 product
+// does not (tests/test_torch_attn_f32_split_numerics.py).
+// - One block of 8 warps per (tile of 128 queries of one sample, tile of at
+//   most 128 value columns, 64 above dk = 32); a warp owns 16 query rows and
+//   both products of them, and a row's softmax statistics live in the four
+//   lanes of a quad.
+// - theta is read once into registers as split A fragments (k8 steps: dk=24 is
+//   three, 24 registers) when dk <= 32; above that, each chunk reads the
+//   warp's theta rows again from device memory (through L1) and splits them.
+// - phi and g stream in chunks of 64 keys: cp.async (16 bytes where rows are
+//   whole 16-byte units and bases aligned, else 4) brings a chunk's float32
+//   rows into shared memory while the previous chunk is multiplied; once it
+//   has landed, the block splits it, each value once, into 16-byte records
+//   of B fragments, {hi(b0), hi(b1), lo(b0), lo(b1)}, so that a lane's B
+//   fragment is one conflict-free 16-byte load with no arithmetic (ldmatrix
+//   moves 16-bit elements; a split in every warp would repeat each value's
+//   split eight times). Then the next chunk's copies start.
+// - Logits S = theta phi^T, 16 x 64 per warp in the accumulator layout; keys
+//   past M get -inf; online softmax as in the bf16 design, the weights
+//   P = exp(S - m_running) kept in f32. Above dk = 32 each k8 step's three
+//   products go into an accumulator of their own and are added into S in
+//   f32, where one chain over the steps would lower lse by its rounding
+//   toward zero (kChainSteps, tc_tf32.cuh).
+// - O += P g: P's accumulator registers are the A fragments of the value
+//   product with the chunk's keys in a permuted order (tc_tf32.cuh), so g's
+//   records pair the rows of keys 2i and 2i + 1. O is rescaled in f32 by
+//   exp(m_old - m_new) per chunk and divided by l at the end; lse = m + log(l).
+// - Each k8 step sweeps its tiles three times (every lo hi product, every hi
+//   lo, every hi hi), so that no product waits for the one before it.
+namespace tf {
+
+using namespace tc;   // the shared helpers of tc_bf16.cuh and tc_tf32.cuh
+
+constexpr int kWarps = 8;               // 16 query rows each
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileRows = kWarps * 16;   // queries a block owns
+constexpr int kMaxDvTile = 128;          // value columns a block takes (dk <= 32)
+constexpr int kMaxDvTileWide = 64;       // the same above dk = 32
+constexpr int kRegSteps = 4;             // theta in registers up to dk = 32
+constexpr int kMaxDk = 192;              // as the bf16 design's 12 k16 steps of theta
+
+__host__ __device__ constexpr size_t smem_bytes(int dk, int dvt) {
+  return (size_t)kChunk * (f32_row_units(dk) + f32_row_units(dvt)) * 16   // float32 rows
+         + (size_t)kChunk * k_records(dk) * 16                            // phi records
+         + (size_t)(kChunk / 2) * pair_records(dvt) * 16;                 // g records
+}
+
+// KS: k8 steps of theta the registers hold (kRegSteps), or 0: read theta from
+// device memory at every chunk. NV: n8 tiles of the widest value tile (<= 16).
+template <int KS, int NV>
+__global__ void __launch_bounds__(kThreads)
+sa_attention_tf_kernel(const float* __restrict__ theta, const float* __restrict__ phi,
+                       const float* __restrict__ g, float* __restrict__ out,
+                       float* __restrict__ lse, int qtiles, int n, int m, int dk, int dv,
+                       int dvt, int vec_phi, int vec_g) {
+  extern __shared__ uint4 smem[];
+  const int ks = (dk + 7) / 8;
+  const int sk = 4 * f32_row_units(dk), sv = 4 * f32_row_units(dvt);   // row strides, floats
+  const int rp = k_records(dk), rg = pair_records(dvt);               // record strides
+  float* phs = reinterpret_cast<float*>(smem);   // kChunk rows x sk
+  float* gs = phs + kChunk * sk;                 // kChunk rows x sv
+  uint4* prec = reinterpret_cast<uint4*>(gs + kChunk * sv);   // kChunk keys x rp
+  uint4* grec = prec + kChunk * rp;                           // kChunk / 2 key pairs x rg
+
+  const int b = blockIdx.x / qtiles;
+  const int q0 = (blockIdx.x % qtiles) * kTileRows;
+  const int col0 = blockIdx.y * dvt;
+  const int width = min(dvt, dv - col0);
+  const int vn = (width + 7) / 8;                // n8 value tiles of this block
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = q0 + warp * 16 + gq;            // this lane's rows r0 and r0 + 8
+
+  const float* thb = theta + (size_t)b * n * dk;
+  const float* phb = phi + (size_t)b * m * dk;
+  const float* gb = g + (size_t)b * m * dv + col0;
+
+  // theta's A fragment of k8 step kk, zero past dk and past N.
+  auto theta_frag = [&](int kk) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + ((i & 1) ? 8 : 0);
+      const int c = 8 * kk + tq + ((i & 2) ? 4 : 0);
+      v[i] = (r < n && c < dk) ? __ldg(thb + (size_t)r * dk + c) : 0.f;
+    }
+    return frag_a(v[0], v[1], v[2], v[3]);
+  };
+  FragA qa[KS > 0 ? KS : 1];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    if (kk < ks) qa[kk] = theta_frag(kk);
+
+  auto fetch_chunk = [&](int c) {
+    stage_rows_f32<kThreads>(phs, phb, kChunk, c * kChunk, m, dk, dk, f32_units(dk), sk / 4,
+                             vec_phi, tid);
+    stage_rows_f32<kThreads>(gs, gb, kChunk, c * kChunk, m, dv, width, 2 * vn, sv / 4, vec_g,
+                             tid);
+  };
+  // The landed chunk as records, each value split once.
+  auto split_chunk = [&]() {
+    const int np = 4 * ks, ng = 8 * vn;
+    const float inv_p = 1.f / np, inv_g = 1.f / ng;
+    for (int i = tid; i < kChunk * np; i += kThreads) {
+      const int key = quot(i, inv_p), r = i - key * np;
+      const float* src = phs + key * sk + 8 * (r >> 2) + (r & 3);
+      prec[key * rp + r] = split_pair(src[0], src[4]);
+    }
+    for (int i = tid; i < (kChunk / 2) * ng; i += kThreads) {
+      const int pr = quot(i, inv_g), c = i - pr * ng;
+      const float* src = gs + 2 * pr * sv + c;
+      grec[pr * rg + c] = split_pair(src[0], src[sv]);
+    }
+  };
+
+  float o[NV][4];
+#pragma unroll
+  for (int t = 0; t < NV; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F};   // running maxima of rows r0, r0 + 8
+  float lrow[2] = {0.f, 0.f};                       // this lane's share of the running sums
+  float since[2] = {1.f, 1.f};     // the rescales of O since it was last added into out
+  bool flushed = false;            // out holds a partial O
+
+  // out (= out * since + O) / l, or without / l before the last chunk;
+  // then O starts again from 0.
+  const bool pair = dv % 2 == 0;   // then col0 (a multiple of 8) keeps pairs aligned
+  auto flush = [&](const float (&div)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      float* orow = out + ((size_t)b * n + r) * dv + col0;
+#pragma unroll
+      for (int t = 0; t < NV; ++t)
+        if (t < vn && r < n) {
+          const int col = 8 * t + 2 * tq;
+          const float2 prev = flushed ? load_pair(orow, col, width, pair) : make_float2(0.f, 0.f);
+          store_pair(orow, col, width, fmaf(prev.x, since[h], o[t][2 * h]) * div[h],
+                     fmaf(prev.y, since[h], o[t][2 * h + 1]) * div[h], pair);
+        }
+#pragma unroll
+      for (int t = 0; t < NV; ++t) o[t][2 * h] = o[t][2 * h + 1] = 0.f;
+      since[h] = 1.f;
+    }
+    flushed = true;
+  };
+
+  const int nchunks = (m + kChunk - 1) / kChunk;
+  fetch_chunk(0);
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_all();                 // chunk c has landed (this thread's copies)
+    __syncthreads();                     // (everyone's), and the records are free
+    split_chunk();
+    __syncthreads();                     // the records are written, the rows free
+    if (c + 1 < nchunks) fetch_chunk(c + 1);   // in flight while this chunk is multiplied
+    cp_async_commit();
+
+    // Logits of 16 rows x 64 keys: n8 tile j holds keys 8j .. 8j + 7.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    // Up to dk = 32 (theta in registers) one chain over the k8 steps, above
+    // it each step's sum added in float32 (kChainSteps, tc_tf32.cuh).
+    static_assert(kRegSteps == kChainSteps, "the step sums begin where theta's registers end");
+    auto logits_step = [&](int kk, const FragA& a) {
+      uint4 bq[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bq[j] = prec[(8 * j + gq) * rp + 4 * kk + tq];
+      if (KS > 0)
+        mma3_records<8>(s, a, bq, 8);
+      else
+        mma3_records_add<8>(s, a, bq, 8);
+    };
+    if (KS > 0) {
+#pragma unroll
+      for (int kk = 0; kk < (KS > 0 ? KS : 1); ++kk)
+        if (kk < ks) logits_step(kk, qa[kk]);
+    } else {
+      for (int kk = 0; kk < ks; ++kk) logits_step(kk, theta_frag(kk));
+    }
+
+    // Online softmax. Key c * 64 is valid, so the new maxima are finite.
+    const int key0 = c * kChunk + 2 * tq;
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (key0 + 8 * j + (e & 1) >= m) s[j][e] = -CUDART_INF_F;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float mb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      const float scale = ex2((mrow[h] - mx[h]) * kLog2e);   // 0 at the first chunk
+      mrow[h] = mx[h];
+      mb[h] = mx[h] * kLog2e;
+      lrow[h] *= scale;
+      since[h] *= scale;
+#pragma unroll
+      for (int t = 0; t < NV; ++t) {
+        o[t][2 * h] *= scale;
+        o[t][2 * h + 1] *= scale;
+      }
+    }
+
+    // O += P g, one k8 step per key tile j: A = the weights of keys
+    // 8j + 2tq (k tq) and 8j + 2tq + 1 (k tq + 4), B = the record of that key pair.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float w0 = ex2(fmaf(s[j][0], kLog2e, -mb[0]));
+      const float w1 = ex2(fmaf(s[j][1], kLog2e, -mb[0]));
+      const float w2 = ex2(fmaf(s[j][2], kLog2e, -mb[1]));
+      const float w3 = ex2(fmaf(s[j][3], kLog2e, -mb[1]));
+      lrow[0] += w0 + w1;
+      lrow[1] += w2 + w3;
+      const FragA pa = frag_a(w0, w2, w1, w3);
+      const uint4* g0 = grec + (4 * j + tq) * rg + gq;
+      uint4 bv[NV];
+#pragma unroll
+      for (int t = 0; t < NV; ++t)
+        if (t < vn) bv[t] = g0[8 * t];
+      mma3_records<NV>(o, pa, bv, vn);
+    }
+    if ((c + 1) % kFlushChunks == 0 && c + 1 < nchunks) {
+      const float one[2] = {1.f, 1.f};
+      flush(one);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lrow[h] = quad_sum(lrow[h]);
+    inv[h] = 1.f / lrow[h];
+  }
+  if (lse != nullptr && blockIdx.y == 0 && tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < n) lse[(size_t)b * n + r0 + 8 * h] = mrow[h] + logf(lrow[h]);
+  }
+  flush(inv);
+}
+
+template <int KS, int NV>
+cudaError_t launch_nv(const float* theta, const float* phi, const float* g, float* out,
+                      float* lse, int b, int n, int m, int dk, int dv, int ntiles, int dvt,
+                      bool vec_phi, bool vec_g, cudaStream_t stream) {
+  const size_t smem = smem_bytes(dk, dvt);
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_attention_tf_kernel<KS, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int qtiles = (n + kTileRows - 1) / kTileRows;
+  const dim3 grid((unsigned)b * (unsigned)qtiles, ntiles);
+  sa_attention_tf_kernel<KS, NV><<<grid, kThreads, smem, stream>>>(
+      theta, phi, g, out, lse, qtiles, n, m, dk, dv, dvt, vec_phi, vec_g);
+  return cudaGetLastError();
+}
+
+// Value tiles of up to 8, 12 or 16 n8 tiles: 12 is BigGAN's dv=96, 8 its
+// discriminator's dv=48 and every narrower one (the ch=16 test models' dv=8).
+template <int KS>
+cudaError_t launch_ks(const float* theta, const float* phi, const float* g, float* out,
+                      float* lse, int b, int n, int m, int dk, int dv, int ntiles, int dvt,
+                      bool vec_phi, bool vec_g, cudaStream_t stream) {
+  const int nv = (dvt + 7) / 8;
+  if (KS == 0 || nv <= 8)   // above dk = 32 (KS == 0) a tile is at most kMaxDvTileWide
+    return launch_nv<KS, 8>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt, vec_phi,
+                            vec_g, stream);
+  if constexpr (KS > 0) {
+    if (nv <= 12)
+      return launch_nv<KS, 12>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt, vec_phi,
+                               vec_g, stream);
+    return launch_nv<KS, 16>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt, vec_phi,
+                             vec_g, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch(const void* theta_, const void* phi_, const void* g_, void* out_, float* lse,
+                   int b, int n, int m, int dk, int dv, cudaStream_t stream) {
+  const float* theta = static_cast<const float*>(theta_);
+  const float* phi = static_cast<const float*>(phi_);
+  const float* g = static_cast<const float*>(g_);
+  float* out = static_cast<float*>(out_);
+  // Column tiles of at most kMaxDvTile values (kMaxDvTileWide above dk = 32,
+  // where phi's rows and records take more room), each a multiple of 8 (whole
+  // n8 tiles; the tiles after the first start 16-byte aligned).
+  const int most = dk <= 8 * kRegSteps ? kMaxDvTile : kMaxDvTileWide;
+  int ntiles = (dv + most - 1) / most;
+  const int dvt = ((dv + ntiles - 1) / ntiles + 7) & ~7;
+  ntiles = (dv + dvt - 1) / dvt;
+  const bool vec_phi = dk % 4 == 0 && aligned16(phi);
+  const bool vec_g = dv % 4 == 0 && aligned16(g);
+  if (dk <= 8 * kRegSteps)
+    return launch_ks<kRegSteps>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt, vec_phi,
+                                vec_g, stream);
+  return launch_ks<0>(theta, phi, g, out, lse, b, n, m, dk, dv, ntiles, dvt, vec_phi, vec_g,
+                      stream);
+}
+
+static_assert(smem_bytes(8 * kRegSteps, kMaxDvTile) <= 227 * 1024 &&
+                  smem_bytes(kMaxDk, kMaxDvTileWide) <= 227 * 1024,
+              "the widest chunks must fit");
+
+}  // namespace tf
+
 // C entry point (loaded with ctypes). theta is (B, n, dk), phi (B, m, dk),
-// g (B, m, dv) and out (B, n, dv), all f32 (is_bf16 == 0, the CUDA-core
-// design) or all bf16 (is_bf16 == 1, the tensor-core design), contiguous on
-// one device; lse is null or (B, n) f32, filled with the rows' log-sum-exp.
-// Returns a cudaError_t; 0 is success.
+// g (B, m, dv) and out (B, n, dv), all f32 (is_bf16 == 0, the split-precision
+// tensor-core design tf) or all bf16 (is_bf16 == 1, the bf16 tensor-core
+// design tc), contiguous on one device; lse is null or (B, n) f32, filled with
+// the rows' log-sum-exp. Returns a cudaError_t; 0 is success.
 extern "C" int sa_attention_launch(const void* theta, const void* phi, const void* g,
                                    void* out, void* lse, int is_bf16, int b, int n, int m,
                                    int dk, int dv, void* stream) {
-  if (b < 0 || n < 0 || dv < 0 || m < 1 || dk < 1 || dk > cc::kMaxDk)
+  if (b < 0 || n < 0 || dv < 0 || m < 1 || dk < 1 || dk > tf::kMaxDk)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0 || dv == 0) return (int)cudaSuccess;
-  const int rows = is_bf16 ? tc::kTileRows : cc::kTileRows;
+  const int rows = is_bf16 ? tc::kTileRows : tf::kTileRows;
   const long long blocks = (long long)b * ((n + rows - 1) / rows);
-  if (blocks > 2147483647LL || (dv + cc::kMaxDvTile - 1) / cc::kMaxDvTile > 65535)
+  if (blocks > 2147483647LL || (dv + tf::kMaxDvTileWide - 1) / tf::kMaxDvTileWide > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const cudaError_t err = is_bf16
-      ? tc::launch(theta, phi, g, out, l, b, n, m, dk, dv, s)
-      : cc::launch<float>(theta, phi, g, out, l, b, n, m, dk, dv, s);
+  const cudaError_t err = is_bf16 ? tc::launch(theta, phi, g, out, l, b, n, m, dk, dv, s)
+                                  : tf::launch(theta, phi, g, out, l, b, n, m, dk, dv, s);
   return (int)err;
 }
 
-// Largest dk the kernel takes (the f32 design's shared-memory tile; the bf16
-// design holds up to 12 k16 steps of theta in registers, the same 192).
-extern "C" int sa_attention_max_dk() { return cc::kMaxDk; }
+// Largest dk the kernel takes, from the design that serves f32: 192, where its
+// chunks of phi and g still fit (it reads theta from device memory at every
+// chunk above dk = 32); the bf16 design holds the same 192 in 12 k16 steps of
+// registers.
+extern "C" int sa_attention_max_dk() { return tf::kMaxDk; }
 
-// Which design serves an operand type: the tensor cores for bf16, the CUDA
-// cores for f32.
+// Which design serves an operand type: both run on the tensor cores, bf16
+// operands as they are, f32 operands in split precision.
 extern "C" const char* sa_attention_design(int is_bf16) {
-  return is_bf16 ? "tensor cores, mma.sync bf16" : "CUDA cores";
+  return is_bf16 ? "tensor cores, mma.sync bf16" : "tensor cores, mma.sync 3xTF32";
 }

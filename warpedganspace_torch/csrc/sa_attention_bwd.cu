@@ -20,22 +20,26 @@
 // rowsum(dbeta * beta) equals rowsum(ct * out), one dot product per query (the
 // first small kernel below).
 //
-// Two designs, chosen by the operands' type inside the C launch function:
-// float32 on the CUDA cores (namespace cc), bfloat16 on the tensor cores
-// (namespace tc, below it). Both are two passes of one kernel template with
-// the roles swapped, and neither uses atomics, so the result is the same bits
-// on every run.
+// Two designs, chosen by the operands' type inside the C launch function,
+// both on the tensor cores: float32 in split precision (namespace tf, at the
+// end), bfloat16 as it is (namespace tc). The CUDA-core float32 design that
+// came first is kept for comparison only, in
+// csrc/sa_attention_bwd_cuda_cores.cu. All are two passes of one kernel
+// template with the roles swapped, and none uses atomics, so the result is
+// the same bits on every run.
 //
 // What bounds it: the five products are 2 B N M (3 dk + 2 dv) operations,
 // 70.9 GFLOP at BigGAN-128's training shape (B=32, N=4096, M=1024, dk=24,
-// dv=96), against about 100 MB of operands and results in f32. In f32 the
-// arithmetic bounds it: about 1.06 ms at the H100 data-sheet 67 TFLOP/s
-// outside the tensor cores (TF32 keeps too few bits for the f32 checks),
-// against 0.03 ms for the bytes at 3.35 TB/s. In bf16, 0.072 ms at the tensor
-// cores' 989 TFLOP/s; the 268 M exponentials of the two passes (16 a cycle per
-// SM) take about 0.07 ms more.
+// dv=96), against about 100 MB of operands and results in f32. One TF32
+// product keeps too few bits for the float32 checks; three TF32 products of
+// split operands hold them (tests/test_torch_attn_f32_split_numerics.py):
+// three times the least arithmetic at the tensor cores' 495 TFLOP/s in TF32,
+// 0.43 ms, against 0.14 ms for one product, 0.03 ms for the bytes at
+// 3.35 TB/s and 1.06 ms for the same products on the CUDA cores (67 TFLOP/s).
+// In bf16, 0.072 ms at the tensor cores' 989 TFLOP/s; the 268 M exponentials
+// of the two passes (16 a cycle per SM) take about 0.07 ms more.
 //
-// Both designs: the TPU kernel keeps one sample's whole phi, g, dphi and dg in
+// All designs: the TPU kernel keeps one sample's whole phi, g, dphi and dg in
 // VMEM while its grid sweeps that sample's query blocks in order, and adds
 // each block's share of dphi and dg into the resident buffers. Here g alone
 // (384 KB in f32) exceeds the 227 KB of shared memory a block may use, and
@@ -47,8 +51,8 @@
 // - key pass: a block owns a tile of keys of one sample and streams the
 //   queries in chunks of 64; it recomputes the transposed tiles s^T and
 //   dbeta^T and accumulates dphi = ds^T theta and dg = beta^T ct over all
-//   chunks. dphi and dg are accumulated in f32 registers and rounded once, at
-//   the end.
+//   chunks, in f32 registers (the f32 design adds them into the outputs
+//   every few chunks).
 // s and dbeta are therefore computed twice (2 (dk + dv) of the 2 (3 dk + 2 dv)
 // least operations again); a pass that kept them would have to write them out.
 // Outputs wider than a block's registers allow (dk above 64, dv above 128)
@@ -57,83 +61,23 @@
 // columns past it get beta = 0, feature columns past dk or dv are zero in
 // shared memory.
 //
-// f32 design (cc), on the CUDA cores:
-// - The "row" operands (theta, ct | phi, g) of a block of 128 rows are staged
-//   once in shared memory as f32, the "column" operands (phi, g | theta, ct)
-//   stream through it. Each warp owns 16 rows and a (16 x 64) tile of s and
-//   dbeta per chunk; a lane holds 4 rows x 8 columns of it in registers (lanes
-//   as a 4 x 8 grid), so per depth step of 4 it reads 4 row vectors and 8
-//   column vectors as float4s for 128 multiply-adds, from rows padded to an
-//   odd number of 16-byte units (conflict-free). The statistics come straight
-//   from device memory (no reduction is left to do). ds (then, in the key
-//   pass, beta) goes to a warp-private tile in shared memory, and the output
-//   products read it as broadcast float4s: a lane owns all 16 rows of output
-//   columns lane + 32 c. ds and beta stay f32 (nearer to f32 than the plain
-//   bf16 version, which rounds them).
-// - A chunk is staged with 16-byte loads, four in flight per thread (one block
-//   of 8 warps per SM: nothing else runs while a chunk is staged, and scalar
-//   loads made one after the other cost more than the arithmetic between).
-// - Limits: both row operands are resident, so dk and dv must fit the shared
-//   memory together (sa_attention_bwd_max_dk, sa_attention_bwd_max_dv). dk=24,
-//   dv=96 and dk=48, dv=192 (attention at 64^2 and 32^2 of a ch=96 model) fit.
-//
-// bf16 design (tc), on mma.sync (see the tc namespace).
+// bf16 design (tc) and f32 design (tf), on mma.sync (see their namespaces).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tc_bf16.cuh"
+#include "tc_tf32.cuh"
 
-namespace cc {
+// rdot[row] = sum_c ct[row, c] * out[row, c] = rowsum(dbeta * beta): the
+// prologue of both designs, one warp per row.
+namespace rowdot {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;
-constexpr int kTileRows = kWarps * kRowsPerWarp;   // rows a block owns
-constexpr int kChunk = 64;                         // streamed columns per chunk
-constexpr int kPStride = 20;                       // floats per column of the ds tile:
-                                                   // 16 rows + pad, 5 units of 16 bytes
-constexpr int kLaneRows = 4;                       // a lane's share of its warp's 16 x 64 tile
-constexpr int kLaneCols = 8;                       // of s and dbeta: 4 rows x 8 columns
-constexpr int kMaxDk = 192;                        // the forward kernel's limit
-constexpr int kMaxT1 = 64;                         // dk-wide output columns per block (CPT1 <= 2)
-constexpr int kMaxT2 = 128;                        // dv-wide output columns per block (CPT2 <= 4)
-constexpr int kSmemBytes = 227 * 1024;             // what one block may use on sm_90
-constexpr unsigned kFull = 0xffffffffu;
-static_assert(kChunk == 64 && kRowsPerWarp == 16 && kLaneRows * kLaneCols == 32 &&
-                  kRowsPerWarp / kLaneRows * (kChunk / kLaneCols) == 32,
-              "lane and register maps assume these");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-// Row stride (floats) of a staged operand: an odd number of 16-byte units, so
-// float4 reads of 8 consecutive rows hit 8 bank groups.
-__host__ __device__ __forceinline__ int row_stride(int dp) {
-  return ((dp / 4) % 2 == 1) ? dp : dp + 4;
-}
-
-__host__ __device__ __forceinline__ int round4(int d) { return (d + 3) / 4 * 4; }
-
-__host__ __device__ __forceinline__ size_t smem_floats(int dk, int dv) {
-  return (size_t)(kTileRows + kChunk) * (row_stride(round4(dk)) + row_stride(round4(dv)))
-         + (size_t)kWarps * kChunk * kPStride;
-}
-
-// rdot[row] = sum_c ct[row, c] * out[row, c] = rowsum(dbeta * beta): one warp per row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rowdot_kernel(const T* __restrict__ ct, const T* __restrict__ out, float* __restrict__ rdot,
@@ -145,322 +89,20 @@ rowdot_kernel(const T* __restrict__ ct, const T* __restrict__ out, float* __rest
   const T* b = out + row * dv;
   float acc = 0.f;
   for (int c = lane; c < dv; c += 32) acc = fmaf(to_f32(a[c]), to_f32(b[c]), acc);
-  acc = warp_sum(acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) rdot[row] = acc;
 }
 
-// 16 bytes of an operand (4 f32 values) into shared memory.
-__device__ __forceinline__ void store_vec(float* dst, uint4 raw, const float*) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
-}
-
-// Stage `rows` rows of a (.., d) operand as f32 into shared memory rows of
-// stride `st`, zero past the operand's last row (`limit`) and last column.
-// Where a row is a whole number of 16-byte vectors (the operand's base is
-// aligned), a thread starts its loads four at a time before it stores any, so
-// that their latencies overlap: with one block per SM nothing else runs while
-// a chunk is staged.
 template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int rows, int first,
-                                           int limit, int d, int dp, int st, int tid) {
-  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int kBatch = 4;              // loads in flight per thread
-  if (d % kVec == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {   // then dp == d
-    const int vpr = d / kVec;
-    const int total = rows * vpr;
-    for (int base = 0; base < total; base += kThreads * kBatch) {
-      uint4 raw[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads + tid;
-        const int gr = first + i / vpr;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (i < total && gr < limit)
-          raw[u] = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + (i % vpr) * kVec);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads + tid;
-        if (i < total) store_vec(dst + (i / vpr) * st + (i % vpr) * kVec, raw[u], src);
-      }
-    }
-    return;
-  }
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < rows; r += kWarps) {
-    const int gr = first + r;
-    for (int c = lane; c < dp; c += 32)
-      dst[r * st + c] = (gr < limit && c < d) ? to_f32(src[(size_t)gr * d + c]) : 0.f;
-  }
-}
-
-// acc[r][cc] += sum_j w[r][j] * x[j][col0 + lane + 32 cc] over the chunk's
-// first cj columns j; w is the warp's tile, 16 row values per column.
-template <int CPT>
-__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerWarp][CPT], const float4* pw4,
-                                           const float* xs, int st, int col0, int width,
-                                           int cj, int lane) {
-  bool ok[CPT];
-  int col[CPT];
-#pragma unroll
-  for (int cc = 0; cc < CPT; ++cc) {
-    ok[cc] = lane + 32 * cc < width;
-    col[cc] = ok[cc] ? col0 + lane + 32 * cc : 0;
-  }
-#pragma unroll 2
-  for (int j = 0; j < cj; ++j) {
-    const float4 p0 = pw4[j * (kPStride / 4)];
-    const float4 p1 = pw4[j * (kPStride / 4) + 1];
-    const float4 p2 = pw4[j * (kPStride / 4) + 2];
-    const float4 p3 = pw4[j * (kPStride / 4) + 3];
-    const float pv[kRowsPerWarp] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w,
-                                    p2.x, p2.y, p2.z, p2.w, p3.x, p3.y, p3.z, p3.w};
-    float xv[CPT];
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) xv[cc] = ok[cc] ? xs[j * st + col[cc]] : 0.f;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) acc[r][cc] = fmaf(pv[r], xv[cc], acc[r][cc]);
-  }
-}
-
-// Lane (ri, cj) holds rows 4 ri .. 4 ri + 3 and columns cj + 8 c of its warp's
-// tile; the tile in shared memory keeps a column's 16 row values together.
-__device__ __forceinline__ void store_tile(float* pw, const float (&v)[kLaneRows][kLaneCols],
-                                           int ri, int cj) {
-#pragma unroll
-  for (int c = 0; c < kLaneCols; ++c)
-    *reinterpret_cast<float4*>(pw + (cj + 8 * c) * kPStride + kLaneRows * ri) =
-        make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
-}
-
-// acc[rr][c] += a[row 4 ri + rr] . b[column cj + 8 c] over depth dp (a multiple
-// of 4). Per step of 4 a lane reads 4 row vectors (4 addresses over the warp,
-// multicast) and 8 column vectors (8 consecutive padded rows: conflict-free)
-// for 128 multiply-adds.
-__device__ __forceinline__ void tile_dot(float (&acc)[kLaneRows][kLaneCols], const float4* a4,
-                                         const float4* b4, int s4, int dp, int ri, int cj) {
-#pragma unroll
-  for (int rr = 0; rr < kLaneRows; ++rr)
-#pragma unroll
-    for (int c = 0; c < kLaneCols; ++c) acc[rr][c] = 0.f;
-  a4 += kLaneRows * ri * s4;
-  b4 += cj * s4;
-  for (int c4 = 0; c4 < dp / 4; ++c4) {
-    float4 t[kLaneRows];
-#pragma unroll
-    for (int rr = 0; rr < kLaneRows; ++rr) t[rr] = a4[rr * s4 + c4];
-#pragma unroll
-    for (int c = 0; c < kLaneCols; ++c) {
-      const float4 f = b4[8 * c * s4 + c4];
-#pragma unroll
-      for (int rr = 0; rr < kLaneRows; ++rr) acc[rr][c] = dot4(t[rr], f, acc[rr][c]);
-    }
-  }
-}
-
-template <typename T, int CPT>
-__device__ __forceinline__ void write_rows(T* out, const float (&acc)[kRowsPerWarp][CPT],
-                                           size_t sample_row0, int row0, int nrows, int d,
-                                           int col0, int width, int lane) {
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int gr = row0 + r;
-    if (gr >= nrows) continue;  // uniform over the warp
-    T* o = out + (sample_row0 + gr) * d + col0;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      const int c = lane + 32 * cc;
-      if (c < width) from_f32(acc[r][cc], o + c);
-    }
-  }
-}
-
-// One pass. KEYS == false, the query pass: rows are queries (a1 = theta,
-// a2 = ct), columns are keys (b1 = phi, b2 = g), out1 = dtheta. KEYS == true,
-// the key pass: rows are keys (a1 = phi, a2 = g), columns are queries
-// (b1 = theta, b2 = ct), out1 = dphi and out2 = dg. lse and rdot are per query.
-// CPT1 / CPT2: out1 / out2 columns per lane; a block's column tiles are t1 and
-// t2 wide, tile blockIdx.y of each (a block past an output's last tile skips it).
-template <typename T, bool KEYS, int CPT1, int CPT2>
-__global__ void __launch_bounds__(kThreads, 1)
-sa_attention_bwd_kernel(const T* __restrict__ a1, const T* __restrict__ a2,
-                        const T* __restrict__ b1, const T* __restrict__ b2,
-                        const float* __restrict__ lse, const float* __restrict__ rdot,
-                        T* __restrict__ out1, T* __restrict__ out2, int rtiles, int nrows,
-                        int ncols, int d1, int d2, int t1, int t2) {
-  extern __shared__ float4 smem4[];
-  const int d1p = round4(d1), d2p = round4(d2);
-  const int st1 = row_stride(d1p), st2 = row_stride(d2p);
-  float* a1s = reinterpret_cast<float*>(smem4);   // kTileRows x st1
-  float* b1s = a1s + kTileRows * st1;             // kChunk x st1
-  float* a2s = b1s + kChunk * st1;                // kTileRows x st2
-  float* b2s = a2s + kTileRows * st2;             // kChunk x st2
-  float* ps = b2s + kChunk * st2;                 // kWarps x kChunk x kPStride
-
-  const int b = blockIdx.x / rtiles;
-  const int row0 = (blockIdx.x % rtiles) * kTileRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int col1 = blockIdx.y * t1, w1 = min(t1, d1 - col1);   // w1 <= 0: no out1 tile here
-  const int col2 = blockIdx.y * t2, w2 = min(t2, d2 - col2);
-  const int nq = KEYS ? ncols : nrows;                          // queries per sample
-
-  const T* a1b = a1 + (size_t)b * nrows * d1;
-  const T* a2b = a2 + (size_t)b * nrows * d2;
-  const T* b1b = b1 + (size_t)b * ncols * d1;
-  const T* b2b = b2 + (size_t)b * ncols * d2;
-  const float* lseb = lse + (size_t)b * nq;
-  const float* rdb = rdot + (size_t)b * nq;
-
-  stage_rows(a1s, a1b, kTileRows, row0, nrows, d1, d1p, st1, tid);
-  stage_rows(a2s, a2b, kTileRows, row0, nrows, d2, d2p, st2, tid);
-
-  const int wrow0 = row0 + warp * kRowsPerWarp;
-  const int ri = lane >> 3, cj = lane & 7;   // this lane's rows 4 ri + rr, columns cj + 8 c
-  // Query pass: the statistics of this lane's four rows.
-  float lse_row[kLaneRows], rd_row[kLaneRows];
-#pragma unroll
-  for (int rr = 0; rr < kLaneRows; ++rr) {
-    const int gr = wrow0 + kLaneRows * ri + rr;
-    const bool ok = !KEYS && gr < nrows;
-    lse_row[rr] = ok ? lseb[gr] : 0.f;
-    rd_row[rr] = ok ? rdb[gr] : 0.f;
-  }
-
-  const int s41 = st1 / 4, s42 = st2 / 4;
-  const float4* a14 = reinterpret_cast<const float4*>(a1s) + warp * kRowsPerWarp * s41;
-  const float4* a24 = reinterpret_cast<const float4*>(a2s) + warp * kRowsPerWarp * s42;
-  const float4* b14 = reinterpret_cast<const float4*>(b1s);
-  const float4* b24 = reinterpret_cast<const float4*>(b2s);
-  float* pw = ps + warp * kChunk * kPStride;
-  const float4* pw4 = reinterpret_cast<const float4*>(pw);
-
-  float acc1[kRowsPerWarp][CPT1];
-  float acc2[kRowsPerWarp][CPT2];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-    for (int cc = 0; cc < CPT1; ++cc) acc1[r][cc] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < CPT2; ++cc) acc2[r][cc] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < ncols; j0 += kChunk) {
-    __syncthreads();  // the previous chunk is no longer read
-    stage_rows(b1s, b1b, kChunk, j0, ncols, d1, d1p, st1, tid);
-    stage_rows(b2s, b2b, kChunk, j0, ncols, d2, d2p, st2, tid);
-    __syncthreads();  // also orders the row tiles before their first read
-
-    // Key pass: the statistics belong to this lane's eight columns (queries).
-    bool valid[kLaneCols];
-    float lse_col[kLaneCols], rd_col[kLaneCols];
-#pragma unroll
-    for (int c = 0; c < kLaneCols; ++c) {
-      const int gj = j0 + cj + 8 * c;
-      valid[c] = gj < ncols;
-      lse_col[c] = (KEYS && valid[c]) ? lseb[gj] : 0.f;
-      rd_col[c] = (KEYS && valid[c]) ? rdb[gj] : 0.f;
-    }
-
-    // beta of this lane's 4 rows x 8 columns: exp(s - lse), 0 past the edge.
-    float p[kLaneRows][kLaneCols];
-    tile_dot(p, a14, b14, s41, d1p, ri, cj);
-#pragma unroll
-    for (int rr = 0; rr < kLaneRows; ++rr)
-#pragma unroll
-      for (int c = 0; c < kLaneCols; ++c)
-        p[rr][c] = valid[c] ? __expf(p[rr][c] - (KEYS ? lse_col[c] : lse_row[rr])) : 0.f;
-
-    // dbeta of the same tile, then ds = beta * (dbeta - rowsum(dbeta * beta)).
-    float ds[kLaneRows][kLaneCols];
-    tile_dot(ds, a24, b24, s42, d2p, ri, cj);
-#pragma unroll
-    for (int rr = 0; rr < kLaneRows; ++rr)
-#pragma unroll
-      for (int c = 0; c < kLaneCols; ++c)
-        ds[rr][c] = p[rr][c] * (ds[rr][c] - (KEYS ? rd_col[c] : rd_row[rr]));
-
-    const int ncj = min(kChunk, ncols - j0);
-    store_tile(pw, ds, ri, cj);
-    __syncwarp();
-    if (w1 > 0) accumulate<CPT1>(acc1, pw4, b1s, st1, col1, w1, ncj, lane);
-    __syncwarp();  // the tile is rewritten below or in the next chunk
-    if (KEYS && w2 > 0) {
-      store_tile(pw, p, ri, cj);
-      __syncwarp();
-      accumulate<CPT2>(acc2, pw4, b2s, st2, col2, w2, ncj, lane);
-      __syncwarp();
-    }
-  }
-
-  const size_t sample_row0 = (size_t)b * nrows;
-  if (w1 > 0) write_rows<T, CPT1>(out1, acc1, sample_row0, wrow0, nrows, d1, col1, w1, lane);
-  if (KEYS && w2 > 0)
-    write_rows<T, CPT2>(out2, acc2, sample_row0, wrow0, nrows, d2, col2, w2, lane);
-}
-
-template <typename T, bool KEYS, int CPT1, int CPT2>
-cudaError_t launch_pass(const T* a1, const T* a2, const T* b1, const T* b2, const float* lse,
-                        const float* rdot, T* out1, T* out2, int b, int nrows, int ncols,
-                        int d1, int d2, int t1, int t2, int ytiles, size_t smem,
-                        cudaStream_t stream) {
-  auto kernel = sa_attention_bwd_kernel<T, KEYS, CPT1, CPT2>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int rtiles = (nrows + kTileRows - 1) / kTileRows;
-  const dim3 grid((unsigned)b * (unsigned)rtiles, ytiles);
-  kernel<<<grid, kThreads, smem, stream>>>(a1, a2, b1, b2, lse, rdot, out1, out2, rtiles,
-                                           nrows, ncols, d1, d2, t1, t2);
+cudaError_t launch(const T* ct, const T* out, float* rdot, long long rows, int dv,
+                   cudaStream_t stream) {
+  rowdot_kernel<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+      ct, out, rdot, rows, dv);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* theta_, const void* phi_, const void* g_, const void* out_,
-                   const void* ct_, const float* lse, float* rdot, void* dtheta_, void* dphi_,
-                   void* dg_, int b, int n, int m, int dk, int dv, cudaStream_t stream) {
-  const T* theta = static_cast<const T*>(theta_);
-  const T* phi = static_cast<const T*>(phi_);
-  const T* g = static_cast<const T*>(g_);
-  const T* ct = static_cast<const T*>(ct_);
-  T* dtheta = static_cast<T*>(dtheta_);
-  T* dphi = static_cast<T*>(dphi_);
-  T* dg = static_cast<T*>(dg_);
-  const size_t smem = sizeof(float) * smem_floats(dk, dv);
-
-  const long long rows = (long long)b * n;
-  rowdot_kernel<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
-      ct, static_cast<const T*>(out_), rdot, rows, dv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  // Equal column tiles of at most kMaxT1 (dk-wide outputs) and kMaxT2 (dg).
-  const int nt1 = (dk + kMaxT1 - 1) / kMaxT1, t1 = (dk + nt1 - 1) / nt1;
-  const int nt2 = (dv + kMaxT2 - 1) / kMaxT2, t2 = (dv + nt2 - 1) / nt2;
-  const bool wide1 = t1 > 32, wide2 = t2 > 96;
-
-  // Query pass: dtheta.
-  err = wide1 ? launch_pass<T, false, 2, 1>(theta, ct, phi, g, lse, rdot, dtheta, nullptr, b,
-                                            n, m, dk, dv, t1, t2, nt1, smem, stream)
-              : launch_pass<T, false, 1, 1>(theta, ct, phi, g, lse, rdot, dtheta, nullptr, b,
-                                            n, m, dk, dv, t1, t2, nt1, smem, stream);
-  if (err != cudaSuccess) return err;
-
-  // Key pass: dphi and dg.
-  const int yt = nt1 > nt2 ? nt1 : nt2;
-#define WGS_KEY_PASS(C1, C2)                                                              \
-  launch_pass<T, true, C1, C2>(phi, g, theta, ct, lse, rdot, dphi, dg, b, m, n, dk, dv, t1, \
-                               t2, yt, smem, stream)
-  if (wide1) return wide2 ? WGS_KEY_PASS(2, 4) : WGS_KEY_PASS(2, 3);
-  return wide2 ? WGS_KEY_PASS(1, 4) : WGS_KEY_PASS(1, 3);
-#undef WGS_KEY_PASS
-}
-
-
-}  // namespace cc
+}  // namespace rowdot
 
 // ---------------------------------------------------------------------------
 // bf16 design: both passes on the tensor cores.
@@ -795,10 +437,8 @@ cudaError_t launch(const void* theta_, const void* phi_, const void* g_, const v
   bf16* dg = static_cast<bf16*>(dg_);
   const size_t smem = smem_bytes(dk, dv);
 
-  const long long rows = (long long)b * n;
-  cc::rowdot_kernel<bf16><<<(unsigned)((rows + cc::kWarps - 1) / cc::kWarps), cc::kThreads, 0,
-                            stream>>>(ct, static_cast<const bf16*>(out_), rdot, rows, dv);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      rowdot::launch(ct, static_cast<const bf16*>(out_), rdot, (long long)b * n, dv, stream);
   if (err != cudaSuccess) return err;
 
   int nt1, nt2;
@@ -823,54 +463,515 @@ cudaError_t launch(const void* theta_, const void* phi_, const void* g_, const v
 
 }  // namespace tc
 
-// Largest dk the kernel takes: the forward kernel's.
-extern "C" int sa_attention_bwd_max_dk() { return cc::kMaxDk; }
+// ---------------------------------------------------------------------------
+// f32 design: both passes on the tensor cores in split precision.
+//
+// The bf16 design above with float32 operands carried as 3xTF32 pieces on
+// mma.sync m16n8k8 (csrc/tc_tf32.cuh): all five products (s, dbeta, dtheta,
+// dphi, dg) are three TF32 products each (lo hi, hi lo, hi hi) into f32
+// accumulators, which holds the float32 checks where one TF32 product does not
+// (tests/test_torch_attn_f32_split_numerics.py).
+// - The same two passes of one template, the same row-dot prologue, no
+//   atomics (repeats are bit-equal); s and dbeta recomputed from the saved lse.
+// - The row operands are staged once in shared memory as float32 and read as
+//   split A fragments at every step. The column operands stream through shared
+//   memory in chunks of 64 (cp.async, 16 or 4 bytes a copy). Rows are padded
+//   to an odd number of 16-byte units (conflict-free scalar fragment loads).
+// - Where the shared memory holds them (REC; dk=24 with dv up to 96, 223 KB),
+//   each landed chunk is split once by the block into 16-byte records of B
+//   fragments (tc_tf32.cuh), one set for the s and dbeta products and one for
+//   the output products, and the next chunk's copies start while this one is
+//   multiplied: no warp splits a column value, where without records each of
+//   the 8 warps splits every value it reads. Otherwise one chunk buffer, split
+//   as read, whose next chunk is fetched after the current one is used (two
+//   buffers were no faster, scripts/ablate_attention_cuda.py); it sets the dv
+//   limit (264 at dk=24).
+// - Both passes take a chunk in steps of 32 columns: s and dbeta of 16 x 32
+//   are 32 f32 registers a lane. ds and beta stay float32 values (no rounding
+//   to a narrower type) and are split from the accumulator registers straight
+//   into A fragments, one k8 step per n8 tile, with the step's columns in the
+//   permuted order of tc_tf32.cuh; the B fragments of the output products are
+//   the chunk rows of the same columns.
+// - Each k8 step sweeps its tiles three times (every lo hi product, every hi
+//   lo, every hi hi), so that no product waits for the one before it. s sums
+//   its steps as the forward kernel does (apart above dk = 32), so that beta
+//   is recomputed by the same sums as the forward's lse. At one key dtheta and
+//   dphi are set to 0 after the passes (the softmax is constant).
+// - The accumulators are added into the outputs in float32 every kFlushChunks
+//   chunks and start again from 0: the tensor cores' float32 accumulation
+//   rounds toward zero, so a chain over all of N (the key pass) or M would
+//   shrink the gradients. The order is fixed, so repeats stay bit-equal.
+namespace tf {
 
-// Largest dv the kernel takes beside this dk, for either operand type (both
-// row operands are resident in shared memory: the f32 design's limit binds,
-// the bf16 design's tiles are smaller); 0 if dk itself does not fit.
+using namespace tc;   // the shared helpers of tc_bf16.cuh and tc_tf32.cuh
+
+constexpr int kWarps = 8;               // 16 rows each
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileRows = kWarps * 16;   // rows a block owns
+constexpr int kStep = 32;                // columns of a chunk taken at a time
+constexpr int kMaxT1 = 64;               // dk-wide output columns per block (<= 8 n8 tiles)
+constexpr int kMaxT2 = 128;              // dg columns a block takes (<= 16 n8 tiles)
+constexpr int kMaxDk = 192;              // the forward kernel's
+constexpr int kSmemBytes = 227 * 1024;
+
+// Shared memory of a pass: the row tile, one chunk buffer and the chunk's lse
+// and rdot (the key pass's).
+__host__ __device__ constexpr size_t smem_bytes(int dk, int dv) {
+  return (size_t)(kTileRows + kChunk) * (f32_row_units(dk) + f32_row_units(dv)) * 16
+         + (size_t)2 * kChunk * sizeof(float);
+}
+
+// The same with records: the chunk's records for the s and dbeta products
+// (k_records) and the output products (pair_records), and a copy of its
+// statistics.
+__host__ __device__ constexpr size_t smem_bytes_rec(int dk, int dv) {
+  return smem_bytes(dk, dv) + (size_t)2 * kChunk * sizeof(float)
+         + (size_t)kChunk * (k_records(dk) + k_records(dv)) * 16
+         + (size_t)(kChunk / 2) * (pair_records(dk) + pair_records(dv)) * 16;
+}
+
+// One pass, as the bf16 design's: KEYS == false, the query pass (rows are
+// queries: a1 = theta, a2 = ct; columns are keys: b1 = phi, b2 = g; out1 =
+// dtheta); KEYS == true, the key pass (rows are keys: a1 = phi, a2 = g;
+// columns are queries: b1 = theta, b2 = ct; out1 = dphi, out2 = dg). NT1 /
+// NT2: n8 tiles of the widest out1 / out2 column tile (t1, t2 wide, multiples
+// of 8). REC: the chunks as records. vec: bit i set if operand i (a1, a2,
+// b1, b2) is staged by 16-byte copies.
+template <bool KEYS, int NT1, int NT2, bool REC>
+__global__ void __launch_bounds__(kThreads)
+sa_attention_bwd_tf_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
+                           const float* __restrict__ b1, const float* __restrict__ b2,
+                           const float* __restrict__ lse, const float* __restrict__ rdot,
+                           float* __restrict__ out1, float* __restrict__ out2, int rtiles,
+                           int nrows, int ncols, int d1, int d2, int t1, int t2, int vec) {
+  extern __shared__ uint4 smem[];
+  const int s1 = 4 * f32_row_units(d1), s2 = 4 * f32_row_units(d2);   // row strides, floats
+  const int ks1 = (d1 + 7) / 8, ks2 = (d2 + 7) / 8;                    // k8 steps
+  float* a1s = reinterpret_cast<float*>(smem);   // kTileRows rows x s1
+  float* a2s = a1s + kTileRows * s1;             // kTileRows rows x s2
+  float* bs = a2s + kTileRows * s2;              // kChunk x s1, kChunk x s2
+  float* stats = bs + kChunk * (s1 + s2);        // lse[64], rdot[64]
+  // REC: the statistics' copy, then the records.
+  float* stc = stats + 2 * kChunk;
+  const int rk1 = k_records(d1), rk2 = k_records(d2);
+  const int rn1 = pair_records(d1), rn2 = pair_records(d2);
+  uint4* k1rec = reinterpret_cast<uint4*>(stc + 2 * kChunk);   // kChunk x rk1
+  uint4* k2rec = k1rec + kChunk * rk1;                          // kChunk x rk2
+  uint4* n1rec = k2rec + kChunk * rk2;                          // kChunk / 2 x rn1
+  uint4* n2rec = n1rec + (kChunk / 2) * rn1;                    // kChunk / 2 x rn2
+
+  const int b = blockIdx.x / rtiles;
+  const int row0 = (blockIdx.x % rtiles) * kTileRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int col1 = blockIdx.y * t1, w1 = min(t1, d1 - col1);   // w1 <= 0: no out1 tile here
+  const int col2 = blockIdx.y * t2, w2 = min(t2, d2 - col2);
+  const int nt1 = w1 > 0 ? (w1 + 7) / 8 : 0;                   // n8 tiles computed
+  const int nt2 = (KEYS && w2 > 0) ? (w2 + 7) / 8 : 0;
+  const int nq = KEYS ? ncols : nrows;                          // queries per sample
+
+  const float* a1b = a1 + (size_t)b * nrows * d1;
+  const float* a2b = a2 + (size_t)b * nrows * d2;
+  const float* b1b = b1 + (size_t)b * ncols * d1;
+  const float* b2b = b2 + (size_t)b * ncols * d2;
+  const float* lseb = lse + (size_t)b * nq;
+  const float* rdb = rdot + (size_t)b * nq;
+
+  // The row tile, in the same copy group as the first chunk.
+  stage_rows_f32<kThreads>(a1s, a1b, kTileRows, row0, nrows, d1, d1, f32_units(d1), s1 / 4,
+                           vec & 1, tid);
+  stage_rows_f32<kThreads>(a2s, a2b, kTileRows, row0, nrows, d2, d2, f32_units(d2), s2 / 4,
+                           vec & 2, tid);
+
+  auto fetch_chunk = [&](int c) {
+    stage_rows_f32<kThreads>(bs, b1b, kChunk, c * kChunk, ncols, d1, d1, f32_units(d1),
+                             s1 / 4, vec & 4, tid);
+    stage_rows_f32<kThreads>(bs + kChunk * s1, b2b, kChunk, c * kChunk, ncols, d2, d2,
+                             f32_units(d2), s2 / 4, vec & 8, tid);
+    if (KEYS) {   // lse of the chunk's queries, then their rdot
+      for (int i = tid; i < 2 * kChunk; i += kThreads) {
+        const int q = c * kChunk + (i & (kChunk - 1));
+        const float* src = i < kChunk ? lseb : rdb;
+        cp_async4(smem_addr(stats + i), q < ncols ? src + q : src,
+                  q < ncols);
+      }
+    }
+  };
+  // REC: the landed chunk as records, each value split once; the statistics copied.
+  auto split_chunk = [&]() {
+    const float* r1 = bs;
+    const float* r2 = bs + kChunk * s1;
+    auto k_side = [&](const float* raw, int st, int ks, int rk, uint4* rec) {
+      const int np = 4 * ks;
+      const float inv = 1.f / np;
+      for (int i = tid; i < kChunk * np; i += kThreads) {
+        const int col = quot(i, inv), r = i - col * np;
+        const float* src = raw + col * st + 8 * (r >> 2) + (r & 3);
+        rec[col * rk + r] = split_pair(src[0], src[4]);
+      }
+    };
+    auto n_side = [&](const float* raw, int st, int ks, int rn, uint4* rec) {
+      const int ng = 8 * ks;
+      const float inv = 1.f / ng;
+      for (int i = tid; i < (kChunk / 2) * ng; i += kThreads) {
+        const int pr = quot(i, inv), c = i - pr * ng;
+        const float* src = raw + 2 * pr * st + c;
+        rec[pr * rn + c] = split_pair(src[0], src[st]);
+      }
+    };
+    k_side(r1, s1, ks1, rk1, k1rec);
+    k_side(r2, s2, ks2, rk2, k2rec);
+    n_side(r1, s1, ks1, rn1, n1rec);
+    if (KEYS) {
+      n_side(r2, s2, ks2, rn2, n2rec);
+      for (int i = tid; i < 2 * kChunk; i += kThreads) stc[i] = stats[i];
+    }
+  };
+
+  // Query pass: the statistics of this lane's rows r and r + 8, lse times log2(e).
+  const int r0 = row0 + warp * 16 + gq;
+  float lse_r[2] = {0.f, 0.f}, rd_r[2] = {0.f, 0.f};
+  if (!KEYS) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < nrows) {
+        lse_r[h] = lseb[r0 + 8 * h] * kLog2e;
+        rd_r[h] = rdb[r0 + 8 * h];
+      }
+  }
+
+  float acc1[NT1][4], acc2[NT2][4];
+#pragma unroll
+  for (int t = 0; t < NT1; ++t) acc1[t][0] = acc1[t][1] = acc1[t][2] = acc1[t][3] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NT2; ++t) acc2[t][0] = acc2[t][1] = acc2[t][2] = acc2[t][3] = 0.f;
+
+  // This warp's A fragment rows in the row tile.
+  const float* a1w = a1s + (warp * 16 + gq) * s1 + tq;
+  const float* a2w = a2s + (warp * 16 + gq) * s2 + tq;
+
+  // The accumulators added into the outputs in float32 (out += acc; rows
+  // past the edge are not written), then started again from 0.
+  bool flushed = false;   // the outputs hold partial sums
+  auto flush = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const size_t grow = (size_t)b * nrows + r;
+      float* orow1 = out1 + grow * d1 + col1;
+#pragma unroll
+      for (int t = 0; t < NT1; ++t)
+        if (t < nt1 && r < nrows) {
+          const int col = 8 * t + 2 * tq;
+          const float2 prev =
+              flushed ? load_pair(orow1, col, w1, d1 % 2 == 0) : make_float2(0.f, 0.f);
+          store_pair(orow1, col, w1, prev.x + acc1[t][2 * h], prev.y + acc1[t][2 * h + 1],
+                     d1 % 2 == 0);
+        }
+      if (!KEYS) continue;   // out2 (dg) is the key pass's
+      float* orow2 = out2 + grow * d2 + col2;
+#pragma unroll
+      for (int t = 0; t < NT2; ++t)
+        if (t < nt2 && r < nrows) {
+          const int col = 8 * t + 2 * tq;
+          const float2 prev =
+              flushed ? load_pair(orow2, col, w2, d2 % 2 == 0) : make_float2(0.f, 0.f);
+          store_pair(orow2, col, w2, prev.x + acc2[t][2 * h], prev.y + acc2[t][2 * h + 1],
+                     d2 % 2 == 0);
+        }
+    }
+#pragma unroll
+    for (int t = 0; t < NT1; ++t) acc1[t][0] = acc1[t][1] = acc1[t][2] = acc1[t][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT2; ++t) acc2[t][0] = acc2[t][1] = acc2[t][2] = acc2[t][3] = 0.f;
+    flushed = true;
+  };
+
+  const int nchunks = (ncols + kChunk - 1) / kChunk;
+  fetch_chunk(0);
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_all();                 // the row tile and chunk c have landed
+    __syncthreads();                     // (everyone's), and the records are free
+    if (REC) {
+      split_chunk();
+      __syncthreads();                   // the records are written, the buffer free
+      if (c + 1 < nchunks) fetch_chunk(c + 1);   // in flight while this chunk is multiplied
+      cp_async_commit();
+    }
+    const float* b1c = bs;
+    const float* b2c = bs + kChunk * s1;
+    const float* st = REC ? stc : stats;
+
+    constexpr int kTiles = kStep / 8;     // n8 tiles of s and dbeta per step
+#pragma unroll 1
+    for (int hc = 0; hc < kChunk; hc += kStep) {   // first chunk column of the step
+      // S = A1 B1^T and dP = A2 B2^T, 16 rows x kStep columns each.
+      float s[kTiles][4], dp[kTiles][4];
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+      for (int k8 = 0; k8 < ks1; ++k8) {
+        const float* ar = a1w + 8 * k8;
+        const FragA af = frag_a(ar[0], ar[8 * s1], ar[4], ar[8 * s1 + 4]);
+        if (REC) {
+          uint4 bq[kTiles];
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) bq[j] = k1rec[(hc + 8 * j + gq) * rk1 + 4 * k8 + tq];
+          mma3_records<kTiles>(s, af, bq, kTiles);
+        } else {
+          float b0[kTiles], b1[kTiles];
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) {
+            const float* br = b1c + (hc + 8 * j + gq) * s1 + 8 * k8 + tq;
+            b0[j] = br[0];
+            b1[j] = br[4];
+          }
+          if (ks1 > kChainSteps)   // as the forward kernel sums the logits above dk = 32
+            mma3_tiles_add<kTiles>(s, af, b0, b1, kTiles);
+          else
+            mma3_tiles<kTiles>(s, af, b0, b1, kTiles);
+        }
+      }
+      for (int k8 = 0; k8 < ks2; ++k8) {
+        const float* ar = a2w + 8 * k8;
+        const FragA af = frag_a(ar[0], ar[8 * s2], ar[4], ar[8 * s2 + 4]);
+        if (REC) {
+          uint4 bq[kTiles];
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) bq[j] = k2rec[(hc + 8 * j + gq) * rk2 + 4 * k8 + tq];
+          mma3_records<kTiles>(dp, af, bq, kTiles);
+        } else {
+          float b0[kTiles], b1[kTiles];
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) {
+            const float* br = b2c + (hc + 8 * j + gq) * s2 + 8 * k8 + tq;
+            b0[j] = br[0];
+            b1[j] = br[4];
+          }
+          mma3_tiles<kTiles>(dp, af, b0, b1, kTiles);
+        }
+      }
+
+      // Per n8 tile j (a k8 step of the output products): beta = exp(s - lse)
+      // and ds = beta (dbeta - rdot), 0 past the last column, split into A
+      // fragments with columns 2tq (k tq) and 2tq + 1 (k tq + 4).
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        const int col = hc + 8 * j + 2 * tq;     // chunk column of s[j][0], s[j][2]
+        float lc[2] = {0.f, 0.f}, rc[2] = {0.f, 0.f};
+        if (KEYS) {
+          const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+          const float2 r2 = *reinterpret_cast<const float2*>(st + kChunk + col);
+          lc[0] = l2.x * kLog2e;
+          lc[1] = l2.y * kLog2e;
+          rc[0] = r2.x;
+          rc[1] = r2.y;
+        }
+        float beta[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, w = e & 1;
+          const bool valid = c * kChunk + col + w < ncols;
+          const float l = KEYS ? lc[w] : lse_r[h];
+          const float r = KEYS ? rc[w] : rd_r[h];
+          beta[e] = valid ? ex2(fmaf(s[j][e], kLog2e, -l)) : 0.f;
+          dsv[e] = valid ? beta[e] * (dp[j][e] - r) : 0.f;
+        }
+        // out1 += dS B1 (B1 rows are the k index: the chunk rows of these columns).
+        const FragA da = frag_a(dsv[0], dsv[2], dsv[1], dsv[3]);
+        const int pair = hc / 2 + 4 * j + tq;   // the chunk rows 2 pair, 2 pair + 1
+        if (REC) {
+          const uint4* k1 = n1rec + pair * rn1 + col1 + gq;
+          uint4 c0[NT1];
+#pragma unroll
+          for (int t = 0; t < NT1; ++t)
+            if (t < nt1) c0[t] = k1[8 * t];
+          mma3_records<NT1>(acc1, da, c0, nt1);
+        } else {
+          const float* k1 = b1c + 2 * pair * s1 + col1 + gq;
+          float c0[NT1], c1[NT1];
+#pragma unroll
+          for (int t = 0; t < NT1; ++t)
+            if (t < nt1) {
+              c0[t] = k1[8 * t];
+              c1[t] = k1[s1 + 8 * t];
+            }
+          mma3_tiles<NT1>(acc1, da, c0, c1, nt1);
+        }
+        // Key pass: out2 += P B2.
+        if (KEYS) {
+          const FragA pa = frag_a(beta[0], beta[2], beta[1], beta[3]);
+          if (REC) {
+            const uint4* k2 = n2rec + pair * rn2 + col2 + gq;
+            uint4 e0[NT2];
+#pragma unroll
+            for (int t = 0; t < NT2; ++t)
+              if (t < nt2) e0[t] = k2[8 * t];
+            mma3_records<NT2>(acc2, pa, e0, nt2);
+          } else {
+            const float* k2 = b2c + 2 * pair * s2 + col2 + gq;
+            float e0[NT2], e1[NT2];
+#pragma unroll
+            for (int t = 0; t < NT2; ++t)
+              if (t < nt2) {
+                e0[t] = k2[8 * t];
+                e1[t] = k2[s2 + 8 * t];
+              }
+            mma3_tiles<NT2>(acc2, pa, e0, e1, nt2);
+          }
+        }
+      }
+    }
+    if (!REC) {
+      __syncthreads();   // the buffer is refilled
+      if (c + 1 < nchunks) fetch_chunk(c + 1);
+      cp_async_commit();
+    }
+    if ((c + 1) % kFlushChunks == 0 || c + 1 == nchunks) flush();
+  }
+}
+
+template <bool KEYS, int NT1, int NT2, bool REC>
+cudaError_t launch_pass(const float* a1, const float* a2, const float* b1, const float* b2,
+                        const float* lse, const float* rdot, float* out1, float* out2, int b,
+                        int nrows, int ncols, int d1, int d2, int t1, int t2, int ytiles,
+                        cudaStream_t stream) {
+  auto kernel = sa_attention_bwd_tf_kernel<KEYS, NT1, NT2, REC>;
+  const size_t smem = REC ? smem_bytes_rec(d1, d2) : smem_bytes(d1, d2);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec = (d1 % 4 == 0 && aligned16(a1) ? 1 : 0) | (d2 % 4 == 0 && aligned16(a2) ? 2 : 0) |
+                  (d1 % 4 == 0 && aligned16(b1) ? 4 : 0) | (d2 % 4 == 0 && aligned16(b2) ? 8 : 0);
+  const int rtiles = (nrows + kTileRows - 1) / kTileRows;
+  const dim3 grid((unsigned)b * (unsigned)rtiles, ytiles);
+  kernel<<<grid, kThreads, smem, stream>>>(a1, a2, b1, b2, lse, rdot, out1, out2, rtiles, nrows,
+                                           ncols, d1, d2, t1, t2, vec);
+  return cudaGetLastError();
+}
+
+// Column tiles of at most `most` columns, each a multiple of 8 (whole n8
+// tiles); returns the tile width and sets the number of tiles.
+inline int column_tiles(int d, int most, int* ntiles) {
+  const int nt = (d + most - 1) / most;
+  const int t = ((d + nt - 1) / nt + 7) & ~7;
+  *ntiles = (d + t - 1) / t;
+  return t;
+}
+
+// The two passes. With records (dk <= 32 and dv <= 96: BigGAN's training
+// shape): one dk-wide column tile of at most 4 n8 tiles, dg tiles of up to 8
+// or 12 n8 tiles. Without: dk-wide tiles of up to 8, dg tiles of up to 8 or 16.
+template <bool REC>
+cudaError_t passes(const float* theta, const float* phi, const float* g, const float* ct,
+                   const float* lse, const float* rdot, float* dtheta, float* dphi, float* dg,
+                   int b, int n, int m, int dk, int dv, cudaStream_t stream) {
+  int nt1, nt2;
+  const int t1 = column_tiles(dk, kMaxT1, &nt1);
+  const int t2 = column_tiles(dv, kMaxT2, &nt2);
+  const int yt = nt1 > nt2 ? nt1 : nt2;
+  const bool narrow2 = (t2 + 7) / 8 <= 8;
+  constexpr int NT1 = REC ? 4 : 8;
+  constexpr int NT2 = REC ? 12 : 16;
+
+  // Query pass: dtheta; then the key pass: dphi and dg.
+  cudaError_t err = launch_pass<false, NT1, 1, REC>(theta, ct, phi, g, lse, rdot, dtheta, nullptr,
+                                                    b, n, m, dk, dv, t1, t2, nt1, stream);
+  if (err != cudaSuccess) return err;
+  return narrow2 ? launch_pass<true, NT1, 8, REC>(phi, g, theta, ct, lse, rdot, dphi, dg, b, m,
+                                                  n, dk, dv, t1, t2, yt, stream)
+                 : launch_pass<true, NT1, NT2, REC>(phi, g, theta, ct, lse, rdot, dphi, dg, b,
+                                                    m, n, dk, dv, t1, t2, yt, stream);
+}
+
+cudaError_t launch(const void* theta_, const void* phi_, const void* g_, const void* out_,
+                   const void* ct_, const float* lse, float* rdot, void* dtheta_, void* dphi_,
+                   void* dg_, int b, int n, int m, int dk, int dv, cudaStream_t stream) {
+  const float* theta = static_cast<const float*>(theta_);
+  const float* phi = static_cast<const float*>(phi_);
+  const float* g = static_cast<const float*>(g_);
+  const float* ct = static_cast<const float*>(ct_);
+  float* dtheta = static_cast<float*>(dtheta_);
+  float* dphi = static_cast<float*>(dphi_);
+  float* dg = static_cast<float*>(dg_);
+
+  cudaError_t err =
+      rowdot::launch(ct, static_cast<const float*>(out_), rdot, (long long)b * n, dv, stream);
+  if (err != cudaSuccess) return err;
+
+  const bool rec = dk <= 32 && dv <= 96 && smem_bytes_rec(dk, dv) <= (size_t)kSmemBytes;
+  err = rec ? passes<true>(theta, phi, g, ct, lse, rdot, dtheta, dphi, dg, b, n, m, dk, dv, stream)
+            : passes<false>(theta, phi, g, ct, lse, rdot, dtheta, dphi, dg, b, n, m, dk, dv,
+                            stream);
+  if (err != cudaSuccess || m > 1) return err;
+  // One key: beta is 1 and ds = dbeta - rowsum(dbeta beta) is exactly 0, so
+  // dtheta and dphi are 0, where dbeta (split products) less rdot (the f32 row
+  // dot) leaves their last bits.
+  err = cudaMemsetAsync(dtheta, 0, (size_t)b * n * dk * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  return cudaMemsetAsync(dphi, 0, (size_t)b * m * dk * sizeof(float), stream);
+}
+
+}  // namespace tf
+
+// Largest dk the kernel takes: the forward kernel's.
+extern "C" int sa_attention_bwd_max_dk() { return tf::kMaxDk; }
+
+// Largest dv the kernel takes beside this dk: the smaller of the two designs'
+// limits. Both keep both row operands resident in shared memory; the f32
+// design's limit is that of one chunk buffer without records. 0 if dk itself
+// does not fit.
 extern "C" int sa_attention_bwd_max_dv(int dk) {
-  if (dk < 1 || dk > cc::kMaxDk) return 0;
+  if (dk < 1 || dk > tf::kMaxDk) return 0;
   int best = 0;
   for (int dv = 4; dv <= 4096; dv += 4)
-    if (sizeof(float) * cc::smem_floats(dk, dv) <= (size_t)cc::kSmemBytes &&
-        tc::smem_bytes(dk, dv) <= (size_t)tc::kSmemBytes)
+    if (tc::smem_bytes(dk, dv) <= (size_t)tc::kSmemBytes &&
+        tf::smem_bytes(dk, dv) <= (size_t)tf::kSmemBytes)
       best = dv;
   return best;
 }
 
-// Which design serves an operand type: the tensor cores for bf16, the CUDA
-// cores for f32.
+// Which design serves an operand type: both run on the tensor cores, bf16
+// operands as they are, f32 operands in split precision.
 extern "C" const char* sa_attention_bwd_design(int is_bf16) {
-  return is_bf16 ? "tensor cores, mma.sync bf16" : "CUDA cores";
+  return is_bf16 ? "tensor cores, mma.sync bf16" : "tensor cores, mma.sync 3xTF32";
+}
+
+// Shape checks of the entry below; cudaSuccess if the launch may go on.
+static cudaError_t check_shapes(int b, int n, int m, int dk, int dv, size_t smem,
+                                size_t smem_limit) {
+  if (b < 0 || n < 1 || dv < 1 || m < 1 || dk < 1 || dk > tf::kMaxDk || smem > smem_limit)
+    return cudaErrorInvalidValue;
+  const long long qblocks = (long long)b * ((n + tc::kTileRows - 1) / tc::kTileRows);
+  const long long kblocks = (long long)b * ((m + tc::kTileRows - 1) / tc::kTileRows);
+  if (qblocks > 2147483647LL || kblocks > 2147483647LL || (long long)b * n > 17179869176LL)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // C entry point (loaded with ctypes). theta (B, n, dk), phi (B, m, dk),
 // g (B, m, dv), out and ct (B, n, dv) and the results dtheta, dphi, dg (shaped
-// as theta, phi, g) are all f32 (is_bf16 == 0, the CUDA-core design) or all
-// bf16 (is_bf16 == 1, the tensor-core design); lse (B, n) is the forward
-// kernel's f32 row statistic and rdot (B, n) f32 scratch. All contiguous on
-// one device. Returns a cudaError_t; 0 is success.
+// as theta, phi, g) are all f32 (is_bf16 == 0, the split-precision
+// tensor-core design tf) or all bf16 (is_bf16 == 1, the bf16 tensor-core
+// design tc); lse (B, n) is the forward kernel's f32 row statistic and rdot
+// (B, n) f32 scratch. All contiguous on one device. Returns a cudaError_t; 0
+// is success.
 extern "C" int sa_attention_bwd_launch(const void* theta, const void* phi, const void* g,
                                        const void* out, const void* ct, const void* lse,
                                        void* rdot, void* dtheta, void* dphi, void* dg,
                                        int is_bf16, int b, int n, int m, int dk, int dv,
                                        void* stream) {
-  if (b < 0 || n < 1 || dv < 1 || m < 1 || dk < 1 || dk > cc::kMaxDk)
-    return (int)cudaErrorInvalidValue;
-  if (is_bf16 ? tc::smem_bytes(dk, dv) > (size_t)tc::kSmemBytes
-              : sizeof(float) * cc::smem_floats(dk, dv) > (size_t)cc::kSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  if (b == 0) return (int)cudaSuccess;
-  const long long qblocks = (long long)b * ((n + tc::kTileRows - 1) / tc::kTileRows);
-  const long long kblocks = (long long)b * ((m + tc::kTileRows - 1) / tc::kTileRows);
-  if (qblocks > 2147483647LL || kblocks > 2147483647LL || (long long)b * n > 17179869176LL)
-    return (int)cudaErrorInvalidValue;
+  cudaError_t err = is_bf16 ? check_shapes(b, n, m, dk, dv, tc::smem_bytes(dk, dv), tc::kSmemBytes)
+                            : check_shapes(b, n, m, dk, dv, tf::smem_bytes(dk, dv),
+                                           tf::kSmemBytes);
+  if (err != cudaSuccess || b == 0) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* r = static_cast<float*>(rdot);
-  const cudaError_t err = is_bf16
-      ? tc::launch(theta, phi, g, out, ct, l, r, dtheta, dphi, dg, b, n, m, dk, dv, s)
-      : cc::launch<float>(theta, phi, g, out, ct, l, r, dtheta, dphi, dg, b, n, m, dk, dv, s);
+  err = is_bf16 ? tc::launch(theta, phi, g, out, ct, l, r, dtheta, dphi, dg, b, n, m, dk, dv, s)
+                : tf::launch(theta, phi, g, out, ct, l, r, dtheta, dphi, dg, b, n, m, dk, dv, s);
   return (int)err;
 }

@@ -13,12 +13,20 @@ from one saved float32 per query (the row's log-sum-exp); it too writes no
 (B, N, M) matrix. Inputs, outputs and gradients are float32 or bfloat16.
 
 Each kernel has two designs, chosen inside its C launch function by the
-operands' type (:func:`design` and :func:`bwd_design` say which): bfloat16 runs
-on the tensor cores (``mma.sync`` with bf16 operands and float32
-accumulation; the softmax weights and, in the backward, ds are rounded to
-bf16 before their products, as the plain bf16 versions and the TPU kernels
-do), float32 on the CUDA cores in float32 (a float32 tensor-core product
-would be TF32, 10 mantissa bits).
+operands' type (:func:`design` and :func:`bwd_design` say which), both on the
+tensor cores (``mma.sync`` with float32 accumulation). bfloat16 operands are
+multiplied as they are (the softmax weights and, in the backward, ds are
+rounded to bf16 before their products, as the plain bf16 versions and the TPU
+kernels do). float32 operands are multiplied in split precision: each is
+carried as two TF32 pieces, hi and lo, and a product is three TF32 products
+(lo hi, hi lo, hi hi), which keeps about 22 bits of each operand; one TF32
+product alone keeps 11, too few for the float32 bounds
+(``tests/test_torch_attn_f32_split_numerics.py`` emulates both). The weights
+and ds stay float32 values there. The CUDA-core float32 designs these
+replaced stay in their own sources (``csrc/sa_attention_cuda_cores.cu``,
+``csrc/sa_attention_bwd_cuda_cores.cu``), bound by
+:mod:`warpedganspace_torch.ops.attn_cuda_cores` for comparison; nothing here
+reaches them.
 
 - :func:`sa_attention` is the entry point. On CPU tensors it runs the plain
   version :func:`warpedganspace_torch.ops.attn.sa_attention_plain` (and
@@ -31,9 +39,8 @@ would be TF32, 10 mantissa bits).
 - The forward kernel takes every N, M and dv (ragged edges are masked) and dk
   up to the limit its library reports. The backward kernel keeps both row
   operands in shared memory, so besides the same dk limit it has a dv limit
-  that depends on dk (dk=24 with dv=96 and dk=48 with dv=192 fit; the
-  float32 design's limit, which the bfloat16 design exceeds at every dk);
-  above the limits the wrapper raises.
+  that depends on dk (dk=24 with dv up to 264 and dk=48 with dv=192 fit; the
+  smaller of the two designs' limits); above the limits the wrapper raises.
 
 ``launches`` counts forward-kernel launches and ``bwd_launches`` backward
 launches (one per call: the backward's two passes and its row-dot prologue are
