@@ -14,7 +14,7 @@ exit and no result line:
    source, started together (the CUDA-core designs kept for comparison too);
 3. kernels, each against its plain PyTorch version and timed with CUDA events
    (plain, kernel, kernel, plain):
-   - the RBF warp at the five shapes of ``scripts/ablate_warp_cuda.py``
+   - the RBF warp at the five shapes of ``ops/rbf_cuda_cores.py`` (``SHAPES``)
      (K=200 sets, 2N=1024 support vectors, d=512 at R=64 rows = 32 codes x
      +-, and at R=16, 12 and 2 as the eval pools and the ProgGAN CLI give
      it; BigGAN's K=120, 2N=512, d=120 at R=8) with f32 and bf16 set
@@ -52,8 +52,12 @@ exit and no result line:
      writing only the RGB; B=4) in f32 and bf16, at the shapes the StyleGAN2
      path below gives it (a bf16 render batch of 16, one f32 sample), at C=16,
      at border-only and at ragged odd shapes, x2 written and not, with noise
-     weights != 0, random biases and s, d away from 1; no one PyTorch call
-     computes a section;
+     weights != 0, random biases and s, d away from 1; in f32 (its
+     split-precision tensor-core design, 3xTF32) also the CUDA-core design it
+     replaced, through that design's own C entry, in turns at B=4 and B=1,
+     with two bounds (the least arithmetic at the TF32 tensor cores and on the
+     CUDA cores), and at B=4 each route's signed mean error against a float64
+     section; no one PyTorch call computes a section;
 4. generators with random weights from a seed: StyleGAN2-1024 in W space
    (B=4), BigGAN-128 at full width (class 239, B=16) and ProgGAN-1024 at full
    width (B=4), each in f32 and bf16 and in f32 on the card against f32 on
@@ -70,7 +74,7 @@ exit and no result line:
    tails, to show the comparison would see them;
 5. the port's main paths through its CLIs, ``sample_gan`` then
    ``traverse_latent_space``: a K=4, D=512 StyleGAN2-1024 W-space experiment
-   for 3 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
+   for 2 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
    class-239 experiment for 5 steps each way at bf16 (1,320 frames), and the
    K=200, D=512 ProgGAN-1024 Z-space experiment for 3 steps each way at bf16
    (1,400 frames of 1024^2). Each kernel's launch count is set to 0 just
@@ -169,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import math
 import os
@@ -180,7 +185,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 # The three traversals the CLIs run (sets, dipoles, latent width, steps, eps, batch).
-SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=3, eps=0.2, batch=16, res=1024,
+SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=2, eps=0.2, batch=16, res=1024,
            gif=True, pool="smoke")
 BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=5, eps=0.15, batch=64, res=128,
               gif=False, pool="smoke_biggan")
@@ -364,31 +369,19 @@ def attn_bounds(b, n, m, dk, dv, elem: int, backward: bool = False) -> dict:
     return res
 
 
-def warp_ablation():
-    """``scripts/ablate_warp_cuda.py``: the warp's shapes, its cost and the
-    CUDA-core design it replaced, built for comparison."""
-    scripts = osp.join(osp.dirname(osp.abspath(__file__)), "scripts")
-    if scripts not in sys.path:
-        sys.path.insert(0, scripts)
-    import ablate_warp_cuda
-
-    return ablate_warp_cuda
-
-
 def phase_warp_kernel(card: str) -> dict:
     import torch
 
     from warpedganspace_torch.models.support_sets import SupportSets
-    from warpedganspace_torch.ops import rbf_cuda
+    from warpedganspace_torch.ops import rbf_cuda, rbf_cuda_cores
 
-    ablate = warp_ablation()
-    cuda_cores = ablate.cuda_cores()
+    cuda_cores = rbf_cuda_cores.cuda_cores()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     sets, shapes = {}, []
     with torch.no_grad():
         # The table's shapes: the timed R=64 and the traversals' own R.
-        for label, k, n2, d, rows in ablate.SHAPES:
+        for label, k, n2, d, rows in rbf_cuda_cores.SHAPES:
             if (k, n2, d) not in sets:
                 sets[(k, n2, d)] = SupportSets(k, n2 // 2, d, learn_gammas=True,
                                                generator=gen).to(dev)
@@ -420,7 +413,7 @@ def phase_warp_kernel(card: str) -> dict:
                 outs[tag] = out
                 # Plain, kernel, CUDA-core design, in turns.
                 p1, k1, c1, c2, k2, p2 = (cuda_ms(f) for f in (plain, kern, cc, cc, kern, plain))
-                nbytes, flops = ablate.warp_cost(k, n2, d, rows, ws.sv.element_size())
+                nbytes, flops = rbf_cuda_cores.warp_cost(k, n2, d, rows, ws.sv.element_size())
                 # The bound: the bytes, or the products at the peak of the unit the
                 # design runs them on (bf16 tensor cores, whatever the sets' type).
                 bound_ms, bound_by = bound(nbytes, flops, bf16=True)
@@ -937,20 +930,29 @@ def sg2_problem(seed: int, b: int, c: int, h: int, w: int, dtype):
     return [t.to(dtype) for t in ops]
 
 
-def sg2_bound(b: int, c: int, h: int, w: int, want_x2: bool, elem: int) -> tuple[float, str]:
+def sg2_bound(b: int, c: int, h: int, w: int, want_x2: bool, elem: int,
+              unit: str = "tc") -> tuple[float, str]:
     """A StyleGAN2 tail section's bound: the input, the weights, the vectors and
     the noise read once and the outputs written once, against the LEAST
     arithmetic that computes it: the stride-2 transposed conv is 9 taps of
     2C x C per INPUT pixel (2.25 per output pixel), the blur 8 C per output
-    pixel (separable), the same-conv 9 C^2, ToRGB 3 C. The kernel's polyphase
-    up-conv does 9 taps of 2C x C per output pixel, four times the transposed
-    conv's. With 2-byte elements the operands are bf16 and the operations are
-    held to the tensor cores' bf16 peak."""
+    pixel (separable), the same-conv 9 C^2, ToRGB 3 C. ``unit="tc"``: the
+    operations at the peak of the unit the kernel's design runs its products
+    on, the tensor cores: bf16 for 2-byte elements, TF32 for f32 ones (one
+    product, not the split's three); ``unit="cuda_cores"``: f32 outside the
+    tensor cores (the figure of the earlier CUDA-core design). The polyphase
+    up-conv of the bf16 and CUDA-core designs does 9 taps of 2C x C per output
+    pixel, four times the transposed conv's; the f32 design's transposed conv
+    over the 21 x 21 window of a 16 x 16 tile, 1.72 times."""
     r2 = 4 * h * w
     n_small = 9 * 2 * c * c + 9 * c * c + 3 * c + 2 * c + 5 + b * 6 * c + 2 * r2
     bytes_moved = elem * (b * 2 * c * h * w + b * (3 + (c if want_x2 else 0)) * r2 + n_small)
     flops = 2 * (b * h * w * 9 * 2 * c * c + b * r2 * (8 * c + 9 * c * c + 3 * c))
-    return bound(bytes_moved, flops, bf16=elem == 2)
+    if unit == "cuda_cores":
+        return bound(bytes_moved, flops)
+    t_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if elem == 2 else PEAK_TF32_FLOPS)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_sg2_tail_kernel(card: str) -> dict:
@@ -958,6 +960,7 @@ def phase_sg2_tail_kernel(card: str) -> dict:
 
     from warpedganspace_torch.ops import sg2_tail_cuda
     from warpedganspace_torch.ops.sg2_tail import fused_section_plain
+    from warpedganspace_torch.ops.sg2_tail_cuda_cores import cc_section
 
     def run(ops, want_x2, name):
         """Kernel against the plain version in f32 on the same (rounded) operands."""
@@ -973,10 +976,13 @@ def phase_sg2_tail_kernel(card: str) -> dict:
             check(g.dtype == ops[0].dtype and g.shape == r.shape, f"sg2 tail output at {name}")
             check(bool(torch.isfinite(g).all()), f"non-finite sg2 tail output at {name}")
             e = max(e, float((g.float() - r).abs().max()))
-        # f32: sums of up to 9 * 128 products in another order, and the
-        # polyphase up-conv weights composed in f32. bf16, the tensor-core
-        # design: the products see x * s1, the composed up-conv weights and
-        # the mid tile (after * s2) rounded to bf16, x2 stays f32 for ToRGB,
+        # f32, the split-precision design: products of about 22 bits in
+        # another order, sums of up to 4 * 128 and 9 * 64 of them, the blur
+        # after * d1 (the CPU emulation,
+        # tests/test_torch_sg2_tail_f32_split_numerics.py: 2.4e-6 at worst).
+        # bf16, the tensor-core design: the products see x * s1, the composed
+        # up-conv weights and the mid tile (after * s2) rounded to bf16, x2
+        # stays f32 for ToRGB,
         # then the outputs are rounded: half an ulp of values below 8, 2^-6,
         # plus at most about as much again from the three roundings (the CPU
         # emulation, tests/test_torch_tail_tc_numerics.py: 0.0220 at worst).
@@ -1002,24 +1008,64 @@ def phase_sg2_tail_kernel(card: str) -> dict:
 
         for c, h, x2 in SG2_SECTIONS:
             row = {"c": c, "in": h, "want_x2": x2}
-            for dt, key in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-                ops = sg2_problem(6, TAIL_B, c, h, h, dt)
-                kern = lambda: sg2_tail_cuda.fused_section(*ops, want_x2=x2)  # noqa: E731
-                plain = lambda: fused_section_plain(*ops, want_x2=x2)  # noqa: E731
-                p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1)
-                                  for f in (plain, kern, kern, plain))
-                row["ms" + key], row["plain_ms" + key] = (k1 + k2) / 2, (p1 + p2) / 2
-                row["runs" + key] = (k1, k2, p1, p2)
-                row["bound_ms" + key], row["bound_by" + key] = sg2_bound(
-                    TAIL_B, c, h, h, x2, 4 if dt == torch.float32 else 2)
-                if dt == torch.bfloat16:
-                    # How far the plain bf16 version, which rounds every
-                    # intermediate, is from the f32 one on the same operands.
-                    ref = fused_section_plain(*[t.float() for t in ops], want_x2=x2)
-                    got = plain()
-                    got, ref = (got, ref) if x2 else ((got,), (ref,))
-                    row["plain_bf16_err"] = max(float((g.float() - r).abs().max())
-                                                for g, r in zip(got, ref))
+            # f32 in turns: the split-precision design, the CUDA-core design it
+            # replaced (through its own C entry), plain, and back; at B=4 and at
+            # the path's sampled B=1.
+            for bsz, key in ((TAIL_B, ""), (1, "_b1")):
+                ops = sg2_problem(6, bsz, c, h, h, torch.float32)
+                fns = {"kernel": sg2_tail_cuda.fused_section, "cuda_cores": cc_section,
+                       "plain": fused_section_plain}
+                fns = {name: functools.partial(fn, *ops, want_x2=x2) for name, fn in fns.items()}
+                got, ref = fns["cuda_cores"](), fns["plain"]()
+                got, ref = (got, ref) if x2 else ((got,), (ref,))
+                cc_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                check(cc_err <= 1e-4, f"the CUDA-core design vs plain at B={bsz} C={c}: "
+                                      f"{cc_err:.3g}")
+                runs = {name: [] for name in fns}
+                for name in list(fns) + list(fns)[::-1]:
+                    runs[name].append(cuda_ms(fns[name], iters=5 if bsz > 1 else 20,
+                                              warmup=1 if bsz > 1 else 3))
+                for name, field in (("kernel", "ms"), ("cuda_cores", "cc_ms"),
+                                    ("plain", "plain_ms")):
+                    row[field + key] = sum(runs[name]) / 2
+                row["runs" + key], row["cc_err" + key] = runs, cc_err
+                if bsz == TAIL_B:
+                    # Against float64: the max abs and the signed mean error (the
+                    # error along the reference's sign over its mean magnitude)
+                    # of each route; the tensor cores' truncating f32 sums would
+                    # make the kernel's negative (the card tests' bound 1e-6).
+                    ref64 = fused_section_plain(*[t.double() for t in ops], want_x2=x2)
+                    ref64 = ref64 if x2 else (ref64,)
+                    for name, fn in fns.items():
+                        out = fn()
+                        out = out if x2 else (out,)
+                        row[f"f64_{name}"] = max(float((o.double() - r).abs().max())
+                                                 for o, r in zip(out, ref64))
+                        row[f"sme_{name}"] = (
+                            sum(float(((o.double() - r) * torch.sign(r)).sum())
+                                for o, r in zip(out, ref64))
+                            / sum(float(r.abs().sum()) for r in ref64))
+                    del ref64, out
+                    check(abs(row["sme_kernel"]) <= 1e-6,
+                          f"sg2 tail kernel's signed mean error against float64 at C={c}: "
+                          f"{row['sme_kernel']:.3g}")
+                row["bound_ms" + key], row["bound_by" + key] = sg2_bound(bsz, c, h, h, x2, 4)
+                row["bound_ms_cuda_cores" + key] = sg2_bound(bsz, c, h, h, x2, 4,
+                                                             unit="cuda_cores")[0]
+            ops = sg2_problem(6, TAIL_B, c, h, h, torch.bfloat16)
+            kern = lambda: sg2_tail_cuda.fused_section(*ops, want_x2=x2)  # noqa: E731
+            plain = lambda: fused_section_plain(*ops, want_x2=x2)  # noqa: E731
+            p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, kern, kern, plain))
+            row["ms_bf16"], row["plain_ms_bf16"] = (k1 + k2) / 2, (p1 + p2) / 2
+            row["runs_bf16"] = (k1, k2, p1, p2)
+            row["bound_ms_bf16"], row["bound_by_bf16"] = sg2_bound(TAIL_B, c, h, h, x2, 2)
+            # How far the plain bf16 version, which rounds every intermediate,
+            # is from the f32 one on the same operands.
+            ref = fused_section_plain(*[t.float() for t in ops], want_x2=x2)
+            got = plain()
+            got, ref = (got, ref) if x2 else ((got,), (ref,))
+            row["plain_bf16_err"] = max(float((g.float() - r).abs().max())
+                                        for g, r in zip(got, ref))
             # The render batch's own shape (bf16, the CLI's batch size).
             ops = sg2_problem(6, SG2["batch"], c, h, h, torch.bfloat16)
             p1, k1, k2, p2 = (cuda_ms(f, iters=3, warmup=1) for f in (plain, kern, kern, plain))
@@ -1034,33 +1080,51 @@ def phase_sg2_tail_kernel(card: str) -> dict:
     f32_names = [f"B={TAIL_B} C={c} {h}x{h}{' +x2' if x2 else ''} float32"
                  for c, h, x2 in SG2_SECTIONS]
     res = {"max_abs_err": max(errs[n] for n in f32_names), "max_abs_errs": errs,
-           "sections": sections, "bound_by": sections[0]["bound_by"],
-           "bound_by_bf16": sections[0]["bound_by_bf16"],
+           "sections": [{k: v for k, v in r.items() if not k.startswith("runs")}
+                        for r in sections],
+           "bound_by": sections[0]["bound_by"], "bound_by_bf16": sections[0]["bound_by_bf16"],
            "design": {str(dt).split(".")[-1]: sg2_tail_cuda.design(dt)
                       for dt in (torch.float32, torch.bfloat16)},
            "shape": f"2 sections (C=64@512^2 +x2, C=32@1024^2), B={TAIL_B} f32, summed"}
     check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
           and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
           "sections bound differently")
-    for key in ("ms", "plain_ms", "bound_ms", "ms_bf16", "plain_ms_bf16", "bound_ms_bf16",
-                "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_render_bf16"):
+    for key in ("ms", "plain_ms", "cc_ms", "bound_ms", "bound_ms_cuda_cores", "ms_b1",
+                "plain_ms_b1", "cc_ms_b1", "bound_ms_b1", "bound_ms_cuda_cores_b1", "ms_bf16",
+                "plain_ms_bf16", "bound_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
+                "bound_ms_render_bf16"):
         res[key] = sum(r[key] for r in sections)
     for r in sections:
-        k1, k2, p1, p2 = r["runs"]
+        f32 = "; ".join(
+            f"f32 B={bsz}: kernel {r['ms' + key]:.4f} ms, CUDA-core design {r['cc_ms' + key]:.4f} "
+            f"ms, plain {r['plain_ms' + key]:.4f} ms (each " + ", ".join(
+                f"{name} " + "/".join(f"{t:.4f}" for t in ts)
+                for name, ts in r["runs" + key].items())
+            + f"); bound {r['bound_ms' + key]:.4f} ms by {r['bound_by' + key]} at the TF32 tensor "
+            f"cores, {r['bound_ms_cuda_cores' + key]:.4f} ms on the CUDA cores; CUDA-core "
+            f"design's max abs err {r['cc_err' + key]:.3g}"
+            for bsz, key in ((TAIL_B, ""), (1, "_b1")))
+        f32 += "; against float64 (max abs, signed mean error): " + ", ".join(
+            f"{name} {r['f64_' + name]:.3g}, {r['sme_' + name]:.3g}"
+            for name in ("kernel", "cuda_cores", "plain"))
+        k1, k2, p1, p2 = r["runs_bf16"]
         print(f"[kernel] sg2_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
-              f"{' + x2' if r['want_x2'] else ''}, B={TAIL_B} on {card}: f32 kernel "
-              f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms']:.4f} ms ({p1:.4f}, "
-              f"{p2:.4f}); bound {r['bound_ms']:.4f} ms by {r['bound_by']}; bf16 kernel "
-              f"{r['ms_bf16']:.4f} ms plain {r['plain_ms_bf16']:.4f} ms (bound "
-              f"{r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} at the bf16 tensor-core peak; "
-              f"plain bf16 vs f32 max abs {r['plain_bf16_err']:.3g}); "
-              f"bf16 at the render batch B={SG2['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
-              f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
-              "no library call")
-    print(f"[kernel] sg2_tail, the two sections summed, B={TAIL_B}; design f32: "
-          f"{res['design']['float32']}, bf16: {res['design']['bfloat16']}: f32 kernel "
-          f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound {res['bound_ms']:.4f} ms; "
-          f"bf16 kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
+              f"{' + x2' if r['want_x2'] else ''} on {card}: {f32}; bf16 B={TAIL_B}: kernel "
+              f"{r['ms_bf16']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms_bf16']:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}), bound {r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} "
+              f"at the bf16 tensor-core peak; plain bf16 vs f32 max abs "
+              f"{r['plain_bf16_err']:.3g}; bf16 at the render batch B={SG2['batch']}: kernel "
+              f"{r['ms_render_bf16']:.4f} ms plain {r['plain_ms_render_bf16']:.4f} ms bound "
+              f"{r['bound_ms_render_bf16']:.4f} ms; no library call")
+    print(f"[kernel] sg2_tail, the two sections summed; design f32: {res['design']['float32']}, "
+          f"bf16: {res['design']['bfloat16']}: f32 B={TAIL_B} kernel {res['ms']:.4f} ms, "
+          f"CUDA-core design {res['cc_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} at the TF32 tensor cores "
+          f"({res['bound_ms_cuda_cores']:.4f} ms on the CUDA cores); f32 B=1 kernel "
+          f"{res['ms_b1']:.4f} ms, CUDA-core design {res['cc_ms_b1']:.4f} ms, plain "
+          f"{res['plain_ms_b1']:.4f} ms, bound {res['bound_ms_b1']:.4f} ms "
+          f"({res['bound_ms_cuda_cores_b1']:.4f} ms); bf16 B={TAIL_B} kernel "
+          f"{res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
           f"{res['bound_ms_bf16']:.4f} ms by {res['bound_by_bf16']}; at B={SG2['batch']} bf16 "
           f"kernel {res['ms_render_bf16']:.4f} ms plain {res['plain_ms_render_bf16']:.4f} ms "
           f"bound {res['bound_ms_render_bf16']:.4f} ms; "
@@ -3895,7 +3959,7 @@ def main(argv=None) -> int:
         return 0
 
     from warpedganspace_torch.ops import (_build, attn_cuda, attn_cuda_cores, proggan_tail_cuda,
-                                          rbf_cuda, sg2_tail_cuda)
+                                          rbf_cuda, rbf_cuda_cores, sg2_tail_cuda)
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -3910,7 +3974,7 @@ def main(argv=None) -> int:
               proggan_tail_cuda.SOURCE: proggan_tail_cuda.build,
               sg2_tail_cuda.SOURCE: sg2_tail_cuda.build}
     # the CUDA-core designs of the warp and the f32 attention, timed beside the shipped ones
-    for cc_source in (warp_ablation().CC_SOURCE, attn_cuda_cores.SOURCE,
+    for cc_source in (rbf_cuda_cores.SOURCE, attn_cuda_cores.SOURCE,
                       attn_cuda_cores.BWD_SOURCE):
         builds[cc_source] = lambda src=cc_source: _build.load_library(src)
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, all started together
@@ -3983,7 +4047,9 @@ def main(argv=None) -> int:
     kernels.append(row("sg2_tail", "warpedganspace_torch/csrc/sg2_tail.cu",
                        "warpedganspace_tpu/ops/sg2_tail_pallas.py:315", sg2_tail))
     for key in ("ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
-                "bound_ms_render_bf16", "sections", "max_abs_errs"):
+                "bound_ms_render_bf16", "sections", "max_abs_errs", "cc_ms",
+                "bound_ms_cuda_cores", "ms_b1", "plain_ms_b1", "cc_ms_b1", "bound_ms_b1",
+                "bound_ms_cuda_cores_b1"):
         kernels[4][key] = sg2_tail[key]
     print(f"[total] {time.perf_counter() - t_start:.1f} s; by phase: "
           + ", ".join(f"{name} {sec:.1f} s" for name, sec in seconds.items()))

@@ -12,8 +12,9 @@ takes a part out computes wrong values: it measures time only.
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX. Prints the card's name and
 power limit, the registers of each variant and one line per variant and
-shape. ``chip_smoke.py`` imports :func:`cuda_cores` and :func:`warp_cost`
-from here.
+shape. The CUDA-core design's binding, the shapes and the cost of a call are
+:mod:`warpedganspace_torch.ops.rbf_cuda_cores`'s, which ``chip_smoke.py``
+shares.
 """
 from __future__ import annotations
 
@@ -28,30 +29,14 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from warpedganspace_torch.ops import _build, rbf_cuda
+from warpedganspace_torch.ops.rbf_cuda_cores import SHAPES, cuda_cores, warp_cost
 
-# (name, K sets, 2N support vectors, d, R rows): the timed shape and the
-# traversals' own (R = 2 x codes in the pool).
-SHAPES = (("timed, 32 codes x +-", 200, 1024, 512, 64),
-          ("ProgGAN eval pool", 200, 1024, 512, 16),
-          ("StyleGAN2 eval pool", 200, 1024, 512, 12),
-          ("ProgGAN smoke CLI", 200, 1024, 512, 2),
-          ("BigGAN eval pool", 120, 512, 120, 8))
-CC_SOURCE = "rbf_warp_cuda_cores.cu"
 OUT_DIR = osp.join(osp.dirname(_build.BUILD_DIR), "ablate", "rbf_warp")
 
 # NVIDIA H100 SXM data sheet: memory rate, bf16 tensor-core rate (the unit the
-# design's products run on) and the f32 rate outside the tensor cores.
+# design's products run on).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-
-
-def warp_cost(k, n2, d, rows, elem):
-    """(bytes, flops) of one call: the sets (elem bytes an element) and their
-    three (K, 2N) f32 vectors read once, z read and the directions written
-    once; the two contractions' 2 * K * R * 2N * d multiply-adds."""
-    return (elem * k * n2 * d + 4 * 3 * k * n2 + 4 * 2 * k * rows * d,
-            2 * 2 * k * rows * n2 * d)
 
 
 # Textual edits: (old, new, times it must occur).
@@ -165,27 +150,6 @@ def _runner(lib, ws, z, replan=None):
             raise RuntimeError(f"warp variant launch failed: cudaError {err}")
         return out
     return call, p
-
-
-def cuda_cores():
-    """The CUDA-core design (one launch, no scratch), built from its source:
-    run(ws, z) -> directions. For comparison only; no wrapper dispatches to it."""
-    lib = _build.load_library(CC_SOURCE)
-    fn = lib.rbf_warp_cc_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(ws, z):
-        k, n2, d = ws.sv.shape
-        out = torch.empty_like(z)
-        err = fn(ws.sv.data_ptr(), int(ws.sv.dtype == torch.bfloat16), ws.g.data_ptr(),
-                 ws.ag.data_ptr(), ws.svsq.data_ptr(), z.data_ptr(), out.data_ptr(), k, n2,
-                 z.shape[1], d, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"CUDA-core warp launch failed: cudaError {err}")
-        return out
-    return run
 
 
 def cuda_ms(fn, iters=30, warmup=3) -> float:

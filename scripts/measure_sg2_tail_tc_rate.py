@@ -1,4 +1,4 @@
-"""The tensor-core rate the bf16 tail kernels sustain, and where their time goes, on the card.
+"""The tensor-core rate the tail kernels sustain, and where their time goes, on the card.
 
 Card counterpart of ``scripts/measure_sg2_megakernel_bound.py::_kernel``, the
 TPU rig that asked what rate the MXU sustains in the inner loop of
@@ -30,6 +30,18 @@ tensor cores). Where a part is skipped rather than cut, it is skipped by a
 condition the compiler cannot decide, so no product is dropped with it. A variant that takes
 a part out computes wrong values: it measures time only.
 
+StyleGAN2's float32 design (split precision, 3xTF32 on ``mma.sync`` m16n8k8,
+the transposed conv and then the blur) is asked the same at B=4 in f32, in
+turns with its shipped build: ``f32 no products`` (the split products and
+their operand loads taken out), ``f32 no input staging``, ``f32 no weight
+copies``, ``f32 no blur`` (both passes skipped at run time), ``f32 no flushes``
+(one chain a parity group), ``f32 one TF32 product`` (hi x hi only: wrong
+values), C = 32 at one block an SM with three weight slots (the shipped
+design fits two blocks with two slots) and the CUDA-core design it replaced,
+built from the same source; its
+rate counts the three products of the split, 2,048 FLOP each, against the
+495 TFLOP/s TF32 peak.
+
 StyleGAN2 is timed at its 1024^2 section (C=32, 512^2 -> 1024^2) and its 512^2
 section (C=64, writing x2), ProgGAN at its three sections (C=64, 128^2 ->
 256^2; C=32, 256^2 -> 512^2; C=16, 512^2 -> 1024^2 with the RGB head, hi + lo
@@ -41,12 +53,13 @@ data-sheet dense bf16 peak of 989 TFLOP/s, beside the card's name and power
 limit. Nothing is calibrated against ``bench.py``: that calibration is the
 TPU's.
 
-    PYTHONPATH=. python scripts/measure_sg2_tail_tc_rate.py
+    PYTHONPATH=. python scripts/measure_sg2_tail_tc_rate.py [--only f32|bf16]
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import os.path as osp
@@ -58,11 +71,14 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from warpedganspace_torch.ops import _build, proggan_tail_cuda, sg2_tail_cuda
+from warpedganspace_torch.ops.sg2_tail_cuda_cores import cc_weights
 
 B = 16                                      # the render batch
+B_F32 = 4                                   # the f32 design's timed batch
 PEAK_BF16_FLOPS = 989e12                    # H100 SXM data sheet, dense bf16
+PEAK_TF32_FLOPS = 495e12                    # H100 SXM data sheet, dense TF32
 OUT_DIR = osp.join(osp.dirname(_build.BUILD_DIR), "tail_tc_rate")
-HEADERS = ("tc_bf16.cuh", "tc_conv.cuh")
+HEADERS = ("tc_bf16.cuh", "tc_conv.cuh", "tc_tf32.cuh")
 
 # Textual edits of the tensor-core designs: (old, new), each applied once.
 SG2_NO_FETCH = [("  if (j >= K::NCHUNK) return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB",
@@ -101,6 +117,27 @@ ONE_FEWER = [(MIN_BLOCKS, "template <int C>\nconstexpr int kMinBlocks = C == 16 
 SG2_CUDA_CORES = [("is_bf16 ? tc::launch(in, rgb, x2, b, c, hi, wi, s)",
                    "is_bf16 ? cc::launch<__nv_bfloat16>(in, rgb, x2, b, c, hi, wi, s)")]
 
+# Textual edits of the float32 design (namespace tf of sg2_tail.cu); an edit
+# of the form (header, old, new) applies to the header's copy.
+F32_NO_PRODUCTS = [("            tc::mma3_records<NW>(acc[0], a0, bw, NW);   // transposed-conv products\n", ""),
+                   ("              tc::mma3_records<NW>(acc[1], a1, bw, NW);   // transposed-conv products\n", ""),
+                   ("          tc::mma3_records<NT>(acc[i], a, bw, NT);   // same-conv products\n", "")]
+F32_NO_STAGING = [("  tcc::stage_nchw_f32<kThreads>(in, K::IN_STRIDE, x + (size_t)b * CI * hi * wi, CI, hi, wi, iy0,\n"
+                   "                                ix0, kInWin, tid);\n", "")]
+F32_NO_FETCH = [("  tcc::fetch_units<kThreads>(slot, src, K::CHUNK / 16, tid);\n", "")]
+F32_NO_BLUR = [("  for (int item = tid; item < kT * C; item += kThreads) {   // the columns' pass",
+                "  for (int item = tid; item < (hi > 0 ? 0 : kT * C); item += kThreads) {"),
+               ("  for (int item = tid; item < kMid * C; item += kThreads) {   // the rows' pass and epilogue",
+                "  for (int item = tid; item < (hi > 0 ? 0 : kMid * C); item += kThreads) {")]
+F32_NO_FLUSHES = [("constexpr int kFlushSteps = 4;", "constexpr int kFlushSteps = 1 << 20;")]
+F32_ONE_PRODUCT = [("tc_tf32.cuh", "    if (t < nt) mma1688(d[t], a.lo, b[t].x, b[t].y);\n", ""),
+                   ("tc_tf32.cuh", "    if (t < nt) mma1688(d[t], a.hi, b[t].z, b[t].w);\n", "")]
+F32_ONE_BLOCK = [("constexpr int kBlocksPerSM = C == 64 ? 1 : (C == 32 ? 2 : 3);",
+                  "constexpr int kBlocksPerSM = C == 16 ? 3 : 1;"),
+                 ("constexpr int kRing = C == 32 ? 2 : 3;", "constexpr int kRing = 3;")]
+F32_CUDA_CORES = [(": tf::launch(in, rgb, x2, b, c, hi, wi, s)",
+                   ": cc::launch<float>(in, rgb, x2, b, c, hi, wi, s)")]
+
 PG_NO_FETCH = [("  if (j >= K::NCHUNK) return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB",
                 "  return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB")]
 PG_NO_STAGING = [("  tcc::stage_nchw<kThreads>(act, K::IN_ROW, x + (size_t)b * CI * hi * wi, CI, hi, "
@@ -134,6 +171,17 @@ SG2_VARIANTS = {
     "full, one block fewer an SM at C = 32 and 16": ONE_FEWER,
     "CUDA-core design on bf16": SG2_CUDA_CORES,
 }
+F32_VARIANTS = {
+    "f32 full": [],
+    "f32 no products": F32_NO_PRODUCTS,
+    "f32 no input staging": F32_NO_STAGING,
+    "f32 no weight copies": F32_NO_FETCH,
+    "f32 no blur": F32_NO_BLUR,
+    "f32 no flushes": F32_NO_FLUSHES,
+    "f32 one TF32 product": F32_ONE_PRODUCT,
+    "f32 at C = 32 one block an SM, three slots": F32_ONE_BLOCK,
+    "CUDA-core design on f32": F32_CUDA_CORES,
+}
 PG_VARIANTS = {
     "full": [],
     "dots": PG_NO_FETCH + PG_NO_STAGING,
@@ -158,6 +206,17 @@ def _edit(text: str, edits) -> str:
     return text
 
 
+def _split_edits(edits):
+    """(source edits, {header: its edits})."""
+    src, headers = [], {}
+    for e in edits:
+        if len(e) == 3:
+            headers.setdefault(e[0], []).append(e[1:])
+        else:
+            src.append(e)
+    return src, headers
+
+
 def _build_variant(source: str, name: str, edits) -> tuple[str, str]:
     """Write the edited source and the headers into their own directory,
     compile, return (library path, the compiler's report)."""
@@ -165,12 +224,16 @@ def _build_variant(source: str, name: str, edits) -> tuple[str, str]:
     d = osp.join(OUT_DIR, osp.splitext(source)[0], tag)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
+    edits, header_edits = _split_edits(edits)
     with open(osp.join(_build.CSRC_DIR, source)) as f:
         text = _edit(f.read(), edits)
     with open(osp.join(d, source), "w") as f:
         f.write(text)
     for header in HEADERS:
-        shutil.copy(osp.join(_build.CSRC_DIR, header), d)
+        with open(osp.join(_build.CSRC_DIR, header)) as f:
+            text = _edit(f.read(), header_edits.get(header, []))
+        with open(osp.join(d, header), "w") as f:
+            f.write(text)
     lib = osp.join(d, "lib.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, osp.join(d, source)],
                           capture_output=True, text=True)
@@ -183,8 +246,12 @@ def _registers(report: str, kind: str, name: str, c: int, extra: bool) -> str:
     """The registers ptxas reports for the instantiation a section runs: the
     tensor-core kernel of C (and, for ProgGAN, with or without the head), or
     the CUDA-core one on bf16."""
-    if name.startswith("CUDA-core"):
+    if name == "CUDA-core design on f32":
+        tmpl = f"cc14section_kernelIfLi{c}E"
+    elif name.startswith("CUDA-core"):
         tmpl = f"cc14section_kernelI13__nv_bfloat16Li{c}E"
+    elif kind == "sg2_f32":
+        tmpl = f"tf14section_kernelILi{c}E"
     elif kind == "sg2_tail":
         tmpl = f"tc14section_kernelILi{c}E"
     else:
@@ -223,6 +290,18 @@ def sg2_mma_flop(c: int, h: int) -> float:
     return 4096.0 * per_tile * tiles
 
 
+def f32_mma_flop(c: int, h: int) -> float:
+    """FLOP of the mma.sync instructions the float32 StyleGAN2 design issues
+    for one section at B_F32, the split's three products each: per 16 x 16
+    output tile, the transposed conv's 67 m16 tiles x taps (parity groups of
+    121, 110, 110 and 100 positions: 8 x 4 + 7 x 2 + 7 x 2 + 7 x 1) over 2C/8
+    k8 steps and the same-conv's 16 x 9 over C/8, each x C/8 n8 tiles; 2,048 a
+    m16n8k8."""
+    tiles = B_F32 * (2 * h // 16) ** 2
+    per_tile = 3 * (c // 8) * (67 * 2 * c // 8 + 16 * 9 * c // 8)
+    return 2048.0 * per_tile * tiles
+
+
 def pg_mma_flop(c: int, h: int, head: bool) -> float:
     """The same for the bf16 ProgGAN design: 4 merged taps x 2C/16 k steps
     in the up-conv (three products a step with the head's hi + lo), 9 taps x
@@ -233,30 +312,33 @@ def pg_mma_flop(c: int, h: int, head: bool) -> float:
     return 4096.0 * per_tile * tiles
 
 
-def _sg2_call(fn, c, h, want_x2, cuda_cores):
+def _sg2_call(fn, c, h, want_x2, cuda_cores, dtype=torch.bfloat16, bsz=B):
     gen = torch.Generator(device="cuda").manual_seed(6)
 
     def rnd(*shape, std=1.0, mean=0.0):
-        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
-    x = rnd(B, 2 * c, h, h)
+    x = rnd(bsz, 2 * c, h, h)
     w_up, w_same, w_rgb = (rnd(c, 2 * c, 3, 3, std=0.5 * (18 * c) ** -0.5),
                            rnd(c, c, 3, 3, std=0.5 * (9 * c) ** -0.5),
                            rnd(3, c, 1, 1, std=0.5 * c ** -0.5))
-    vecs = [rnd(B, 2 * c, mean=1.0, std=0.3)] + [rnd(B, c, mean=1.0, std=0.2) for _ in range(4)]
+    vecs = [rnd(bsz, 2 * c, mean=1.0, std=0.3)] + [rnd(bsz, c, mean=1.0, std=0.2) for _ in range(4)]
     n1, n2 = rnd(1, 1, 2 * h, 2 * h), rnd(1, 1, 2 * h, 2 * h)
-    nw1, nw2 = (torch.tensor([v], device="cuda", dtype=torch.bfloat16) for v in (0.7, -0.4))
+    nw1, nw2 = (torch.tensor([v], device="cuda", dtype=dtype) for v in (0.7, -0.4))
     b1, b2, rgb_b = rnd(c, std=0.3), rnd(c, std=0.3), rnd(3, std=0.3)
-    wu, ws, wr = sg2_tail_cuda.kernel_weights(
-        w_up, w_same, w_rgb, torch.float32 if cuda_cores else torch.bfloat16)
-    rgb = torch.empty((B, 3, 2 * h, 2 * h), device="cuda", dtype=torch.bfloat16)
-    x2 = torch.empty((B, c, 2 * h, 2 * h), device="cuda", dtype=torch.bfloat16) if want_x2 else None
+    wu, ws, wr = (cc_weights(w_up, w_same, w_rgb) if cuda_cores
+                  else sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, dtype))
+    rgb = torch.empty((bsz, 3, 2 * h, 2 * h), device="cuda", dtype=dtype)
+    x2 = torch.empty((bsz, c, 2 * h, 2 * h), device="cuda", dtype=dtype) if want_x2 else None
     keep = [x, wu, ws, wr, *vecs, n1, nw1, b1, n2, nw2, b2, rgb_b, rgb, x2]
     ptrs = [t.data_ptr() for t in (x, wu, ws, wr, *vecs, n1, nw1, b1, n2, nw2, b2, rgb_b, rgb)]
     stream = torch.cuda.current_stream().cuda_stream
 
+    is_bf16 = int(dtype == torch.bfloat16)
+
     def call():
-        err = fn(*ptrs, None if x2 is None else x2.data_ptr(), 1, B, c, h, h, int(want_x2), stream)
+        err = fn(*ptrs, None if x2 is None else x2.data_ptr(), is_bf16, bsz, c, h, h, int(want_x2),
+                 stream)
         if err != 0:
             raise RuntimeError(f"sg2_tail variant failed to launch: cudaError {err}")
         return keep
@@ -291,10 +373,15 @@ def _pg_call(fn, c, h, head, cuda_cores):
     return call
 
 
+def _sg2_f32_call(fn, c, h, want_x2, cuda_cores):
+    return _sg2_call(fn, c, h, want_x2, cuda_cores, torch.float32, B_F32)
+
+
 def _time(kind, variants, libs, sections, make_call, flop, card):
     for sec in sections:
         c, h, extra = sec
-        names = list(variants) + ["full"]            # the shipped design first and last
+        full = "f32 full" if kind == "sg2_f32" else "full"
+        names = list(variants) + [full]              # the shipped design first and last
         times = {}
         for name in names:
             fn, _ = libs[(kind, name)]
@@ -304,33 +391,46 @@ def _time(kind, variants, libs, sections, make_call, flop, card):
             del call
             torch.cuda.empty_cache()
         f = flop(*sec)
+        f32 = kind == "sg2_f32"
+        peak, tag = (PEAK_TF32_FLOPS, "495 TFLOP/s TF32") if f32 else (PEAK_BF16_FLOPS,
+                                                                      "989 TFLOP/s bf16")
         for name in variants:
             ts = times[name]
             ms = sum(ts) / len(ts)
             rate = f / (ms * 1e-3)
-            print(f"[{kind} C={c} {h}^2 -> {2 * h}^2{' +x2' if extra and kind == 'sg2_tail' else ''}"
-                  f"{' +head' if extra and kind == 'proggan_tail' else ''} B={B} bf16] {name}: "
+            x2_tag = " +x2" if extra and kind != "proggan_tail" else ""
+            print(f"[{kind} C={c} {h}^2 -> {2 * h}^2{x2_tag}"
+                  f"{' +head' if extra and kind == 'proggan_tail' else ''} "
+                  f"B={B_F32 if f32 else B} {'f32' if f32 else 'bf16'}] {name}: "
                   f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}); shipped design's mma.sync "
                   f"work {f / 1e9:.1f} GFLOP at {rate / 1e12:.1f} TFLOP/s = "
-                  f"{100 * rate / PEAK_BF16_FLOPS:.1f} % of the 989 TFLOP/s bf16 peak; "
+                  f"{100 * rate / peak:.1f} % of the {tag} peak; "
                   f"{_registers(libs[(kind, name)][1], kind, name, c, extra)}; on {card}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=("f32", "bf16"),
+                        help="time only StyleGAN2's float32 design, or only the bf16 designs")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_sg2_tail_tc_rate: no CUDA device is available", file=sys.stderr)
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    jobs = [("sg2_tail", "sg2_tail.cu", k, v) for k, v in SG2_VARIANTS.items()]
-    jobs += [("proggan_tail", "proggan_tail.cu", k, v) for k, v in PG_VARIANTS.items()]
+    jobs = []
+    if args.only != "bf16":
+        jobs += [("sg2_f32", "sg2_tail.cu", k, v) for k, v in F32_VARIANTS.items()]
+    if args.only != "f32":
+        jobs += [("sg2_tail", "sg2_tail.cu", k, v) for k, v in SG2_VARIANTS.items()]
+        jobs += [("proggan_tail", "proggan_tail.cu", k, v) for k, v in PG_VARIANTS.items()]
     with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
         built = list(pool.map(lambda j: _build_variant(*j[1:]), jobs))
     libs = {}
     for (kind, _, name, _), (path, report) in zip(jobs, built):
         lib = ctypes.CDLL(path)
-        if kind == "sg2_tail":
+        if kind in ("sg2_tail", "sg2_f32"):
             fn = lib.sg2_tail_section_launch
             fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         else:
@@ -339,9 +439,13 @@ def main() -> int:
         fn.restype = ctypes.c_int
         libs[(kind, name)] = (fn, report)
     with torch.no_grad():
-        _time("sg2_tail", SG2_VARIANTS, libs, SG2_SECTIONS, _sg2_call,
-              lambda c, h, _: sg2_mma_flop(c, h), card)
-        _time("proggan_tail", PG_VARIANTS, libs, PG_SECTIONS, _pg_call, pg_mma_flop, card)
+        if args.only != "bf16":
+            _time("sg2_f32", F32_VARIANTS, libs, SG2_SECTIONS, _sg2_f32_call,
+                  lambda c, h, _: f32_mma_flop(c, h), card)
+        if args.only != "f32":
+            _time("sg2_tail", SG2_VARIANTS, libs, SG2_SECTIONS, _sg2_call,
+                  lambda c, h, _: sg2_mma_flop(c, h), card)
+            _time("proggan_tail", PG_VARIANTS, libs, PG_SECTIONS, _pg_call, pg_mma_flop, card)
     return 0
 
 

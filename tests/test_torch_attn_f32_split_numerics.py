@@ -53,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.split_precision import round_toward_zero, split_pieces, tf32
 from warpedganspace_tpu.ops.attn_pallas import _jnp_attention
 from warpedganspace_torch.ops.attn import sa_attention_bwd_plain, sa_attention_plain
 
@@ -85,31 +86,6 @@ LARGE = (2, 200, 100, 16, 32)     # with queries and keys x8: logits near +-200
 ONE_KEY = (1, 64, 1, 8, 57)
 
 
-def tf32(x):
-    """Round float32 to TF32 (10 mantissa bits), nearest with ties away from
-    zero: ``cvt.rna.tf32.f32``, whose result keeps the float32 layout."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split_pieces(x, split):
-    """The pieces a kernel carries for x under ``split``, widest first."""
-    x = x.float()
-    if split == "3xtf32":
-        hi = tf32(x)
-        return hi, tf32(x - hi)
-    if split == "tf32":
-        return (tf32(x),)
-    if split == "bf16x2":
-        hi = x.bfloat16().float()
-        return hi, (x - hi).bfloat16().float()
-    if split == "bf16x3":
-        hi = x.bfloat16().float()
-        mid = (x - hi).bfloat16().float()
-        return hi, mid, (x - hi - mid).bfloat16().float()
-    raise ValueError(split)
-
-
 def mm(a, b, split):
     """a @ b (batched) as the kernel multiplies it under ``split``: the small
     cross products first, then hi hi, into one float32 accumulator."""
@@ -120,13 +96,6 @@ def mm(a, b, split):
         small = (torch.bmm(pa[2], pb[0]) + torch.bmm(pa[0], pb[2])) + torch.bmm(pa[1], pb[1])
         return (small + (torch.bmm(pa[1], pb[0]) + torch.bmm(pa[0], pb[1]))) + torch.bmm(pa[0], pb[0])
     return (torch.bmm(pa[1], pb[0]) + torch.bmm(pa[0], pb[1])) + torch.bmm(pa[0], pb[0])
-
-
-def round_toward_zero(x):
-    """float64 to float32, rounded toward zero as the tensor cores round
-    their float32 sums."""
-    y = x.float()
-    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
 
 
 def logits(a, b, split, chain_steps=CHAIN_STEPS):

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from warpedganspace_torch.models.support_sets import SupportSets
-from warpedganspace_torch.ops import rbf, rbf_cuda
+from warpedganspace_torch.ops import rbf, rbf_cuda, rbf_cuda_cores
 
 torch.set_num_threads(1)
 
@@ -164,6 +164,25 @@ def test_split_reduction_repeats_bit_equal(cuda, k, rows, dtype):
     first = rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")
     for _ in range(3):
         assert torch.equal(rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda"), first)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("label,k,two_n,d,rows", rbf_cuda_cores.SHAPES[1:])
+def test_cuda_core_design_at_the_timed_shapes(cuda, label, k, two_n, d, rows, dtype):
+    """The CUDA-core design the tensor-core kernel replaced, through its own
+    C entry (``ops/rbf_cuda_cores.py``), at the shapes ``chip_smoke.py`` and
+    ``scripts/ablate_warp_cuda.py`` time it: within the kernel's 1e-4 of the
+    plain version, and counting no launch of the shipped kernel."""
+    sv, a, g = _sets(k, two_n, d, cuda)
+    z = torch.randn((k, rows, d), generator=torch.Generator(device=cuda).manual_seed(rows),
+                    device=cuda)
+    ws = rbf_cuda.prepare_warp_sets(sv, a, g, None if dtype == torch.float32 else dtype)
+    before = rbf_cuda.launches
+    got = rbf_cuda_cores.cuda_cores()(ws, z)
+    torch.cuda.synchronize()
+    assert rbf_cuda.launches == before
+    ref = rbf_cuda._torch_kn(ws.sv, ws.g, ws.ag, ws.svsq, z)
+    assert float((got - ref).abs().max()) <= 1e-4
 
 
 def test_launch_checks_raise(cuda):

@@ -49,8 +49,11 @@ def _problem(seed, b, c, h, w, device, dtype=torch.float32):
     return [t.to(device=device, dtype=dtype) for t in ops]
 
 
-# f32: sums of up to 9 * 128 unit-scale products in another order, and the
-# polyphase up-conv weights composed in f32. bf16: the tensor-core design
+# f32: the split-precision design's products (3xTF32, about 22 bits each) in
+# another order, sums of up to 4 * 128 and 9 * 64 of them, and the blur after
+# * d1 where the plain version blurs before it
+# (tests/test_torch_sg2_tail_f32_split_numerics.py emulates it: 2.4e-6 at
+# worst). bf16: the tensor-core design
 # rounds x * s1, the composed up-conv weights and the mid tile to bf16 where
 # the plain version rounds every intermediate, so it is held to the plain
 # version in f32 on the same rounded operands within 3e-2: the outputs' half
@@ -115,7 +118,8 @@ def test_bf16_repeats_are_bit_equal(cuda, want_x2):
     first, again = (first, again) if want_x2 else ((first,), (again,))
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     assert sg2_tail_cuda.design(torch.bfloat16).startswith("tensor cores")
-    assert sg2_tail_cuda.design(torch.float32) == "CUDA cores"
+    assert sg2_tail_cuda.design(torch.float32) == (
+        "tensor cores (mma.sync m16n8k8, 3xTF32), transposed conv + blur")
 
 
 @pytest.mark.parametrize("want_x2", [True, False])
@@ -142,6 +146,77 @@ def test_bf16_zero_input_gives_the_bias_path(cuda, want_x2):
     ops = _problem(10, 2, 32, 8, 8, cuda, torch.bfloat16)
     ops[0].zero_()
     _check(ops, want_x2)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+def test_f32_repeats_are_bit_equal(cuda, want_x2):
+    """The split-precision design sums in a fixed order: one call's bits again."""
+    ops = _problem(11, 2, 64, 13, 11, cuda)
+    first = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    again = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    first, again = (first, again) if want_x2 else ((first,), (again,))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+def test_f32_zero_input_gives_the_bias_path(cuda, c, want_x2):
+    """A zero image in f32: T is 0, and the mid tile is the noise and bias alone."""
+    ops = _problem(12, 2, c, 8, 8, cuda)
+    ops[0].zero_()
+    _check(ops, want_x2)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+@pytest.mark.parametrize("h,w", [
+    (13, 11),     # 26 x 22: the last tiles' parity groups cut at the edge
+    (7, 29),      # 14 x 58: one short tile row, widths not a multiple of 8
+    (25, 3),      # 50 x 6: a single narrow tile column
+])
+def test_f32_parity_groups_at_ragged_edges(cuda, want_x2, c, h, w):
+    _check(_problem(9, 2, c, h, w, cuda), want_x2)
+
+
+@pytest.mark.parametrize("c,r,want_x2", [(64, 256, True), (32, 512, False)])
+def test_f32_against_the_cuda_core_design(cuda, c, r, want_x2):
+    """The full-width sections through the split-precision design and through
+    the CUDA-core design it replaced (its own C entry): each within 1e-4 of
+    the plain section, so within 2e-4 of each other."""
+    from warpedganspace_torch.ops.sg2_tail_cuda_cores import cc_section
+
+    ops = _problem(13, 2, c, r, r, cuda)
+    _check(ops, want_x2)
+    got = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    ref = cc_section(*ops, want_x2=want_x2)
+    got, ref = (got, ref) if want_x2 else ((got,), (ref,))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 2e-4
+
+
+# The tensor cores round their f32 sums toward zero; the design adds its
+# accumulators into round-to-nearest f32 sums every 2 weight chunks. The CPU
+# emulation (tests/test_torch_sg2_tail_f32_split_numerics.py) puts the signed
+# mean error against float64 at -4e-8 to -2e-7 with those flushes and at
+# -2e-6 to -2.8e-6 at C = 64 with one chain a parity group, the plain f32
+# section's at about -2e-8: the bound sits between them.
+SME_BOUND = 1e-6
+
+
+@pytest.mark.parametrize("c,r,want_x2", [(64, 256, True), (32, 512, False)])
+def test_f32_signed_mean_error_against_float64(cuda, c, r, want_x2):
+    """The mean of (kernel - float64) along the sign of the float64 section,
+    over its mean magnitude, at the full-width sections: a truncation bias
+    that the max abs gate would miss."""
+    ops = _problem(14, 2, c, r, r, cuda)
+    got = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    with torch.no_grad():
+        ref = fused_section_plain(*[t.double() for t in ops], want_x2=want_x2)
+    got, ref = (got, ref) if want_x2 else ((got,), (ref,))
+    num = sum(float(((a.double() - b) * torch.sign(b)).sum()) for a, b in zip(got, ref))
+    den = sum(float(b.abs().sum()) for b in ref)
+    assert abs(num / den) <= SME_BOUND, num / den
 
 
 def test_limits_raise(cuda):

@@ -53,7 +53,7 @@ from warpedganspace_tpu.ops import proggan_tail_pallas as ptp
 from warpedganspace_tpu.ops import s2d as s2d_ops
 from warpedganspace_tpu.ops import sg2_tail_pallas as stp
 from warpedganspace_torch.ops import proggan_tail as pt
-from warpedganspace_torch.ops import proggan_tail_cuda, sg2_tail_cuda
+from warpedganspace_torch.ops import proggan_tail_cuda, sg2_tail_cuda, sg2_tail_cuda_cores
 from warpedganspace_torch.ops import sg2_tail as st
 
 torch.set_num_threads(1)
@@ -372,8 +372,11 @@ def test_sg2_kernel_weight_layout(c):
     """What the wrapper hands each design, read as the kernel reads it: for
     bf16 the polyphase up-conv [tap (oy, ox)][phase (py, px)][co][ci], each
     composite rounded once, which as four 3x3 convs is the transposed conv and
-    blur; the same-conv [tap][co][ci]. For f32 the layouts of the CUDA-core
-    design, [ci][phase][tap][co] and [ci][ky][kx][co]."""
+    blur; the same-conv [tap][co][ci]. For f32 the split-precision design's
+    records of the transposed conv's raw taps, in its order, and of the
+    same-conv's taps (tests/test_torch_sg2_tail_f32_split_numerics.py reads
+    them at the kernel's indices); for the CUDA-core design kept for
+    comparison, [ci][phase][tap][co] and [ci][ky][kx][co]."""
     ops = sg2_chip_problem(12, 1, c, 6, 5)
     w_up, w_same, w_rgb = ops[1:4]
     wu, ws, wr = sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, torch.bfloat16)
@@ -391,9 +394,16 @@ def test_sg2_kernel_weight_layout(c):
     assert float((got - want).abs().max()) <= 2 ** -7 * scale
     assert torch.equal(ws.reshape(3, 3, c, c).permute(2, 3, 0, 1), w_same)
     assert torch.equal(wr, w_rgb.float().reshape(3, c))
-    wu32, ws32, _ = sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, torch.float32)
-    assert torch.equal(wu32, comp)
-    assert torch.equal(ws32, w_same.float().permute(1, 2, 3, 0))
+    wu32, ws32, wr32 = sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, torch.float32)
+    w_up, w_same = w_up.float(), w_same.float()
+    up = torch.stack([w_up[:, :, ky, kx] for ky, kx in sg2_tail_cuda.UP_TAP_ORDER])
+    assert torch.equal(wu32, sg2_tail_cuda.split_records(up))
+    assert torch.equal(ws32, sg2_tail_cuda.split_records(
+        w_same.permute(2, 3, 0, 1).reshape(9, c, c)))
+    assert torch.equal(wr32, wr)
+    wucc, wscc, _ = sg2_tail_cuda_cores.cc_weights(w_up, w_same, w_rgb)
+    assert torch.equal(wucc, st.compose_up_weight(w_up))
+    assert torch.equal(wscc, w_same.permute(1, 2, 3, 0))
 
 
 @pytest.mark.parametrize("weights", ["bf16", "hilo"])

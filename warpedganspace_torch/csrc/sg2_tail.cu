@@ -17,44 +17,82 @@
 // batch. Only rgb, and x2 when the caller asks for it (the next block's input),
 // reach device memory: the mid activation lives in shared memory.
 //
-// What bounds it: the up-conv as four polyphase 3x3 convs costs 9 taps of
-// 2C x C per output pixel, the same-conv 9 taps of C x C: about 29 G
-// multiply-adds per image for each of StyleGAN2-1024's two sections (C = 64 at
-// 512^2, C = 32 at 1024^2), against some 50 MB of input and output per image
-// in f32. On the CUDA cores at the data-sheet 67 TFLOP/s that is 0.87 ms per
-// image, thirty times the bytes' time at 3.35 TB/s: operations bound it. (The
-// least arithmetic, the transposed conv's 2.25 taps of 2C x C and then the
-// depthwise blur, is a quarter of the composite's up-conv.) With bf16 storage
-// the card's peak is the tensor cores' 989 TFLOP/s (bf16 operands, f32
-// accumulation).
+// What bounds it: the least arithmetic is the stride-2 transposed conv's 9
+// taps of 2C x C per input pixel (2.25 per output pixel), the depthwise blur
+// and the same-conv's 9 taps of C x C per output pixel: about 15 G
+// multiply-adds per image for each of StyleGAN2-1024's two sections (C = 64
+// at 512^2, C = 32 at 1024^2), against 80-104 MB of input and output per
+// image in f32. Operations bound it on every unit: on the CUDA cores at the
+// data-sheet 67 TFLOP/s, 0.44 ms per image; on the tensor cores at 495 TFLOP/s
+// TF32 (f32) or 989 TFLOP/s bf16, 0.06 or 0.03 ms, against 0.024-0.031 ms of
+// bytes at 3.35 TB/s in f32.
 //
-// Two designs, chosen in the C launch function by the storage type: f32 on
-// the CUDA cores (namespace cc), bf16 on the tensor cores (namespace tc).
-// Nothing of the TPU kernel's fold-x lanes, K-window builds, k-merged RGB or
-// row stripes is carried over. Both take NCHW activations and a block per
-// (image, 16 x 16 output tile); both stage the 12 x 12 input tile (halo 2 on
-// the input grid) of all 2C channels already multiplied by s1, and recompute
-// the same-conv's halo of the 18 x 18 mid tile (1.27x). The stride-2
-// transposed conv followed by the 4-tap blur is, for each parity (py, px) of
-// the output pixel (2u + py, 2v + px), a 3x3 conv of the input pixels (u - 1
-// .. u + 1, v - 1 .. v + 1) with its own weights (the wrapper derives them
-// from the plain transposed conv and blur), so the mid tile splits into four
-// parity groups of 9 x 9 pixels. Mid pixels outside the image are set to ZERO,
-// not computed: the same-conv zero-pads x * s2. Ragged edges are masked: any
-// Hi, Wi >= 1; tiles past the right and bottom edge store nothing outside the
-// image. Offsets are 64-bit; the limits are 2^31 - 1 blocks (B x tiles) and C
-// in {16, 32, 64}.
+// Three designs. The C launch function takes bf16 to the tensor cores as
+// bf16 products of the polyphase up-conv (namespace tc) and f32 to the tensor
+// cores in split precision, the transposed conv then the blur (namespace tf);
+// the f32 design on the CUDA cores (namespace cc), which the split-precision
+// design replaced, has its own C entry for comparison only. Nothing of the
+// TPU kernel's fold-x lanes, K-window builds, k-merged RGB or row stripes is
+// carried over. All take NCHW activations and a block per (image, 16 x 16
+// output tile); all stage the 12 x 12 input tile (halo 2 on the input grid)
+// of all 2C channels already multiplied by s1, and recompute the same-conv's
+// halo of the 18 x 18 mid tile (1.27x). Mid pixels outside the image are set
+// to ZERO, not computed: the same-conv zero-pads x * s2. Ragged edges are
+// masked: any Hi, Wi >= 1; tiles past the right and bottom edge store
+// nothing outside the image. Offsets are 64-bit; the limits are 2^31 - 1
+// blocks (B x tiles) and C in {16, 32, 64}.
 //
-// f32 (cc): 8 C threads; all arithmetic and every intermediate f32. Weights
-// prepared by the wrapper in f32: the up-conv as [2C][4 phases][9 taps][C],
-// the same-conv as [C][9 taps][C], ToRGB [3][C]. They stream through two
-// shared buffers in chunks of 4 input channels with 16-byte cp.async copies
-// (the C = 64 section's composite is 1.2 MB in f32): the next chunk is in
-// flight while the current one is multiplied; weight reads in the inner loops
-// are uniform float4 broadcasts. Up-conv: a warp owns one (parity group, 16
-// output channels), 27 lanes each holding 3 pixels x 16 channels. Same-conv: a
-// thread holds 4 rows x 8 channels of one output column; x2 * s3 meets the
-// other channels of its pixel in shared memory for the 1x1 ToRGB.
+// tc and cc compute the stride-2 transposed conv followed by the 4-tap blur
+// as, for each parity (py, px) of the output pixel (2u + py, 2v + px), a 3x3
+// conv of the input pixels (u - 1 .. u + 1, v - 1 .. v + 1) with its own
+// weights (the wrapper derives them from the plain transposed conv and
+// blur), so the mid tile splits into four parity groups of 9 x 9 pixels: 9
+// taps of 2C x C per output pixel, four times the transposed conv's.
+//
+// f32 (tf): both convolutions are implicit GEMMs on mma.sync m16n8k8 in
+// split precision (tc_tf32.cuh: each operand as TF32 hi + lo rounded to
+// nearest, three products lo hi + hi lo + hi hi), from shared memory; 8 warps.
+// - The input tile x * s1 stays f32, channel-last, [pixel][channel] rows of
+//   an odd number of 16-byte units (tc_conv.cuh); the warps split their A
+//   fragments as they load them.
+// - The transposed conv fills a pre-blur window T of 21 x 21 pixels (the
+//   mid tile and the blur's 3) in its four parity groups: window pixel (2u +
+//   pr, 2v + pc) takes only the taps ky = pr, kx = pc (mod 2), 4, 2, 2 and 1
+//   of them. Each group is an implicit GEMM, M = its 121, 110, 110 or 100
+//   positions, N = C, K = taps x 2C, from the raw transposed-conv weights:
+//   1.72x the transposed conv's least products (the halo), 0.43x the
+//   polyphase up-conv's.
+// - The separable [1, 3, 3, 1] blur with gain 4 runs in f32 on the CUDA
+//   cores, in place in T (columns, then rows); the rows' pass applies * d1,
+//   noise, bias, leaky * sqrt 2 and * s2 and leaves the mid tile in T's room
+//   (d1 is per channel, so it commutes with the blur).
+// - Same-conv: M = the 256 output pixels (an m16 tile is one output row), N =
+//   C, K = 9 taps x C; a warp owns two output rows. Epilogue as in tc, in f32.
+// - Weights: the wrapper splits the raw taps once a call into 16-byte records
+//   of B fragments {hi b0, hi b1, lo b0, lo b1} (tc_tf32.cuh), one chunk per
+//   tap x 16 input channels, in the order the kernel takes them; they go
+//   through a ring of shared slots by cp.async, one block barrier a chunk.
+// - The tensor cores round their f32 sums toward zero: accumulators are added
+//   into f32 sums every kFlushSteps k8 steps (tests/test_torch_sg2_tail_f32_split_numerics.py).
+// - Shared memory: C = 64 (512^2 section): vectors and the mid tile's noise
+//   4.0 KB, input tile 144 x 528 B = 74.3 KB, T and then mid 441 x 272 B =
+//   117.1 KB, ring 3 x 8 KB: 219.4 KB, one block (8 warps) an SM. C = 32
+//   (1024^2): 2.7, 38.3, 62.0 KB, ring 2 x 4 KB: 111.0 KB, two blocks. C = 16:
+//   62.7 KB, three blocks. The input tile and the noise come by 4-byte
+//   cp.async, all of a thread's copies in flight at once; s1 is applied in
+//   place once they land.
+//
+// f32 (cc), for comparison: 8 C threads; all arithmetic and every
+// intermediate f32. Weights prepared by the wrapper in f32: the up-conv as
+// [2C][4 phases][9 taps][C], the same-conv as [C][9 taps][C], ToRGB [3][C].
+// They stream through two shared buffers in chunks of 4 input channels with
+// 16-byte cp.async copies (the C = 64 section's composite is 1.2 MB in f32):
+// the next chunk is in flight while the current one is multiplied; weight
+// reads in the inner loops are uniform float4 broadcasts. Up-conv: a warp
+// owns one (parity group, 16 output channels), 27 lanes each holding 3 pixels
+// x 16 channels. Same-conv: a thread holds 4 rows x 8 channels of one output
+// column; x2 * s3 meets the other channels of its pixel in shared memory for
+// the 1x1 ToRGB.
 //
 // bf16 (tc): both convolutions are implicit GEMMs on mma.sync m16n8k16 with
 // bf16 operands and f32 accumulation, from shared memory (tc_conv.cuh); 8
@@ -97,6 +135,7 @@
 #include <cuda_runtime.h>
 
 #include "tc_conv.cuh"
+#include "tc_tf32.cuh"
 
 namespace {
 
@@ -111,8 +150,10 @@ __device__ __forceinline__ float act_fn(float v) { return kGain * (v >= 0.f ? v 
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores. The template also takes bf16 storage, the design bf16 had
-// before the tensor cores: scripts/measure_sg2_tail_tc_rate.py times it so.
+// f32 on the CUDA cores, the design the split-precision one replaced, behind
+// its own C entry (sg2_tail_section_cc_launch) for comparison. The template
+// also takes bf16 storage, the design bf16 had before the tensor cores:
+// scripts/measure_sg2_tail_tc_rate.py times it so.
 namespace cc {
 
 constexpr int kMidStride = 20;                  // floats per mid row: 4 rows apart = 16 banks
@@ -751,15 +792,436 @@ cudaError_t launch(const void* const* in, void* rgb, void* x2, int b, int c, int
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores in split precision (3xTF32 on mma.sync m16n8k8,
+// tc_tf32.cuh), the stride-2 transposed conv and then the blur.
+namespace tf {
+
+using tc::FragA;
+
+constexpr int kThreads = 256;                   // 8 warps
+constexpr int kInWin = kTile / 2 + 4;           // input tile with the transposed conv's halo
+constexpr int kInPix = kInWin * kInWin;
+constexpr int kT = kMid + 3;                    // pre-blur window: the mid tile and the blur's 3
+constexpr int kTPix = kT * kT;
+constexpr int kEven = (kT + 1) / 2;             // even rows (columns) of the window: 11
+// The products' accumulators are added into float32 sums (rounded to nearest)
+// and start again from 0 after this many k8 steps (chains of 12 mma.sync), and
+// at the end of each parity group and of the same-conv. The tensor cores round
+// their float32 sums toward zero: one chain over a parity group's K (up to 3 x
+// 64 products at C = 64) shrinks the outputs by up to 2.8e-6 of their mean
+// magnitude in the CPU emulation (tests/test_torch_sg2_tail_f32_split_numerics.py),
+// these flushes by 4e-8 to 2e-7 (1.0e-7 and 4.4e-8 measured on the card at the
+// two full-width sections); 4 is the longest interval that keeps the emulated
+// error within 1.5x the plain f32 section's own distance from float64.
+constexpr int kFlushSteps = 4;
+constexpr int kChunkSteps = 2;                  // k8 steps (16 input channels) of a weight chunk
+// Blocks an SM, as shared memory allows them (__launch_bounds__ holds the
+// registers to it), and the ring's slots: C = 32 takes two slots so that two
+// blocks fit (one block with three slots took 6.86 against 4.90 ms at B = 4,
+// scripts/measure_sg2_tail_tc_rate.py).
+template <int C>
+constexpr int kBlocksPerSM = C == 64 ? 1 : (C == 32 ? 2 : 3);
+template <int C>
+constexpr int kRing = C == 32 ? 2 : 3;
+static_assert(kThreads / 32 == 8 && (kEven * kEven + 15) / 16 <= 8 && 8 * 2 == kTile,
+              "warp maps: 4 m16 pairs x 2 column halves cover a parity group; 8 warps x 2 "
+              "output rows");
+
+// Sizes: strides in floats, regions in bytes.
+template <int C>
+struct Cfg {
+  static constexpr int CI = 2 * C;
+  static constexpr int NT = C / 8;                              // n8 tiles of a product
+  static constexpr int IN_STRIDE = 4 * tc::f32_row_units(CI);   // a pixel of the input tile
+  static constexpr int T_STRIDE = 4 * tc::f32_row_units(C);     // a pixel of the T / mid tile
+  static constexpr int CHUNK = kChunkSteps * NT * 32 * 16;      // records of a weight chunk
+  static constexpr int UP_KB = CI / 16, SAME_KB = C / 16;       // chunks of a tap
+  static constexpr int NUP = 9 * UP_KB;
+  static constexpr int NCHUNK = NUP + 9 * SAME_KB;
+  // The per-sample vectors (f32): s1 [2C]; d1, s2, d2, s3, b1, b2 [C]; ToRGB
+  // [3][C]; its bias [3]; the two noise weights.
+  static constexpr int VEC = (4 * (11 * C + 5) + 15) / 16 * 16;
+  static constexpr int NZ = (4 * kMid * kMid + 15) / 16 * 16;   // the mid tile's noise1
+  static constexpr int IN = kInPix * IN_STRIDE * 4;
+  static constexpr int TT = kTPix * T_STRIDE * 4;
+  static constexpr int SMEM = VEC + NZ + IN + TT + kRing<C> * CHUNK;
+};
+
+// Weight chunk j into a ring slot (nothing past the last chunk): the records
+// of one tap x 16 input channels for all C output channels, as the wrapper
+// lays them out ([chunk][k8 step][n8 tile][lane] of {hi b0, hi b1, lo b0, lo
+// b1}): chunks 0 .. NUP - 1 the transposed conv's, in the kernel's order of
+// taps, the rest the same-conv's.
+template <int C>
+__device__ __forceinline__ void fetch_chunk(uint32_t slot, const uint4* __restrict__ wu,
+                                            const uint4* __restrict__ wsame, int j, int tid) {
+  using K = Cfg<C>;
+  if (j >= K::NCHUNK) return;
+  const uint4* src = j < K::NUP ? wu + (size_t)j * (K::CHUNK / 16)
+                                : wsame + (size_t)(j - K::NUP) * (K::CHUNK / 16);
+  tcc::fetch_units<kThreads>(slot, src, K::CHUNK / 16, tid);
+}
+
+// sum += acc, rounded to nearest; acc = 0.
+template <int M, int N>
+__device__ __forceinline__ void flush(float (&sum)[M][N][4], float (&acc)[M][N][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sum[i][n][e] += acc[i][n][e];
+        acc[i][n][e] = 0.f;
+      }
+}
+
+// One tap of the blur, [1, 3, 3, 1] / 4 (the 2-D kernel's gain of 4 split
+// over its two passes).
+__device__ __forceinline__ float blur4(float t0, float t1, float t2, float t3) {
+  return fmaf(0.75f, t1 + t2, 0.25f * (t0 + t3));
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<C>)
+section_kernel(const float* __restrict__ x, const uint4* __restrict__ wu,
+               const uint4* __restrict__ wsame, const float* __restrict__ wrgb,
+               const float* __restrict__ s1, const float* __restrict__ d1,
+               const float* __restrict__ s2, const float* __restrict__ d2,
+               const float* __restrict__ s3, const float* __restrict__ n1,
+               const float* __restrict__ nw1, const float* __restrict__ b1,
+               const float* __restrict__ n2, const float* __restrict__ nw2,
+               const float* __restrict__ b2, const float* __restrict__ rgb_b,
+               float* __restrict__ rgb, float* __restrict__ x2, int hi, int wi, int tiles_x,
+               int tiles_y) {
+  using K = Cfg<C>;
+  constexpr int CI = K::CI, NT = K::NT, NW = NT / 2, TS = K::T_STRIDE, RING = kRing<C>;
+  extern __shared__ float4 smem4[];
+  float* vs1 = reinterpret_cast<float*>(smem4);   // [2C]
+  float* vd1 = vs1 + CI;                          // [C] each
+  float* vs2 = vd1 + C;
+  float* vd2 = vs2 + C;
+  float* vs3 = vd2 + C;
+  float* vb1 = vs3 + C;
+  float* vb2 = vb1 + C;
+  float* vwr = vb2 + C;                           // [3][C]
+  float* vrb = vwr + 3 * C;                       // [3]
+  float* vnw = vrb + 3;                           // [2]
+  float* nzt = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + K::VEC);   // [18][18]
+  float* in = reinterpret_cast<float*>(reinterpret_cast<char*>(nzt) + K::NZ);
+  float* tt = reinterpret_cast<float*>(reinterpret_cast<char*>(in) + K::IN);   // T, then mid
+  const uint4* ring = reinterpret_cast<const uint4*>(reinterpret_cast<char*>(tt) + K::TT);
+  const uint32_t ring_a = tc::smem_addr(ring);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  int bid = blockIdx.x;
+  const int tx = bid % tiles_x;
+  bid /= tiles_x;
+  const int ty = bid % tiles_y;
+  const int b = bid / tiles_y;
+  const int h = 2 * hi, w = 2 * wi;
+  const int y0 = ty * kTile, x0 = tx * kTile;     // output tile origin, even
+  const int iy0 = y0 / 2 - 2, ix0 = x0 / 2 - 2;   // input tile origin
+
+  // The input tile's copies and the mid tile's noise1 (zero outside the
+  // image), then the first weight chunks, travel while the vectors load.
+  tcc::stage_nchw_f32<kThreads>(in, K::IN_STRIDE, x + (size_t)b * CI * hi * wi, CI, hi, wi, iy0,
+                                ix0, kInWin, tid);
+  for (int i = tid; i < kMid * kMid; i += kThreads) {
+    const int gy = y0 - 1 + i / kMid, gx = x0 - 1 + i % kMid;
+    const bool ok = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    tc::cp_async4(tc::smem_addr(nzt + i), ok ? n1 + (size_t)gy * w + gx : n1, ok);
+  }
+  tc::cp_async_commit();
+  for (int s = 0; s < RING - 1; ++s) {
+    fetch_chunk<C>(ring_a + s * K::CHUNK, wu, wsame, s, tid);
+    tc::cp_async_commit();
+  }
+  // Chunk j has landed for everyone, and the slot of chunk j - 1 is free: it
+  // takes chunk j + RING - 1. One block barrier a chunk.
+  auto land = [&](int j) {
+    tcc::cp_async_wait<RING - 2>();
+    __syncthreads();
+    fetch_chunk<C>(ring_a + ((j + RING - 1) % RING) * K::CHUNK, wu, wsame, j + RING - 1, tid);
+    tc::cp_async_commit();
+    return ring + (j % RING) * (K::CHUNK / 16);
+  };
+
+  // 1. The per-sample vectors, then the input tile (channel-last, zero outside
+  // the image) times s1, in place once it has landed.
+  for (int i = tid; i < CI; i += kThreads) vs1[i] = s1[(size_t)b * CI + i];
+  for (int i = tid; i < C; i += kThreads) {
+    const size_t bi = (size_t)b * C + i;
+    vd1[i] = d1[bi];
+    vs2[i] = s2[bi];
+    vd2[i] = d2[bi];
+    vs3[i] = s3[bi];
+    vb1[i] = b1[i];
+    vb2[i] = b2[i];
+  }
+  for (int i = tid; i < 3 * C; i += kThreads) vwr[i] = wrgb[i];
+  if (tid < 3) vrb[tid] = rgb_b[tid];
+  if (tid == 0) {
+    vnw[0] = nw1[0];
+    vnw[1] = nw2[0];
+  }
+  tcc::cp_async_wait<RING - 1>();   // this thread's input copies (the oldest group)
+  __syncthreads();
+  for (int i = tid; i < kInPix * CI; i += kThreads) {   // times s1
+    const int p = i / CI, ci = i - p * CI;
+    in[p * K::IN_STRIDE + ci] *= vs1[ci];
+  }
+
+  // 2. The transposed conv into the pre-blur window T (21 x 21, from (y0 - 2,
+  // x0 - 2)). Window pixel (2u + pr, 2v + pc) takes the kernel taps ky = pr
+  // (mod 2), kx = pc (mod 2): 4, 2, 2 and 1 taps for the parity groups (0, 0),
+  // (0, 1), (1, 0), (1, 1) of 11 x 11, 11 x 10, 10 x 11 and 10 x 10
+  // positions; tap (ky, kx) reads input pixel (u + 1 - ky / 2, v + 1 - kx / 2)
+  // of the tile. Each group is an implicit GEMM, M = its positions, N = C, K
+  // = its taps x 2C; warp = (m16 tiles 2 mp and 2 mp + 1, n8 tiles of column
+  // half nh). Rows past the group's positions repeat its last and are not
+  // stored; a second m16 tile without positions is skipped.
+  int j = 0;   // weight chunks used
+  {
+    const int mp = warp >> 1, nh = warp & 1;
+#pragma unroll 1
+    for (int g = 0; g < 4; ++g) {
+      const int pr = g >> 1, pc = g & 1;
+      const int nc = kEven - pc, npos = (kEven - pr) * nc;
+      const bool two = 16 * (2 * mp + 1) < npos;
+      const float* ap[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int q = min(16 * (2 * mp + i) + gq + 8 * hh, npos - 1);
+          const int u = q / nc, v = q - u * nc;
+          ap[i][hh] = in + ((u + 1) * kInWin + v + 1) * K::IN_STRIDE + tq;
+        }
+      float acc[2][NW][4], sum[2][NW][4];
+      tcc::zero(acc);
+      tcc::zero(sum);
+      const int taps_x = pc ? 1 : 2;
+      const int ntaps = (pr ? 1 : 2) * taps_x;
+      int since = 0;   // k8 steps since the last flush
+#pragma unroll 1
+      for (int t = 0; t < ntaps; ++t) {
+        const int ky = pr ? 1 : 2 * (t / taps_x), kx = pc ? 1 : 2 * (t % taps_x);
+        const int shift = ((ky >> 1) * kInWin + (kx >> 1)) * K::IN_STRIDE;
+#pragma unroll 1
+        for (int kb = 0; kb < K::UP_KB; ++kb, ++j) {
+          const uint4* rec = land(j) + nh * NW * 32 + lane;
+#pragma unroll
+          for (int s = 0; s < kChunkSteps; ++s) {
+            const int k = 16 * kb + 8 * s - shift;
+            uint4 bw[NW];
+#pragma unroll
+            for (int n = 0; n < NW; ++n) bw[n] = rec[(s * NT + n) * 32];
+            const FragA a0 = tc::frag_a(ap[0][0][k], ap[0][1][k], ap[0][0][k + 4], ap[0][1][k + 4]);
+            tc::mma3_records<NW>(acc[0], a0, bw, NW);   // transposed-conv products
+            if (two) {
+              const FragA a1 =
+                  tc::frag_a(ap[1][0][k], ap[1][1][k], ap[1][0][k + 4], ap[1][1][k + 4]);
+              tc::mma3_records<NW>(acc[1], a1, bw, NW);   // transposed-conv products
+            }
+          }
+          since += kChunkSteps;
+          if (since >= kFlushSteps) {
+            flush(sum, acc);
+            since = 0;
+          }
+        }
+      }
+      if (since != 0) flush(sum, acc);
+      // The group's positions into T; IN and T are apart, so no barrier.
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int q = 16 * (2 * mp + i) + gq + 8 * hh;
+          if (q >= npos || (i == 1 && !two)) continue;
+          const int u = q / nc, v = q - u * nc;
+          float* row = tt + ((2 * u + pr) * kT + 2 * v + pc) * TS + 8 * NW * nh + 2 * tq;
+#pragma unroll
+          for (int n = 0; n < NW; ++n)
+            *reinterpret_cast<float2*>(row + 8 * n) = make_float2(sum[i][n][2 * hh],
+                                                                  sum[i][n][2 * hh + 1]);
+        }
+    }
+  }
+  __syncthreads();   // T is whole
+
+  // 3. The blur, in place in T: the columns, then the rows, whose epilogue
+  // (* d1, + nw1 * noise1 + b1, leaky * sqrt 2, * s2) leaves the 18 x 18 mid
+  // tile (from (y0 - 1, x0 - 1)) at the top left of T's room; mid pixels
+  // outside the image are zero. A thread owns one channel of a column, then
+  // of a row, and slides a window of four along it.
+  for (int item = tid; item < kT * C; item += kThreads) {   // the columns' pass
+    const int co = item % C, c = item / C;
+    float* col = tt + c * TS + co;
+    float t0 = col[0], t1 = col[kT * TS], t2 = col[2 * kT * TS];
+#pragma unroll 2
+    for (int r = 0; r < kMid; ++r) {
+      const float t3 = col[(r + 3) * kT * TS];
+      col[r * kT * TS] = blur4(t0, t1, t2, t3);
+      t0 = t1;
+      t1 = t2;
+      t2 = t3;
+    }
+  }
+  __syncthreads();
+  for (int item = tid; item < kMid * C; item += kThreads) {   // the rows' pass and epilogue
+    const int co = item % C, i = item / C;
+    float* row = tt + i * kT * TS + co;
+    const int gy = y0 - 1 + i;
+    const bool row_in = gy >= 0 && gy < h;
+    const float dd = vd1[co], bb = vb1[co], ss = vs2[co], nw = vnw[0];
+    float t0 = row[0], t1 = row[TS], t2 = row[2 * TS];
+#pragma unroll 2
+    for (int jj = 0; jj < kMid; ++jj) {
+      const float t3 = row[(jj + 3) * TS];
+      const int gx = x0 - 1 + jj;
+      const bool inside = row_in && gx >= 0 && gx < w;
+      row[jj * TS] = inside ? act_fn(fmaf(blur4(t0, t1, t2, t3), dd,
+                                          nw * nzt[i * kMid + jj] + bb)) * ss
+                            : 0.f;
+      t0 = t1;
+      t1 = t2;
+      t2 = t3;
+    }
+  }
+
+  // 4. Same-conv from the mid tile: M = the 256 output pixels (an m16 tile is
+  // one output row), N = C, K = 9 taps x C; warp = output rows 2 warp and 2
+  // warp + 1, all C channels. (The first chunk's barrier covers the mid tile.)
+  float acc[2][NT][4], sum[2][NT][4];
+  tcc::zero(acc);
+  tcc::zero(sum);
+  const float* apx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) apx[i] = tt + ((2 * warp + i) * kT + gq) * TS + tq;
+  int since = 0;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int off = ((tap / 3) * kT + tap % 3) * TS;
+#pragma unroll 1
+    for (int kb = 0; kb < K::SAME_KB; ++kb, ++j) {
+      const uint4* rec = land(j) + lane;
+#pragma unroll
+      for (int s = 0; s < kChunkSteps; ++s) {
+        const int k = off + 16 * kb + 8 * s;
+        uint4 bw[NT];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) bw[n] = rec[(s * NT + n) * 32];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* p = apx[i] + k;
+          const FragA a = tc::frag_a(p[0], p[8 * TS], p[4], p[8 * TS + 4]);
+          tc::mma3_records<NT>(acc[i], a, bw, NT);   // same-conv products
+        }
+      }
+      since += kChunkSteps;
+      if (since >= kFlushSteps) {
+        flush(sum, acc);
+        since = 0;
+      }
+    }
+  }
+  if (since != 0) flush(sum, acc);
+
+  // 5. Epilogue: * d2, + nw2 * noise2 + b2, leaky * sqrt 2 is x2 (stored when
+  // asked); ToRGB of x2 * s3 from the sums (a quad's partials) + bias.
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int oy = y0 + 2 * warp + i, ox = x0 + gq + 8 * hh;
+      const bool inside = oy < h && ox < w;
+      const float nz = inside ? vnw[1] * n2[(size_t)oy * w + ox] : 0.f;
+      float out[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = 8 * n + 2 * tq + e;
+          const float v = act_fn(fmaf(sum[i][n][2 * hh + e], vd2[co], nz + vb2[co]));
+          if (x2 != nullptr && inside) x2[(((size_t)b * C + co) * h + oy) * w + ox] = v;
+          const float m = v * vs3[co];
+#pragma unroll
+          for (int o = 0; o < 3; ++o) out[o] = fmaf(m, vwr[o * C + co], out[o]);
+        }
+#pragma unroll
+      for (int o = 0; o < 3; ++o) out[o] = tc::quad_sum(out[o]);
+      if (inside && tq < 3) {
+        const float r = tq == 0 ? out[0] : (tq == 1 ? out[1] : out[2]);
+        rgb[(((size_t)b * 3 + tq) * h + oy) * w + ox] = r + vrb[tq];
+      }
+    }
+}
+
+template <int C>
+cudaError_t launch_c(const void* const* in, void* rgb, void* x2, int b, int hi, int wi,
+                     cudaStream_t stream) {
+  constexpr int smem = Cfg<C>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(section_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (2 * wi + kTile - 1) / kTile;
+  const int tiles_y = (2 * hi + kTile - 1) / kTile;
+  const long long blocks = (long long)b * tiles_x * tiles_y;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  auto f = [&](int i) { return static_cast<const float*>(in[i]); };
+  auto r = [&](int i) { return static_cast<const uint4*>(in[i]); };
+  section_kernel<C><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      f(0), r(1), r(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9), f(10), f(11), f(12), f(13),
+      f(14), f(15), static_cast<float*>(rgb), static_cast<float*>(x2), hi, wi, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* const* in, void* rgb, void* x2, int b, int c, int hi, int wi,
+                   cudaStream_t stream) {
+  switch (c) {
+    case 16:
+      return launch_c<16>(in, rgb, x2, b, hi, wi, stream);
+    case 32:
+      return launch_c<32>(in, rgb, x2, b, hi, wi, stream);
+    case 64:
+      return launch_c<64>(in, rgb, x2, b, hi, wi, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf
+
+// The operands every design takes, checked before any launch: 0 (with
+// *empty when there is nothing to do) or the cudaError_t to return.
+static int check_args(void* x2, int b, int c, int hi, int wi, int want_x2, bool* empty) {
+  *empty = false;
+  if (b < 0 || hi < 0 || wi < 0 || hi > 0x3fffffff || wi > 0x3fffffff)
+    return (int)cudaErrorInvalidValue;
+  if ((x2 != nullptr) != (want_x2 != 0)) return (int)cudaErrorInvalidValue;
+  if (c != 16 && c != 32 && c != 64) return (int)cudaErrorInvalidValue;
+  *empty = b == 0 || hi == 0 || wi == 0;
+  return (int)cudaSuccess;
+}
+
 // C entry point (loaded with ctypes). x is (B, 2C, hi, wi); s1 (B, 2C), d1,
 // s2, d2, s3 (B, C); n1, n2 (2 hi, 2 wi); nw1, nw2 one element; b1, b2 (C);
 // rgb_b (3); rgb (B, 3, 2 hi, 2 wi); x2 (B, C, 2 hi, 2 wi) when want_x2, else
 // null. x, the vectors, the noise and the outputs are all f32 (is_bf16 == 0)
 // or all bf16 (is_bf16 == 1); every tensor contiguous on one device. The
 // weights as the wrapper prepares them, wrgb the f32 ToRGB weights (3, C) for
-// both; f32: wu the up-conv polyphase weights (2C, 4, 9, C) as
-// [ci][phase][tap][co], wsame (C, 3, 3, C) as [ci][ky][kx][co]; bf16: wu (9,
-// 4, C, 2C) as [tap][phase][co][ci], wsame (9, C, C) as [tap][co][ci].
+// both; f32: wu the transposed conv's raw taps and wsame the same-conv's as
+// split 16-byte records, (9 x 2C / 16 chunks, 2, C / 8, 32, 4) and (9 x C /
+// 16, 2, C / 8, 32, 4) f32 in tf::fetch_chunk's layout (the transposed conv's
+// taps in the order (0, 0), (0, 2), (2, 0), (2, 2), (0, 1), (2, 1), (1, 0),
+// (1, 2), (1, 1)); bf16: wu the polyphase up-conv (9, 4, C, 2C) as
+// [tap][phase][co][ci], wsame (9, C, C) as [tap][co][ci].
 // Returns a cudaError_t; 0 is success.
 extern "C" int sg2_tail_section_launch(const void* x, const void* wu, const void* wsame,
                                        const void* wrgb, const void* s1, const void* d1,
@@ -769,20 +1231,37 @@ extern "C" int sg2_tail_section_launch(const void* x, const void* wu, const void
                                        const void* rgb_b, void* rgb, void* x2, int is_bf16,
                                        int b, int c, int hi, int wi, int want_x2,
                                        void* stream) {
-  if (b < 0 || hi < 0 || wi < 0 || hi > 0x3fffffff || wi > 0x3fffffff)
-    return (int)cudaErrorInvalidValue;
-  if ((x2 != nullptr) != (want_x2 != 0)) return (int)cudaErrorInvalidValue;
-  if (c != 16 && c != 32 && c != 64) return (int)cudaErrorInvalidValue;
-  if (b == 0 || hi == 0 || wi == 0) return (int)cudaSuccess;
+  bool empty;
+  const int bad = check_args(x2, b, c, hi, wi, want_x2, &empty);
+  if (bad != 0 || empty) return bad;
   const void* in[16] = {x, wu, wsame, wrgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2, b2, rgb_b};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_bf16 ? tc::launch(in, rgb, x2, b, c, hi, wi, s)
-                                  : cc::launch<float>(in, rgb, x2, b, c, hi, wi, s);
+                                  : tf::launch(in, rgb, x2, b, c, hi, wi, s);
   return (int)err;
 }
 
-// Which design serves an operand type: the tensor cores for bf16, the CUDA
-// cores for f32.
+// The f32 design on the CUDA cores that the split-precision design replaced,
+// kept for comparison only (ops/sg2_tail_cuda_cores.py): the operands of
+// sg2_tail_section_launch in f32, wu the polyphase up-conv (2C, 4, 9, C) as
+// [ci][phase][tap][co] and wsame (C, 3, 3, C) as [ci][ky][kx][co].
+extern "C" int sg2_tail_section_cc_launch(const void* x, const void* wu, const void* wsame,
+                                          const void* wrgb, const void* s1, const void* d1,
+                                          const void* s2, const void* d2, const void* s3,
+                                          const void* n1, const void* nw1, const void* b1,
+                                          const void* n2, const void* nw2, const void* b2,
+                                          const void* rgb_b, void* rgb, void* x2, int b, int c,
+                                          int hi, int wi, int want_x2, void* stream) {
+  bool empty;
+  const int bad = check_args(x2, b, c, hi, wi, want_x2, &empty);
+  if (bad != 0 || empty) return bad;
+  const void* in[16] = {x, wu, wsame, wrgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2, b2, rgb_b};
+  return (int)cc::launch<float>(in, rgb, x2, b, c, hi, wi, static_cast<cudaStream_t>(stream));
+}
+
+// Which design serves an operand type: the tensor cores for both, bf16
+// products for bf16, split TF32 products of the transposed conv and blur for f32.
 extern "C" const char* sg2_tail_design(int is_bf16) {
-  return is_bf16 ? "tensor cores (mma.sync m16n8k16)" : "CUDA cores";
+  return is_bf16 ? "tensor cores (mma.sync m16n8k16)"
+                 : "tensor cores (mma.sync m16n8k8, 3xTF32), transposed conv + blur";
 }

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 tail kernels (proggan_tail.cu,
 // sg2_tail.cu) for Hopper (sm_90a): a 3x3 convolution out of shared memory as
-// an implicit GEMM on mma.sync m16n8k16 (bf16 operands, f32 accumulation).
+// an implicit GEMM on mma.sync m16n8k16 (bf16 operands, f32 accumulation);
+// at the end, the staging and copies of sg2_tail.cu's float32 design.
 //
 // - M is the pixels of a tile, N the output channels, K taps x input channels.
 // - Activation tiles live in shared memory as bf16, channel-last: one row of
@@ -111,6 +112,49 @@ __device__ __forceinline__ void stage_nchw(char* tile, int stride, const bf16* _
       v1 = f(2 * cp + 1, __bfloat162float(src[plane]));
     }
     *reinterpret_cast<uint32_t*>(tile + p * stride + 4 * cp) = tc::pack_bf16x2(v0, v1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The same convolutions in float32 (sg2_tail.cu's split-precision design on
+// mma.sync m16n8k8, tc_tf32.cuh): activation tiles are float32, channel-last,
+// one row of `stride` floats per pixel, an odd number of 16-byte units, so a
+// fragment's scalar loads (8 pixels x 4 channels) fall in 32 different banks
+// when the 8 pixels are consecutive. im2col is again an address per lane:
+// each tap shifts a lane's pixel. B fragments come as 16-byte records
+// prepared before the launch, copied as they are.
+
+// Copy `units` 16-byte units by cp.async from src (16-byte aligned) to dst.
+template <int THREADS>
+__device__ __forceinline__ void fetch_units(uint32_t dst, const void* src, int units, int tid) {
+  const char* s = static_cast<const char*>(src);
+  for (int i = tid; i < units; i += THREADS) tc::cp_async16(dst + 16 * i, s + 16 * i, true);
+}
+
+// Stage a window of an NCHW float32 image into a channel-last float32 tile by
+// 4-byte cp.async (the caller commits and waits): `win` x `win` pixels from
+// (iy0, ix0) of the `ch` channels of xb (hi x wi each; ch a multiple of 4),
+// zeros outside the image. Row p of the tile (pixel r * win + c) starts at
+// tile + p * stride floats. Eight consecutive lanes take eight consecutive
+// pixels of one channel (a 32-byte read), the four groups of a warp four
+// consecutive channels: with stride = 4 (mod 32) the 32 stores fall in 32
+// banks. The copies of a thread are all in flight at once.
+template <int THREADS>
+__device__ __forceinline__ void stage_nchw_f32(float* tile, int stride,
+                                               const float* __restrict__ xb, int ch, int hi,
+                                               int wi, int iy0, int ix0, int win, int tid) {
+  const uint32_t base = tc::smem_addr(tile);
+  const int npix = win * win, pblocks = (npix + 7) / 8;
+  for (int idx = tid; idx < pblocks * 8 * ch; idx += THREADS) {
+    const int rest = idx >> 5;
+    const int p = (rest % pblocks) * 8 + (idx & 7);
+    const int ci = (rest / pblocks) * 4 + ((idx >> 3) & 3);
+    if (p >= npix) continue;
+    const int r = p / win, c = p - r * win;
+    const int iy = iy0 + r, ix = ix0 + c;
+    const bool ok = iy >= 0 && iy < hi && ix >= 0 && ix < wi;
+    tc::cp_async4(base + 4 * (p * stride + ci), ok ? xb + ((size_t)ci * hi + iy) * wi + ix : xb,
+                  ok);
   }
 }
 

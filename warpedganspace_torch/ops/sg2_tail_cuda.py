@@ -12,12 +12,16 @@ launch:
 with no intermediate in device memory but x2, which it writes only when
 asked (the last block's is never read). Activations are NCHW, weights OIHW.
 The kernel has two designs, chosen in its C launch function by the operands'
-type (:func:`design` says which): float32 on the CUDA cores, all arithmetic
-float32; bfloat16 on the tensor cores (``mma.sync`` m16n8k16, bf16 operands
-and float32 accumulation). The weights' layouts for the kernel (the up-conv as
-four polyphase 3x3 convs, :func:`compose_up_weight`, composed in float32;
-for bfloat16 rounded once and laid out K-contiguous) are prepared here on
+type (:func:`design` says which), both on the tensor cores: bfloat16 as bf16
+products (``mma.sync`` m16n8k16, float32 accumulation) of the up-conv as four
+polyphase 3x3 convs (:func:`compose_up_weight`, composed in float32, rounded
+once and laid out K-contiguous); float32 in split precision (``mma.sync``
+m16n8k8, each operand as TF32 hi + lo, three products), the transposed conv's
+raw taps and then the blur, with the weights split here into 16-byte records
+of B fragments (:func:`split_records`). Both layouts are prepared here on
 every call, a few small elementwise passes; the products are the kernel's.
+The float32 design on the CUDA cores that the split-precision one replaced is
+bound for comparison only, by :mod:`warpedganspace_torch.ops.sg2_tail_cuda_cores`.
 
 - :func:`fused_section` is one section. On CPU tensors it runs
   :func:`~warpedganspace_torch.ops.sg2_tail.fused_section_plain`; on CUDA
@@ -65,21 +69,51 @@ def design(dtype: torch.dtype) -> str:
     return build().sg2_tail_design(int(dtype == torch.bfloat16)).decode()
 
 
+# The transposed conv's raw taps (ky, kx) in the order the float32 design
+# takes them: its parity groups (ky, kx mod 2) = (0, 0), (0, 1), (1, 0), (1, 1).
+UP_TAP_ORDER = ((0, 0), (0, 2), (2, 0), (2, 2), (0, 1), (2, 1), (1, 0), (1, 2), (1, 1))
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), nearest with ties away from
+    zero as ``cvt.rna.tf32.f32`` rounds, in the float32 layout."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_records(w: torch.Tensor) -> torch.Tensor:
+    """(taps, C out, C in) float32 weights -> the records of B fragments the
+    float32 design reads, (taps x C in / 16 chunks, 2 k8 steps, C out / 8 n8
+    tiles, 32 lanes, 4) float32: for lane 4 gq + tq of n8 tile nt at input
+    channel k0 = 16 kb + 8 s, {hi(b0), hi(b1), lo(b0), lo(b1)} with b0 =
+    w[tap][8 nt + gq][k0 + tq], b1 the same at k0 + tq + 4, hi = tf32(b), lo =
+    tf32(b - hi)."""
+    taps, co, ci = w.shape
+    w = w.float().reshape(taps, co // 8, 8, ci // 16, 2, 2, 4)   # t, nt, gq, kb, s, half, tq
+    w = w.permute(0, 3, 4, 1, 2, 6, 5)                           # t, kb, s, nt, gq, tq, half
+    hi = tf32(w)
+    lo = tf32(w - hi)
+    rec = torch.stack([hi, lo], dim=-2)                          # ..., gq, tq, (hi, lo), half
+    return rec.reshape(taps * (ci // 16), 2, co // 8, 32, 4).contiguous()
+
+
 def kernel_weights(w_up: torch.Tensor, w_same: torch.Tensor, w_rgb: torch.Tensor,
                    dtype: torch.dtype):
     """The weights as the kernel's design for ``dtype`` reads them. float32:
-    the polyphase up-conv (2C, 4, 9, C) as [ci][phase][tap][co] and the
-    same-conv (C, 3, 3, C) as [ci][ky][kx][co]. bfloat16: the polyphase up-conv
-    composed in float32 and rounded once, (9, 4, C, 2C) as
+    the transposed conv's raw taps in ``UP_TAP_ORDER`` and the same-conv's nine
+    taps (ky, kx) in row-major order, as :func:`split_records`. bfloat16: the
+    polyphase up-conv composed in float32 and rounded once, (9, 4, C, 2C) as
     [tap][phase][co][ci], and the same-conv (9, C, C) as [tap][co][ci]. ToRGB
     (3, C) in float32 for both."""
     c = w_up.shape[0]
-    wu = compose_up_weight(w_up)                                    # (2C, 4, 9, C) f32
     wr = w_rgb.float().reshape(3, c).contiguous()
     if dtype == torch.bfloat16:
+        wu = compose_up_weight(w_up)                                # (2C, 4, 9, C) f32
         return (wu.permute(2, 1, 3, 0).to(torch.bfloat16).contiguous(),
                 w_same.permute(2, 3, 0, 1).reshape(9, c, c).to(torch.bfloat16).contiguous(), wr)
-    return wu, w_same.float().permute(1, 2, 3, 0).contiguous(), wr
+    up = torch.stack([w_up[:, :, ky, kx] for ky, kx in UP_TAP_ORDER])   # (9, C, 2C)
+    same = w_same.permute(2, 3, 0, 1).reshape(9, c, c)                  # (9, C, C)
+    return split_records(up), split_records(same), wr
 
 
 def _check_operands(*operands):
