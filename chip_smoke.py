@@ -46,7 +46,12 @@ exit and no result line:
      32 -> 16 at 1024^2 with the RGB head; B=4) in f32 and bf16, at the shapes
      the ProgGAN path below gives it (a bf16 render batch of 16, one f32
      sample), at a border-only and at a ragged odd shape, with WScale scales
-     != 1 and random biases; no one PyTorch call computes a section;
+     != 1 and random biases; in f32 (its split-precision tensor-core design,
+     3xTF32) also the CUDA-core design it replaced, through that design's own
+     C entry, in turns at B=4 and B=1, with two bounds (the least arithmetic
+     at the TF32 tensor cores and on the CUDA cores), and at B=4 each route's
+     signed mean error against a float64 section, the bf16 design's too; no
+     one PyTorch call computes a section;
    - StyleGAN2's fused tail section at the two sections of the 1024^2
      generator (128 -> 64 channels at 512^2 writing x2, 64 -> 32 at 1024^2
      writing only the RGB; B=4) in f32 and bf16, at the shapes the StyleGAN2
@@ -781,17 +786,33 @@ def tail_problem(seed: int, b: int, c: int, h: int, w: int, head: bool, dtype):
     return ops, hd
 
 
-def tail_bound(b: int, c: int, h: int, w: int, head: bool, elem: int) -> tuple[float, str]:
+def tail_bound(b: int, c: int, h: int, w: int, head: bool, elem: int,
+               unit: str = "tc") -> tuple[float, str]:
     """A section's bound: the input and the weights read once and the output
     written once, against the LEAST arithmetic that computes it: the
     phase-merged up-conv needs 4 taps of 2C x C per output pixel, not 9, then
-    9 taps of C x C, and 3 C for the head. With 2-byte elements the operands
-    are bf16 and the operations are held to the tensor cores' bf16 peak."""
+    9 taps of C x C, and 3 C for the head. ``unit="tc"``: the operations at the
+    peak of the unit the kernel's designs run their products on, the tensor
+    cores: bf16 for 2-byte elements, TF32 for f32 ones (one product, not the
+    split's three); ``unit="cuda_cores"``: f32 outside the tensor cores (the
+    figure of the earlier CUDA-core design)."""
     r2 = 4 * h * w
     n_w = 9 * 2 * c * c + 9 * c * c + 2 * c + 2 + ((3 * c + 4) if head else 0)
     bytes_moved = elem * (b * 2 * c * h * w + b * (3 if head else c) * r2 + n_w)
     flops = b * r2 * (2 * (4 * 2 * c * c + 9 * c * c) + (2 * 3 * c if head else 0))
-    return bound(bytes_moved, flops, bf16=elem == 2)
+    if unit == "cuda_cores":
+        return bound(bytes_moved, flops)
+    t_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if elem == 2 else PEAK_TF32_FLOPS)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def signed_mean_error(got, ref64) -> float:
+    """The mean of (got - ref64) along the sign of the float64 reference, over
+    its mean magnitude: the tensor cores' truncating f32 sums make it
+    negative."""
+    return (float(((got.double() - ref64) * ref64.sign()).sum())
+            / float(ref64.abs().sum()))
 
 
 def phase_tail_kernel(card: str) -> dict:
@@ -799,6 +820,7 @@ def phase_tail_kernel(card: str) -> dict:
 
     from warpedganspace_torch.ops import proggan_tail_cuda
     from warpedganspace_torch.ops.proggan_tail import fused_section_plain
+    from warpedganspace_torch.ops.proggan_tail_cuda_cores import cc_section
 
     def run(ops, hd, name):
         """Kernel against the plain version in f32 on the same (rounded) operands."""
@@ -812,20 +834,27 @@ def phase_tail_kernel(card: str) -> dict:
         check(out.dtype == ops[0].dtype and out.shape == ref.shape, f"tail output at {name}")
         check(bool(torch.isfinite(out).all()), f"non-finite tail output at {name}")
         e = float((out.float() - ref).abs().max())
-        # f32: sums of up to 9 * 128 = 1,152 unit-scale products in another
-        # order (and merged up-conv taps). bf16, the tensor-core design: the
-        # products see the normalised input, the merged up-conv taps and the
-        # normalised mid tile rounded to bf16 (in the section with the RGB
-        # head, bf16 hi + lo pairs of them, so there only the output rounds),
-        # then the output is rounded: half an ulp of values below 8, 2^-6,
-        # plus at most about as much again from the three roundings (the CPU
-        # emulation, tests/test_torch_tail_tc_numerics.py: 0.0196 at worst
-        # without the head, 0.0156 with it).
+        # f32, the split-precision design: products of about 22 bits in
+        # another order, sums of up to 4 * 128 and 9 * 64 of them, merged
+        # up-conv taps (the CPU emulation,
+        # tests/test_torch_proggan_tail_f32_split_numerics.py: 4.4e-6 at
+        # worst). bf16, the tensor-core design: the products see the
+        # normalised input, the merged up-conv taps and the normalised mid
+        # tile rounded to bf16 (in the section with the RGB head, bf16 hi + lo
+        # pairs of them, so there only the output rounds), then the output is
+        # rounded: half an ulp of values below 8, 2^-6, plus at most about as
+        # much again from the three roundings (the CPU emulation,
+        # tests/test_torch_tail_tc_numerics.py: 0.0196 at worst without the
+        # head, 0.0156 with it).
         tol = 1e-4 if out.dtype == torch.float32 else 3e-2
         check(e <= tol, f"tail kernel vs plain at {name}: max abs {e:.3g} > {tol}")
         return e
 
-    errs, times, sections = {}, {}, []
+    def f64(ops, head):
+        return fused_section_plain(*[t.double() for t in ops],
+                                   head=None if head is None else tuple(t.double() for t in head))
+
+    errs, sections = {}, []
     with torch.no_grad():
         cases = [(TAIL_B, c, h, h, hd, dt) for c, h, hd in TAIL_SECTIONS
                  for dt in (torch.float32, torch.bfloat16)]
@@ -842,22 +871,57 @@ def phase_tail_kernel(card: str) -> dict:
 
         for c, h, hd in TAIL_SECTIONS:
             row = {"c": c, "in": h, "head": hd}
-            for dt, key in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-                ops, head = tail_problem(5, TAIL_B, c, h, h, hd, dt)
-                kern = lambda: proggan_tail_cuda.fused_section(*ops, head=head)  # noqa: E731
-                plain = lambda: fused_section_plain(*ops, head=head)  # noqa: E731
-                p1, k1, k2, p2 = (cuda_ms(f, iters=20, warmup=3)
-                                  for f in (plain, kern, kern, plain))
-                row["ms" + key], row["plain_ms" + key] = (k1 + k2) / 2, (p1 + p2) / 2
-                row["runs" + key] = (k1, k2, p1, p2)
-                row["bound_ms" + key], row["bound_by" + key] = tail_bound(
-                    TAIL_B, c, h, h, hd, 4 if dt == torch.float32 else 2)
-                if dt == torch.bfloat16:
-                    # How far the plain bf16 version, which rounds every
-                    # intermediate, is from the f32 one on the same operands.
-                    ref = fused_section_plain(*[t.float() for t in ops],
-                                              head=head and tuple(t.float() for t in head))
-                    row["plain_bf16_err"] = float((plain().float() - ref).abs().max())
+            # f32 in turns: the split-precision design, the CUDA-core design it
+            # replaced (through its own C entry), plain, and back; at B=4 and at
+            # the path's sampled B=1.
+            for bsz, key in ((TAIL_B, ""), (1, "_b1")):
+                ops, head = tail_problem(5, bsz, c, h, h, hd, torch.float32)
+                fns = {"kernel": proggan_tail_cuda.fused_section, "cuda_cores": cc_section,
+                       "plain": fused_section_plain}
+                fns = {name: functools.partial(fn, *ops, head=head) for name, fn in fns.items()}
+                cc_err = float((fns["cuda_cores"]() - fns["plain"]()).abs().max())
+                check(cc_err <= 1e-4, f"the CUDA-core design vs plain at B={bsz} C={c}: "
+                                      f"{cc_err:.3g}")
+                runs = {name: [] for name in fns}
+                for name in list(fns) + list(fns)[::-1]:
+                    runs[name].append(cuda_ms(fns[name], iters=20, warmup=3))
+                for name, field in (("kernel", "ms"), ("cuda_cores", "cc_ms"),
+                                    ("plain", "plain_ms")):
+                    row[field + key] = sum(runs[name]) / 2
+                row["runs" + key], row["cc_err" + key] = runs, cc_err
+                if bsz == TAIL_B:
+                    # Against float64: the max abs and the signed mean error of
+                    # each route (the card tests' bound 1e-6 on the kernel's).
+                    ref64 = f64(ops, head)
+                    for name, fn in fns.items():
+                        out = fn()
+                        row[f"f64_{name}"] = float((out.double() - ref64).abs().max())
+                        row[f"sme_{name}"] = signed_mean_error(out, ref64)
+                    del ref64, out
+                    check(abs(row["sme_kernel"]) <= 1e-6,
+                          f"tail kernel's signed mean error against float64 at C={c}: "
+                          f"{row['sme_kernel']:.3g}")
+                row["bound_ms" + key], row["bound_by" + key] = tail_bound(bsz, c, h, h, hd, 4)
+                row["bound_ms_cuda_cores" + key] = tail_bound(bsz, c, h, h, hd, 4,
+                                                              unit="cuda_cores")[0]
+            ops, head = tail_problem(5, TAIL_B, c, h, h, hd, torch.bfloat16)
+            kern = lambda: proggan_tail_cuda.fused_section(*ops, head=head)  # noqa: E731
+            plain = lambda: fused_section_plain(*ops, head=head)  # noqa: E731
+            p1, k1, k2, p2 = (cuda_ms(f, iters=20, warmup=3) for f in (plain, kern, kern, plain))
+            row["ms_bf16"], row["plain_ms_bf16"] = (k1 + k2) / 2, (p1 + p2) / 2
+            row["runs_bf16"] = (k1, k2, p1, p2)
+            row["bound_ms_bf16"], row["bound_by_bf16"] = tail_bound(TAIL_B, c, h, h, hd, 2)
+            # How far the plain bf16 version, which rounds every intermediate,
+            # is from the f32 one on the same operands; and the bf16 design's
+            # and plain bf16's signed mean error against float64 (do the
+            # tensor cores' truncating f32 sums bias the bf16 design too?).
+            ref = fused_section_plain(*[t.float() for t in ops],
+                                      head=head and tuple(t.float() for t in head))
+            row["plain_bf16_err"] = float((plain().float() - ref).abs().max())
+            ref64 = f64(ops, head)
+            row["sme_bf16"], row["sme_plain_bf16"] = (signed_mean_error(kern(), ref64),
+                                                      signed_mean_error(plain(), ref64))
+            del ref, ref64
             # The render batch's own shape (bf16, the CLI's batch size).
             ops, head = tail_problem(5, PROGGAN["batch"], c, h, h, hd, torch.bfloat16)
             p1, k1, k2, p2 = (cuda_ms(f, iters=10, warmup=2) for f in (plain, kern, kern, plain))
@@ -872,33 +936,53 @@ def phase_tail_kernel(card: str) -> dict:
     f32_names = [f"B={TAIL_B} C={c} {h}x{h}{' +head' if hd else ''} float32"
                  for c, h, hd in TAIL_SECTIONS]
     res = {"max_abs_err": max(errs[n] for n in f32_names), "max_abs_errs": errs,
-           "sections": sections, "bound_by": sections[0]["bound_by"],
-           "bound_by_bf16": sections[0]["bound_by_bf16"],
+           "sections": [{k: v for k, v in r.items() if not k.startswith("runs")}
+                        for r in sections],
+           "bound_by": sections[0]["bound_by"], "bound_by_bf16": sections[0]["bound_by_bf16"],
            "design": {str(dt).split(".")[-1]: proggan_tail_cuda.design(dt)
                       for dt in (torch.float32, torch.bfloat16)},
            "shape": f"3 sections (C=64@256^2, 32@512^2, 16@1024^2 + head), B={TAIL_B} f32, summed"}
     check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
           and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
           "sections bound differently")
-    for key in ("ms", "plain_ms", "bound_ms", "ms_bf16", "plain_ms_bf16", "bound_ms_bf16",
-                "ms_render_bf16", "plain_ms_render_bf16", "bound_ms_render_bf16"):
+    for key in ("ms", "plain_ms", "cc_ms", "bound_ms", "bound_ms_cuda_cores", "ms_b1",
+                "plain_ms_b1", "cc_ms_b1", "bound_ms_b1", "bound_ms_cuda_cores_b1", "ms_bf16",
+                "plain_ms_bf16", "bound_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
+                "bound_ms_render_bf16"):
         res[key] = sum(r[key] for r in sections)
     for r in sections:
-        k1, k2, p1, p2 = r["runs"]
+        f32 = "; ".join(
+            f"f32 B={bsz}: kernel {r['ms' + key]:.4f} ms, CUDA-core design {r['cc_ms' + key]:.4f} "
+            f"ms, plain {r['plain_ms' + key]:.4f} ms (each " + ", ".join(
+                f"{name} " + "/".join(f"{t:.4f}" for t in ts)
+                for name, ts in r["runs" + key].items())
+            + f"); bound {r['bound_ms' + key]:.4f} ms by {r['bound_by' + key]} at the TF32 tensor "
+            f"cores, {r['bound_ms_cuda_cores' + key]:.4f} ms on the CUDA cores; CUDA-core "
+            f"design's max abs err {r['cc_err' + key]:.3g}"
+            for bsz, key in ((TAIL_B, ""), (1, "_b1")))
+        f32 += "; against float64 (max abs, signed mean error): " + ", ".join(
+            f"{name} {r['f64_' + name]:.3g}, {r['sme_' + name]:.3g}"
+            for name in ("kernel", "cuda_cores", "plain"))
+        k1, k2, p1, p2 = r["runs_bf16"]
         print(f"[kernel] proggan_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
-              f"{' + head' if r['head'] else ''}, B={TAIL_B} on {card}: f32 kernel "
-              f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms']:.4f} ms ({p1:.4f}, "
-              f"{p2:.4f}); bound {r['bound_ms']:.4f} ms by {r['bound_by']}; bf16 kernel "
-              f"{r['ms_bf16']:.4f} ms plain {r['plain_ms_bf16']:.4f} ms (bound "
-              f"{r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} at the bf16 tensor-core peak; "
-              f"plain bf16 vs f32 max abs {r['plain_bf16_err']:.3g}); "
+              f"{' + head' if r['head'] else ''} on {card}: {f32}; bf16 B={TAIL_B}: kernel "
+              f"{r['ms_bf16']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms_bf16']:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}), bound {r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} "
+              f"at the bf16 tensor-core peak; plain bf16 vs f32 max abs "
+              f"{r['plain_bf16_err']:.3g}; signed mean error against float64: bf16 kernel "
+              f"{r['sme_bf16']:.3g}, plain bf16 {r['sme_plain_bf16']:.3g}; "
               f"bf16 at the render batch B={PROGGAN['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
               f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
               "no library call")
-    print(f"[kernel] proggan_tail, the three sections summed, B={TAIL_B}; design f32: "
-          f"{res['design']['float32']}, bf16: {res['design']['bfloat16']}: f32 kernel "
-          f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound {res['bound_ms']:.4f} ms; "
-          f"bf16 kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
+    print(f"[kernel] proggan_tail, the three sections summed; design f32: "
+          f"{res['design']['float32']}, bf16: {res['design']['bfloat16']}: f32 B={TAIL_B} kernel "
+          f"{res['ms']:.4f} ms, CUDA-core design {res['cc_ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by {res['bound_by']} at the "
+          f"TF32 tensor cores ({res['bound_ms_cuda_cores']:.4f} ms on the CUDA cores); f32 B=1 "
+          f"kernel {res['ms_b1']:.4f} ms, CUDA-core design {res['cc_ms_b1']:.4f} ms, plain "
+          f"{res['plain_ms_b1']:.4f} ms, bound {res['bound_ms_b1']:.4f} ms "
+          f"({res['bound_ms_cuda_cores_b1']:.4f} ms); bf16 B={TAIL_B} kernel "
+          f"{res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
           f"{res['bound_ms_bf16']:.4f} ms by {res['bound_by_bf16']}; at B={PROGGAN['batch']} bf16 "
           f"kernel {res['ms_render_bf16']:.4f} ms bound {res['bound_ms_render_bf16']:.4f} ms; "
           "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
@@ -4042,7 +4126,9 @@ def main(argv=None) -> int:
     kernels.append(row("proggan_tail", "warpedganspace_torch/csrc/proggan_tail.cu",
                        "warpedganspace_tpu/ops/proggan_tail_pallas.py:173", tail))
     for key in ("ms_render_bf16", "plain_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
-                "bound_ms_render_bf16", "sections", "max_abs_errs"):
+                "bound_ms_render_bf16", "sections", "max_abs_errs", "cc_ms",
+                "bound_ms_cuda_cores", "ms_b1", "plain_ms_b1", "cc_ms_b1", "bound_ms_b1",
+                "bound_ms_cuda_cores_b1"):
         kernels[3][key] = tail[key]
     kernels.append(row("sg2_tail", "warpedganspace_torch/csrc/sg2_tail.cu",
                        "warpedganspace_tpu/ops/sg2_tail_pallas.py:315", sg2_tail))

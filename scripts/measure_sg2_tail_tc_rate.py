@@ -40,7 +40,15 @@ values), C = 32 at one block an SM with three weight slots (the shipped
 design fits two blocks with two slots) and the CUDA-core design it replaced,
 built from the same source; its
 rate counts the three products of the split, 2,048 FLOP each, against the
-495 TFLOP/s TF32 peak.
+495 TFLOP/s TF32 peak. ProgGAN's float32 design (the same split, the bf16
+design's merged-tap algebra) is asked the same at its three sections at B=4
+in f32: ``f32 no products``, ``f32 no input staging`` (neither the copies nor
+the PixelNorm and split pass), ``f32 no weight copies``, ``f32 no flushes``
+(one chain an accumulator), ``f32 one TF32 product``, ``f32 up-conv A split
+in the warps`` (the staged tile keeps the normalised value and a zero, and
+the up-conv's warps split their A fragments as they load them: the
+arithmetic the split at staging saves), C = 16 at two blocks an SM, and the
+CUDA-core design it replaced.
 
 StyleGAN2 is timed at its 1024^2 section (C=32, 512^2 -> 1024^2) and its 512^2
 section (C=64, writing x2), ProgGAN at its three sections (C=64, 128^2 ->
@@ -158,6 +166,33 @@ PG_NO_EPILOGUES = [("      for (int hh = 0; hh < 2; ++hh) {\n        const int q
                     "      const int gy = y0 + kSameMT * warp + i")]
 PG_CUDA_CORES = [("      is_bf16 ? tc::launch(x, w_up,", "      is_bf16 ? cc::launch<__nv_bfloat16>(x, w_up,")]
 
+# Textual edits of ProgGAN's float32 design (namespace tf of proggan_tail.cu).
+PG_F32_NO_PRODUCTS = [
+    ("            tc::mma3_records<NT>(p, a, bw[s], NT);   // up-conv products\n", ""),
+    ("          tc::mma3_records<NT>(p, a, bw[s], NT);   // same-conv products\n", "")]
+PG_F32_NO_STAGING = [
+    ("  tcc::stage_nchw_f32<kThreads>(in, IS, x + (size_t)b * CI * hi * wi, CI, hi, wi, iy0, ix0,\n"
+     "                                kInWin, tid);\n", ""),
+    ("    for (int p = tid / 8; p < kInPix; p += kThreads / 8) {",
+     "    for (int p = tid / 8; p < 0; p += kThreads / 8) {")]
+PG_F32_NO_FETCH = [("  tcc::fetch_units<kThreads>(slot, src, units, tid);\n", "")]
+# One chain an accumulator: the products straight into the sums.
+PG_F32_NO_FLUSHES = [
+    ("          float p[NT][4] = {};\n", "          float (&p)[NT][4] = acc[i];\n"),
+    ("          add_into(acc[i], p);   // the chunk's up-conv sums\n", ""),
+    ("        float p[NT][4] = {};\n", "        float (&p)[NT][4] = acc[i];\n"),
+    ("        add_into(acc[i], p);   // the chunk's same-conv sums\n", "")]
+PG_F32_WARP_SPLIT = [
+    ("        tc::split_tf32(f[2 * i] * inv, h0, l0);\n        tc::split_tf32(f[2 * i + 1] * inv, h1, l1);",
+     "        h0 = __float_as_uint(f[2 * i] * inv), l0 = 0u;\n"
+     "        h1 = __float_as_uint(f[2 * i + 1] * inv), l1 = 0u;"),
+    ("            const FragA a = frag_pairs(ap[i][0][k], ap[i][1][k], ap[i][0][k + 4], ap[i][1][k + 4]);",
+     "            const FragA a =\n"
+     "                tc::frag_a(ap[i][0][k].x, ap[i][1][k].x, ap[i][0][k + 4].x, ap[i][1][k + 4].x);")]
+PG_F32_BLOCKS = "constexpr int kBlocksPerSM = C == 64 ? 1 : (C == 32 ? 2 : 3);"
+PG_F32_C16_TWO = [(PG_F32_BLOCKS, "constexpr int kBlocksPerSM = C == 64 ? 1 : 2;")]
+PG_F32_CUDA_CORES = [(": tf::launch(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head, s_head,",
+                      ": cc::launch<float>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head, s_head,")]
 SG2_VARIANTS = {
     "full": [],
     "dots": SG2_NO_FETCH + SG2_NO_STAGING,
@@ -192,6 +227,17 @@ PG_VARIANTS = {
     "full, registers left to the compiler": FREE_REGISTERS,
     "full, one block fewer an SM at C = 32 and 16": ONE_FEWER,
     "CUDA-core design on bf16": PG_CUDA_CORES,
+}
+PG_F32_VARIANTS = {
+    "f32 full": [],
+    "f32 no products": PG_F32_NO_PRODUCTS,
+    "f32 no input staging": PG_F32_NO_STAGING,
+    "f32 no weight copies": PG_F32_NO_FETCH,
+    "f32 no flushes": PG_F32_NO_FLUSHES,
+    "f32 one TF32 product": F32_ONE_PRODUCT,
+    "f32 up-conv A split in the warps": PG_F32_WARP_SPLIT,
+    "f32 C = 16 at two blocks an SM": PG_F32_C16_TWO,
+    "CUDA-core design on f32": PG_F32_CUDA_CORES,
 }
 # (C, input side, x2 written / head): the sections timed.
 SG2_SECTIONS = ((32, 512, False), (64, 256, True))
@@ -252,6 +298,8 @@ def _registers(report: str, kind: str, name: str, c: int, extra: bool) -> str:
         tmpl = f"cc14section_kernelI13__nv_bfloat16Li{c}E"
     elif kind == "sg2_f32":
         tmpl = f"tf14section_kernelILi{c}E"
+    elif kind == "proggan_f32":
+        tmpl = f"tf14section_kernelILi{c}ELb{int(extra)}E"
     elif kind == "sg2_tail":
         tmpl = f"tc14section_kernelILi{c}E"
     else:
@@ -302,6 +350,17 @@ def f32_mma_flop(c: int, h: int) -> float:
     return 2048.0 * per_tile * tiles
 
 
+def pg_f32_mma_flop(c: int, h: int, head: bool) -> float:
+    """FLOP of the mma.sync instructions the float32 ProgGAN design issues for
+    one section at B_F32, the split's three products each: per 16 x 16 output
+    tile, the up-conv's 4 parities x 6 m16 tiles (81 positions padded to 96)
+    over 4 merged taps x 2C/8 k8 steps and the same-conv's 16 x 9 over C/8,
+    each x C/8 n8 tiles; 2,048 a m16n8k8."""
+    tiles = B_F32 * (2 * h // 16) ** 2
+    per_tile = 3 * (c // 8) * (4 * 6 * 4 * 2 * c // 8 + 16 * 9 * c // 8)
+    return 2048.0 * per_tile * tiles
+
+
 def pg_mma_flop(c: int, h: int, head: bool) -> float:
     """The same for the bf16 ProgGAN design: 4 merged taps x 2C/16 k steps
     in the up-conv (three products a step with the head's hi + lo), 9 taps x
@@ -345,28 +404,29 @@ def _sg2_call(fn, c, h, want_x2, cuda_cores, dtype=torch.bfloat16, bsz=B):
     return call
 
 
-def _pg_call(fn, c, h, head, cuda_cores):
+def _pg_call(fn, c, h, head, cuda_cores, dtype=torch.bfloat16, bsz=B):
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def rnd(*shape, std=1.0):
-        return (std * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
-    x = rnd(B, 2 * c, h, h)
+    x = rnd(bsz, 2 * c, h, h)
     w_up, w_same = rnd(c, 2 * c, 3, 3, std=(18 * c) ** -0.5), rnd(c, c, 3, 3, std=(9 * c) ** -0.5)
     b_up, b_same = rnd(c, std=0.3), rnd(c, std=0.3)
-    s_up, s_same = (torch.tensor([v], device="cuda", dtype=torch.bfloat16) for v in (1.3, 0.8))
+    s_up, s_same = (torch.tensor([v], device="cuda", dtype=dtype) for v in (1.3, 0.8))
     hd = ((rnd(3, c, 1, 1, std=c ** -0.5), rnd(3, std=0.3),
-           torch.tensor([1.1], device="cuda", dtype=torch.bfloat16)) if head else None)
+           torch.tensor([1.1], device="cuda", dtype=dtype)) if head else None)
     if not cuda_cores:
-        w_up, w_same = proggan_tail_cuda.tc_weights(w_up, w_same)
-    out = torch.empty((B, 3 if head else c, 2 * h, 2 * h), device="cuda", dtype=torch.bfloat16)
+        w_up, w_same = proggan_tail_cuda.kernel_weights(w_up, w_same, dtype)
+    out = torch.empty((bsz, 3 if head else c, 2 * h, 2 * h), device="cuda", dtype=dtype)
     keep = [x, w_up, b_up, s_up, w_same, b_same, s_same, hd, out]
     head_ptrs = [t.data_ptr() for t in hd] if hd else [None] * 3
     ptrs = [t.data_ptr() for t in (x, w_up, b_up, s_up, w_same, b_same, s_same)]
     stream = torch.cuda.current_stream().cuda_stream
+    is_bf16 = int(dtype == torch.bfloat16)
 
     def call():
-        err = fn(*ptrs, *head_ptrs, out.data_ptr(), 1, B, c, h, h, stream)
+        err = fn(*ptrs, *head_ptrs, out.data_ptr(), is_bf16, bsz, c, h, h, stream)
         if err != 0:
             raise RuntimeError(f"proggan_tail variant failed to launch: cudaError {err}")
         return keep
@@ -377,10 +437,15 @@ def _sg2_f32_call(fn, c, h, want_x2, cuda_cores):
     return _sg2_call(fn, c, h, want_x2, cuda_cores, torch.float32, B_F32)
 
 
+def _pg_f32_call(fn, c, h, head, cuda_cores):
+    return _pg_call(fn, c, h, head, cuda_cores, torch.float32, B_F32)
+
+
 def _time(kind, variants, libs, sections, make_call, flop, card):
     for sec in sections:
         c, h, extra = sec
-        full = "f32 full" if kind == "sg2_f32" else "full"
+        f32 = kind.endswith("f32")
+        full = "f32 full" if f32 else "full"
         names = list(variants) + [full]              # the shipped design first and last
         times = {}
         for name in names:
@@ -391,16 +456,15 @@ def _time(kind, variants, libs, sections, make_call, flop, card):
             del call
             torch.cuda.empty_cache()
         f = flop(*sec)
-        f32 = kind == "sg2_f32"
         peak, tag = (PEAK_TF32_FLOPS, "495 TFLOP/s TF32") if f32 else (PEAK_BF16_FLOPS,
                                                                       "989 TFLOP/s bf16")
         for name in variants:
             ts = times[name]
             ms = sum(ts) / len(ts)
             rate = f / (ms * 1e-3)
-            x2_tag = " +x2" if extra and kind != "proggan_tail" else ""
-            print(f"[{kind} C={c} {h}^2 -> {2 * h}^2{x2_tag}"
-                  f"{' +head' if extra and kind == 'proggan_tail' else ''} "
+            pg = kind.startswith("proggan")
+            print(f"[{kind} C={c} {h}^2 -> {2 * h}^2{' +x2' if extra and not pg else ''}"
+                  f"{' +head' if extra and pg else ''} "
                   f"B={B_F32 if f32 else B} {'f32' if f32 else 'bf16'}] {name}: "
                   f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}); shipped design's mma.sync "
                   f"work {f / 1e9:.1f} GFLOP at {rate / 1e12:.1f} TFLOP/s = "
@@ -411,7 +475,8 @@ def _time(kind, variants, libs, sections, make_call, flop, card):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("f32", "bf16"),
-                        help="time only StyleGAN2's float32 design, or only the bf16 designs")
+                        help="time only the float32 designs (StyleGAN2's and ProgGAN's), or "
+                             "only the bf16 designs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_sg2_tail_tc_rate: no CUDA device is available", file=sys.stderr)
@@ -422,6 +487,7 @@ def main(argv=None) -> int:
     jobs = []
     if args.only != "bf16":
         jobs += [("sg2_f32", "sg2_tail.cu", k, v) for k, v in F32_VARIANTS.items()]
+        jobs += [("proggan_f32", "proggan_tail.cu", k, v) for k, v in PG_F32_VARIANTS.items()]
     if args.only != "f32":
         jobs += [("sg2_tail", "sg2_tail.cu", k, v) for k, v in SG2_VARIANTS.items()]
         jobs += [("proggan_tail", "proggan_tail.cu", k, v) for k, v in PG_VARIANTS.items()]
@@ -442,6 +508,8 @@ def main(argv=None) -> int:
         if args.only != "bf16":
             _time("sg2_f32", F32_VARIANTS, libs, SG2_SECTIONS, _sg2_f32_call,
                   lambda c, h, _: f32_mma_flop(c, h), card)
+            _time("proggan_f32", PG_F32_VARIANTS, libs, PG_SECTIONS, _pg_f32_call,
+                  pg_f32_mma_flop, card)
         if args.only != "f32":
             _time("sg2_tail", SG2_VARIANTS, libs, SG2_SECTIONS, _sg2_call,
                   lambda c, h, _: sg2_mma_flop(c, h), card)

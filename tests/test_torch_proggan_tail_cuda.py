@@ -46,11 +46,14 @@ def _problem(seed, b, c, h, w, head, device, dtype=torch.float32):
     return [t.to(device=device, dtype=dtype) for t in ops], hd
 
 
-# f32: sums of up to 1,152 unit-scale products in another order, and merged
-# up-conv taps. bf16: the tensor-core design rounds the normalised input, the
-# merged taps and the normalised mid tile to bf16 (the section with the RGB
-# head carries them as bf16 hi + lo pairs, so there only the output is
-# rounded), where the plain version rounds every intermediate. So it is held
+# f32: the split-precision design's products (3xTF32, about 22 bits each) in
+# another order, sums of up to 4 * 128 and 9 * 64 of them, and merged up-conv
+# taps (tests/test_torch_proggan_tail_f32_split_numerics.py emulates it: 4.4e-6
+# at worst, at the whole 1024^2 section with the head). bf16: the tensor-core
+# design rounds the normalised input, the merged taps and the normalised mid
+# tile to bf16 (the section with the RGB head carries them as bf16 hi + lo
+# pairs, so there only the output is rounded), where the plain version rounds
+# every intermediate. So it is held
 # to the plain version in f32 on the same rounded operands within 3e-2 (the
 # output's half ulp below 8, 2^-6, plus about as much from the intermediates:
 # tests/test_torch_tail_tc_numerics.py emulates those roundings) and no farther
@@ -116,7 +119,7 @@ def test_bf16_repeats_are_bit_equal(cuda, head):
     again = proggan_tail_cuda.fused_section(*ops, head=hd)
     assert torch.equal(first, again)
     assert proggan_tail_cuda.design(torch.bfloat16).startswith("tensor cores")
-    assert proggan_tail_cuda.design(torch.float32) == "CUDA cores"
+    assert proggan_tail_cuda.design(torch.float32) == "tensor cores (mma.sync m16n8k8, 3xTF32)"
 
 
 @pytest.mark.parametrize("head", [False, True])
@@ -143,6 +146,66 @@ def test_bf16_zero_input_gives_the_bias_path(cuda, head):
     ops, hd = _problem(10, 2, 32, 8, 8, head, cuda, torch.bfloat16)
     ops[0].zero_()
     _check(ops, hd, vs_plain16=False)
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+def test_f32_repeats_are_bit_equal(cuda, c, head):
+    """The split-precision design sums in a fixed order: one call's bits again."""
+    ops, hd = _problem(11, 2, c, 13, 11, head, cuda)
+    first = proggan_tail_cuda.fused_section(*ops, head=hd)
+    again = proggan_tail_cuda.fused_section(*ops, head=hd)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+@pytest.mark.parametrize("h,w", [
+    (13, 11),     # 26 x 22: the last tiles' parity groups cut at the edge
+    (7, 29),      # 14 x 58: one short tile row, widths not a multiple of 8
+    (25, 3),      # 50 x 6: a single narrow tile column
+])
+def test_f32_parity_groups_at_ragged_edges(cuda, head, c, h, w):
+    _check(*_problem(9, 2, c, h, w, head, cuda))
+
+
+@pytest.mark.parametrize("c,r,head", [(64, 128, False), (32, 256, False), (16, 512, True)])
+def test_f32_against_the_cuda_core_design(cuda, c, r, head):
+    """The full-width sections through the split-precision design and through
+    the CUDA-core design it replaced (its own C entry): each within 1e-4 of
+    the plain section, so within 2e-4 of each other."""
+    from warpedganspace_torch.ops.proggan_tail_cuda_cores import cc_section
+
+    ops, hd = _problem(13, 2, c, r, r, head, cuda)
+    _check(ops, hd)
+    got = proggan_tail_cuda.fused_section(*ops, head=hd)
+    ref = cc_section(*ops, head=hd)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 2e-4
+
+
+# The tensor cores round their f32 sums toward zero; the design adds each
+# weight chunk's products into round-to-nearest f32 sums. The CPU emulation
+# (tests/test_torch_proggan_tail_f32_split_numerics.py) puts the signed mean
+# error against float64 at -1e-7 to +4e-8 with those flushes and at -3.9e-6
+# at C = 64 with one chain an accumulator, the plain f32 section's at about
+# 1e-8: the bound sits between them.
+SME_BOUND = 1e-6
+
+
+@pytest.mark.parametrize("c,r,head", [(64, 128, False), (32, 256, False), (16, 512, True)])
+def test_f32_signed_mean_error_against_float64(cuda, c, r, head):
+    """The mean of (kernel - float64) along the sign of the float64 section,
+    over its mean magnitude, at the full-width sections: a truncation bias
+    that the max abs gate would miss."""
+    ops, hd = _problem(14, 2, c, r, r, head, cuda)
+    got = proggan_tail_cuda.fused_section(*ops, head=hd)
+    with torch.no_grad():
+        ref = fused_section_plain(*[t.double() for t in ops],
+                                  head=None if hd is None else tuple(t.double() for t in hd))
+    sme = float(((got.double() - ref) * torch.sign(ref)).sum()) / float(ref.abs().sum())
+    assert abs(sme) <= SME_BOUND, sme
 
 
 def test_limits_raise(cuda):

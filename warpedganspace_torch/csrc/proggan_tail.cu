@@ -19,37 +19,72 @@
 // of the three full-width sections (C = 64, 32, 16 at R = 256, 512, 1024),
 // against 25-50 MB of input and output per image in f32. On the CUDA cores at
 // the data-sheet 67 TFLOP/s that is 0.14 ms per image, nine to eighteen times
-// the bytes' time at 3.35 TB/s: operations bound it. With bf16 storage the
-// card's peak is the tensor cores' 989 TFLOP/s (bf16 operands, f32
-// accumulation), 0.009 ms per image, still operations.
+// the bytes' time at 3.35 TB/s; on the tensor cores at 495 TFLOP/s TF32 (f32)
+// 0.018 ms, or at 989 TFLOP/s bf16 (bf16 operands, f32 accumulation) 0.009
+// ms, still operations.
 //
-// Two designs, chosen in the C launch function by the storage type: f32 on
-// the CUDA cores (namespace cc), bf16 on the tensor cores (namespace tc). Both
-// take NCHW activations, the port's model layout, and a block per (image,
+// Three designs. The C launch function takes bf16 to the tensor cores as
+// bf16 products (namespace tc) and f32 to the tensor cores in split precision
+// (namespace tf); the f32 design on the CUDA cores (namespace cc), which the
+// split-precision design replaced, has its own C entry for comparison only.
+// All take NCHW activations, the port's model layout, and a block per (image,
 // 16 x 16 output tile); nothing of the TPU kernel's fold-x lanes, selection
-// matrices or row stripes is carried over. Both recompute the same-conv's halo
+// matrices or row stripes is carried over. All recompute the same-conv's halo
 // of the 18 x 18 mid tile (1.27x) and split that tile into four parity groups
 // of 9 x 9 pixels: nearest-up followed by a 3x3 conv is, for each parity of the
 // mid pixel's row and column, a 2x2 conv on the small input with merged taps
 // (rows: an even row Y reads input row Y/2-1 with tap 0 and row Y/2 with taps
 // 1+2; an odd row reads row (Y-1)/2 with taps 0+1 and row (Y+1)/2 with tap 2;
-// columns alike), 4 taps instead of 9. Mid pixels outside the image are set to
-// ZERO, not computed: the same-conv pads the normalised mid tensor with zeros.
-// Ragged edges are masked: any Hi, Wi >= 1; tiles past the right and bottom
-// edge store nothing outside the image. Offsets are 64-bit; the limits are
-// 2^31 - 1 blocks (B x tiles) and C in {16, 32, 64}.
+// columns alike), 4 taps instead of 9: the least up-conv arithmetic there is.
+// Mid pixels outside the image are set to ZERO, not computed: the same-conv
+// pads the normalised mid tensor with zeros. Ragged edges are masked: any Hi,
+// Wi >= 1; tiles past the right and bottom edge store nothing outside the
+// image. Offsets are 64-bit; the limits are 2^31 - 1 blocks (B x tiles) and C
+// in {16, 32, 64}.
 //
-// f32 (cc): 8 C threads; all arithmetic and every intermediate f32. The block
-// stages the 10 x 10 input tile of all 2C channels as f32 and PixelNorms it
-// in place (PixelNorm commutes with the nearest upsampling). Weights stream
-// through shared memory in chunks of 8 input channels: each thread fetches
-// the 9 raw taps of one (input channel, output channel) pair from the OIHW
-// tensor, merges them for the up-conv, and the next chunk's taps are in flight
-// in registers while the current one is multiplied; weight reads in the inner
-// loops are uniform float4 broadcasts. Up-conv: a warp owns one (parity group,
-// 16 output channels), 27 lanes holding 3 pixels x 16 channels. Same-conv: a
-// thread holds 4 rows x 8 channels of one output column. With the head, the C
-// channels of a pixel meet once more in shared memory.
+// f32 (tf): both convolutions are implicit GEMMs on mma.sync m16n8k8 in split
+// precision (tc_tf32.cuh: each operand as TF32 hi + lo rounded to nearest,
+// three products lo hi + hi lo + hi hi, f32 accumulation), from shared
+// memory; 8 warps. The algebra and the warp maps are the bf16 design's (tc,
+// below); what differs:
+// - The staging pass copies the NCHW input tile by 4-byte cp.async, all in
+//   flight at once, PixelNorms each pixel in f32 and stores each value as its
+//   {hi, lo} pair in place: the up-conv's A operand is split once, where every
+//   value is read by 4 taps x 4 parity warps.
+// - Up-conv: M = the 81 positions of a parity group (padded to 96), N = C per
+//   parity, K = 4 merged taps x 2C; a warp owns one parity and 3 m16 tiles,
+//   all C output columns. The merged taps are summed in f32 and split into
+//   16-byte records of B fragments {hi b0, hi b1, lo b0, lo b1} by the
+//   wrapper, one chunk per tap x 16 input channels for all four parities, in
+//   the kernel's order.
+// - The epilogues run in the accumulator layout in f32 (WScale, LeakyReLU,
+//   PixelNorm by a lane's partial and two quad shuffles, the head's 1x1 conv
+//   alike). The mid tile is f32 in the input tile's room, and the same-conv's
+//   warps split their A fragments as they load them.
+// - The tensor cores round their f32 sums toward zero: each chunk's products
+//   (two k8 steps) go into an accumulator of their own, added into the f32
+//   sums (tests/test_torch_proggan_tail_f32_split_numerics.py chose it).
+// - Weights go through a ring of three shared slots by 16-byte cp.async, one
+//   chunk a step, one block barrier a chunk; a warp holds its parity's records
+//   of both k8 steps of a chunk in registers.
+// - Shared memory: C = 64 (256^2 section): input tile 100 x 1,056 B = 105.6
+//   KB, mid tile 324 x 272 B = 88.1 KB in its room, ring 3 x 32 KB: 203.9 KB,
+//   one block an SM. C = 32 (512^2): 54.4 and 46.7 KB, ring 3 x 16 KB: 103.6
+//   KB, two blocks. C = 16 (1024^2, the head's section): 28.8 and 25.9 KB,
+//   ring 3 x 8 KB: 53.4 KB, three blocks (kBlocksPerSM).
+//
+// f32 (cc), for comparison: 8 C threads; all arithmetic and every
+// intermediate f32. The block stages the 10 x 10 input tile of all 2C
+// channels as f32 and PixelNorms it in place (PixelNorm commutes with the
+// nearest upsampling). Weights stream through shared memory in chunks of 8
+// input channels: each thread fetches the 9 raw taps of one (input channel,
+// output channel) pair from the OIHW tensor, merges them for the up-conv, and
+// the next chunk's taps are in flight in registers while the current one is
+// multiplied; weight reads in the inner loops are uniform float4 broadcasts.
+// Up-conv: a warp owns one (parity group, 16 output channels), 27 lanes
+// holding 3 pixels x 16 channels. Same-conv: a thread holds 4 rows x 8
+// channels of one output column. With the head, the C channels of a pixel
+// meet once more in shared memory.
 //
 // bf16 (tc): both convolutions are implicit GEMMs on mma.sync m16n8k16 with
 // bf16 operands and f32 accumulation, from shared memory (tc_conv.cuh); 8
@@ -97,6 +132,7 @@
 #include <cuda_runtime.h>
 
 #include "tc_conv.cuh"
+#include "tc_tf32.cuh"
 
 namespace {
 
@@ -111,7 +147,8 @@ __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : kSlope *
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores. The template also takes bf16 storage, the design bf16 had
+// f32 on the CUDA cores, for comparison (the split-precision design, namespace
+// tf, replaced it). The template also takes bf16 storage, the design bf16 had
 // before the tensor cores: scripts/measure_sg2_tail_tc_rate.py times it so.
 namespace cc {
 
@@ -832,13 +869,422 @@ cudaError_t launch(const void* x, const void* w_up, const void* b_up, const void
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores in split precision (3xTF32 on mma.sync m16n8k8,
+// tc_tf32.cuh).
+namespace tf {
+
+using tc::FragA;
+
+constexpr int kThreads = 256;                   // 8 warps
+constexpr int kInWin = kTile / 2 + 2;           // input tile with the up-conv's halo
+constexpr int kInPix = kInWin * kInWin;
+constexpr int kMidPix = kMid * kMid;
+constexpr int kPos = kGroup * kGroup;           // positions of one parity group
+constexpr int kUpMT = 3;                        // up-conv m16 tiles a warp: 2 warps x 48 rows cover 81
+constexpr int kSameMT = 2;                      // same-conv m16 tiles (output rows) a warp
+constexpr int kChunkSteps = 2;                  // k8 steps (16 input channels) of a weight chunk
+constexpr int kRing = 3;                        // weight chunks: ring of shared slots
+// The tensor cores round their float32 sums toward zero. Each weight chunk's
+// products (two k8 steps, chains of 6 mma.sync) go into an accumulator of
+// their own, from 0, which is added into the float32 sums (rounded to
+// nearest). The CPU emulation (tests/test_torch_proggan_tail_f32_split_numerics.py)
+// holds flushes every 2 or 4 k8 steps within 1.5x the plain f32 section's
+// own distance from float64 at every shape, and one chain over the whole K
+// (up to 3 x 64 products at C = 64) 9x beyond it; a chain of two chunks
+// would keep two steps' more B records in registers.
+//
+// Blocks an SM, as shared memory allows them; __launch_bounds__ holds the
+// registers to it.
+template <int C>
+constexpr int kBlocksPerSM = C == 64 ? 1 : (C == 32 ? 2 : 3);
+static_assert(kThreads / 32 == 4 * 2 && 2 * kUpMT * 16 >= kPos && 8 * kSameMT == kTile,
+              "warp maps: 4 parities x 2 row groups; 8 warps x 2 output rows");
+
+// Sizes: strides in floats, regions in bytes.
+template <int C>
+struct Cfg {
+  static constexpr int CI = 2 * C;
+  static constexpr int NT = C / 8;                              // n8 tiles of one parity
+  // A pixel of the input tile: {hi, lo} pairs of its 2C normalised channels
+  // and 8 floats of padding (a stride of 8 mod 32 words: a half-warp's
+  // 8-byte fragment loads, 4 pixels x 4 channels, fall in 32 banks).
+  static constexpr int IN_STRIDE = 2 * CI + 8;
+  static constexpr int MID_STRIDE = 4 * tc::f32_row_units(C);  // a pixel of the mid tile
+  // Up-conv chunk j: merged tap t = j / UP_KB (row-major (a, b)), input
+  // channels 16 (j % UP_KB) + [0, 16), records [k8 step][parity x n8 tile][lane];
+  // same-conv chunk: tap (ky, kx) row-major, 16 channels, [k8 step][n8 tile][lane].
+  static constexpr int UP_KB = CI / 16, SAME_KB = C / 16;
+  static constexpr int NUP = 4 * UP_KB;
+  static constexpr int NCHUNK = NUP + 9 * SAME_KB;
+  static constexpr int UP_CHUNK = kChunkSteps * 4 * NT * 32 * 16;
+  static constexpr int SAME_CHUNK = kChunkSteps * NT * 32 * 16;
+  // The input tile, then the mid tile in its room.
+  static constexpr int IN = kInPix * IN_STRIDE * 4;
+  static constexpr int MID = kMidPix * MID_STRIDE * 4;
+  static constexpr int ACT = IN > MID ? IN : MID;
+  static constexpr int SMEM = ACT + kRing * UP_CHUNK;
+  static_assert(IN_STRIDE % 32 == 8 && MID_STRIDE % 8 == 4 && ACT % 16 == 0,
+                "conflict-free fragment loads, 16-byte aligned ring");
+};
+
+// Weight chunk j into a ring slot (nothing past the last chunk): records as
+// the wrapper lays them out (ops/proggan_tail_cuda.py::f32_records), the
+// up-conv's chunks first.
+template <int C>
+__device__ __forceinline__ void fetch_chunk(uint32_t slot, const uint4* __restrict__ wup,
+                                            const uint4* __restrict__ wsame, int j, int tid) {
+  using K = Cfg<C>;
+  if (j >= K::NCHUNK) return;
+  const bool up = j < K::NUP;
+  const int units = (up ? K::UP_CHUNK : K::SAME_CHUNK) / 16;
+  const uint4* src = up ? wup + (size_t)j * units : wsame + (size_t)(j - K::NUP) * units;
+  tcc::fetch_units<kThreads>(slot, src, units, tid);
+}
+
+// The A fragment of four {hi, lo} pairs split at staging (register order of
+// tc_tf32.cuh).
+__device__ __forceinline__ FragA frag_pairs(float2 v0, float2 v1, float2 v2, float2 v3) {
+  FragA f;
+  f.hi[0] = __float_as_uint(v0.x), f.lo[0] = __float_as_uint(v0.y);
+  f.hi[1] = __float_as_uint(v1.x), f.lo[1] = __float_as_uint(v1.y);
+  f.hi[2] = __float_as_uint(v2.x), f.lo[2] = __float_as_uint(v2.y);
+  f.hi[3] = __float_as_uint(v3.x), f.lo[3] = __float_as_uint(v3.y);
+  return f;
+}
+
+// acc += p (float32, rounded to nearest).
+template <int NT>
+__device__ __forceinline__ void add_into(float (&acc)[NT][4], const float (&p)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += p[n][e];
+}
+
+template <int C, bool HEAD>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<C>)
+section_kernel(const float* __restrict__ x, const uint4* __restrict__ wup,
+               const float* __restrict__ b_up, const float* __restrict__ s_up,
+               const uint4* __restrict__ wsame, const float* __restrict__ b_same,
+               const float* __restrict__ s_same, const float* __restrict__ w_head,
+               const float* __restrict__ b_head, const float* __restrict__ s_head,
+               float* __restrict__ out, int hi, int wi, int tiles_x, int tiles_y) {
+  using K = Cfg<C>;
+  constexpr int CI = K::CI, NT = K::NT, IS = K::IN_STRIDE, MS = K::MID_STRIDE;
+  extern __shared__ float4 smem4[];
+  float* in = reinterpret_cast<float*>(smem4);    // input tile [pixel][{hi, lo} x 2C], then mid
+  float* mid = in;                                // mid tile [pixel][C]
+  const uint4* ring = reinterpret_cast<const uint4*>(reinterpret_cast<char*>(smem4) + K::ACT);
+  const uint32_t ring_a = tc::smem_addr(ring);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  int bid = blockIdx.x;
+  const int tx = bid % tiles_x;
+  bid /= tiles_x;
+  const int ty = bid % tiles_y;
+  const int b = bid / tiles_y;
+  const int h = 2 * hi, w = 2 * wi;
+  const int y0 = ty * kTile, x0 = tx * kTile;     // output tile origin, even
+  const int iy0 = y0 / 2 - 1, ix0 = x0 / 2 - 1;   // input tile origin
+
+  // The input tile's copies (raw values in the first 2C floats of each row,
+  // zero outside the image), then the first weight chunks.
+  tcc::stage_nchw_f32<kThreads>(in, IS, x + (size_t)b * CI * hi * wi, CI, hi, wi, iy0, ix0,
+                                kInWin, tid);
+  tc::cp_async_commit();
+  for (int s = 0; s < kRing - 1; ++s) {
+    fetch_chunk<C>(ring_a + s * K::UP_CHUNK, wup, wsame, s, tid);
+    tc::cp_async_commit();
+  }
+  // Chunk j has landed for everyone, and the slot of chunk j - 1 is free: it
+  // takes chunk j + kRing - 1. One block barrier a chunk.
+  auto land = [&](int j) {
+    tcc::cp_async_wait<kRing - 2>();
+    __syncthreads();
+    fetch_chunk<C>(ring_a + ((j + kRing - 1) % kRing) * K::UP_CHUNK, wup, wsame, j + kRing - 1,
+                   tid);
+    tc::cp_async_commit();
+    return ring + (j % kRing) * (K::UP_CHUNK / 16);
+  };
+  tcc::cp_async_wait<kRing - 1>();   // this thread's input copies (the oldest group)
+  __syncthreads();
+
+  // 1. PixelNorm over the 2C channels of each input pixel in f32 (zero stays
+  // zero), then each value as TF32 hi + lo in place: 8 lanes a pixel, each
+  // reading its 2C / 8 raw channels before the shuffles and writing their
+  // pairs after them. 100 pixels, 32 a pass: a warp's four pixels are all in
+  // or all out.
+  {
+    constexpr int PER = CI / 8;
+    const int sub = tid & 7;
+    for (int p = tid / 8; p < kInPix; p += kThreads / 8) {
+      float* row = in + p * IS;
+      float f[PER];
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < PER / 4; ++i) {
+        const float4 v = reinterpret_cast<const float4*>(row + sub * PER)[i];
+        f[4 * i] = v.x, f[4 * i + 1] = v.y, f[4 * i + 2] = v.z, f[4 * i + 3] = v.w;
+        ss = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, ss))));
+      }
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+      const float inv = rsqrtf(ss * (1.f / CI) + kEps);
+#pragma unroll
+      for (int i = 0; i < PER / 2; ++i) {
+        uint32_t h0, l0, h1, l1;
+        tc::split_tf32(f[2 * i] * inv, h0, l0);
+        tc::split_tf32(f[2 * i + 1] * inv, h1, l1);
+        reinterpret_cast<float4*>(row + 2 * sub * PER)[i] = make_float4(
+            __uint_as_float(h0), __uint_as_float(l0), __uint_as_float(h1), __uint_as_float(l1));
+      }
+    }
+  }
+
+  // 2. Up-conv: nearest-up + conv3x3 as, for each parity (pi, pj) of the mid
+  // pixel (2 A + pi, 2 V + pj), a 2x2 conv of input pixels (A + a, V + b) with
+  // merged taps: an implicit GEMM of the 81 positions by the four parities' C
+  // channels, K = 4 taps x 2C, whose A operand is the same for all four
+  // parities. Warp = (parity, 3 m16 tiles of the 81 positions), all C output
+  // channels. Rows past the 81st repeat the last and are not stored. (The
+  // first chunk's barrier covers the normalised input tile.)
+  const int par = warp & 3, grp = warp >> 2;
+  const int pi = par >> 1, pj = par & 1;
+  int j = 0;   // weight chunks used
+  {
+    float acc[kUpMT][NT][4];
+    tcc::zero(acc);
+    const float2* ap[kUpMT][2];
+#pragma unroll
+    for (int i = 0; i < kUpMT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; hh++) {
+        const int q = min(16 * (kUpMT * grp + i) + gq + 8 * hh, kPos - 1);
+        const float* row = in + ((q / kGroup) * kInWin + q % kGroup) * IS;
+        ap[i][hh] = reinterpret_cast<const float2*>(row) + tq;
+      }
+#pragma unroll 1
+    for (int t = 0; t < 4; ++t) {
+      const int shift = ((t >> 1) * kInWin + (t & 1)) * (IS / 2);   // in {hi, lo} pairs
+#pragma unroll 1
+      for (int kb = 0; kb < K::UP_KB; ++kb, ++j) {
+        const uint4* rec = land(j) + par * NT * 32 + lane;
+        uint4 bw[kChunkSteps][NT];
+#pragma unroll
+        for (int s = 0; s < kChunkSteps; ++s)
+#pragma unroll
+          for (int n = 0; n < NT; ++n) bw[s][n] = rec[(s * 4 * NT + n) * 32];
+#pragma unroll
+        for (int i = 0; i < kUpMT; ++i) {
+          float p[NT][4] = {};
+#pragma unroll
+          for (int s = 0; s < kChunkSteps; ++s) {
+            const int k = shift + 16 * kb + 8 * s;
+            const FragA a = frag_pairs(ap[i][0][k], ap[i][1][k], ap[i][0][k + 4], ap[i][1][k + 4]);
+            tc::mma3_records<NT>(p, a, bw[s], NT);   // up-conv products
+          }
+          add_into(acc[i], p);   // the chunk's up-conv sums
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with the input tile: the mid tile takes its room
+
+    // Epilogue: WScale, LeakyReLU, PixelNorm over the C channels of each mid
+    // pixel (a quad's partials), f32 into the mid tile; zero outside the image.
+    const float su = s_up[0];
+    float bias[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      bias[n][0] = b_up[8 * n + 2 * tq];
+      bias[n][1] = b_up[8 * n + 2 * tq + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < kUpMT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; hh++) {
+        const int q = 16 * (kUpMT * grp + i) + gq + 8 * hh;
+        const int mi = 2 * (q / kGroup) + pi, mj = 2 * (q % kGroup) + pj;
+        const int gy = y0 - 1 + mi, gx = x0 - 1 + mj;
+        const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
+        float v[NT][2];
+        float ss = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[n][e] = leaky(fmaf(acc[i][n][2 * hh + e], su, bias[n][e]));
+            ss = fmaf(v[n][e], v[n][e], ss);
+          }
+        ss = tc::quad_sum(ss);
+        const float inv = inside ? rsqrtf(ss * (1.f / C) + kEps) : 0.f;
+        if (q < kPos) {
+          float* row = mid + (mi * kMid + mj) * MS + 2 * tq;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            *reinterpret_cast<float2*>(row + 8 * n) = make_float2(v[n][0] * inv, v[n][1] * inv);
+        }
+      }
+  }
+
+  // 3. Same-conv from the mid tile: M = the 256 output pixels (an m16 tile is
+  // one output row), N = C, K = 9 taps x C; warp = output rows 2 warp and 2
+  // warp + 1, all C channels; the warps split their A fragments as they load
+  // them. (The first chunk's barrier covers the mid tile.)
+  float acc[kSameMT][NT][4];
+  tcc::zero(acc);
+  const float* apx[kSameMT];
+#pragma unroll
+  for (int i = 0; i < kSameMT; ++i) apx[i] = mid + ((kSameMT * warp + i) * kMid + gq) * MS + tq;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int off = ((tap / 3) * kMid + tap % 3) * MS;
+#pragma unroll 1
+    for (int kb = 0; kb < K::SAME_KB; ++kb, ++j) {
+      const uint4* rec = land(j) + lane;
+      uint4 bw[kChunkSteps][NT];
+#pragma unroll
+      for (int s = 0; s < kChunkSteps; ++s)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) bw[s][n] = rec[(s * NT + n) * 32];
+#pragma unroll
+      for (int i = 0; i < kSameMT; ++i) {
+        float p[NT][4] = {};
+#pragma unroll
+        for (int s = 0; s < kChunkSteps; ++s) {
+          const float* pp = apx[i] + off + 16 * kb + 8 * s;
+          const FragA a = tc::frag_a(pp[0], pp[8 * MS], pp[4], pp[8 * MS + 4]);
+          tc::mma3_records<NT>(p, a, bw[s], NT);   // same-conv products
+        }
+        add_into(acc[i], p);   // the chunk's same-conv sums
+      }
+    }
+  }
+
+  // 4. Epilogue: WScale, LeakyReLU, then the store, or PixelNorm and the 1x1
+  // RGB conv from the sums (a quad's partials).
+  const float s2 = s_same[0];
+  float bias[NT][2], wh[3][NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias[n][e] = b_same[8 * n + 2 * tq + e];
+#pragma unroll
+      for (int o = 0; o < 3; ++o) wh[o][n][e] = HEAD ? w_head[o * C + 8 * n + 2 * tq + e] : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < kSameMT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; hh++) {
+      const int gy = y0 + kSameMT * warp + i, gx = x0 + gq + 8 * hh;
+      const bool inside = gy < h && gx < w;
+      float v[NT][2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) v[n][e] = leaky(fmaf(acc[i][n][2 * hh + e], s2, bias[n][e]));
+      if constexpr (!HEAD) {
+        if (inside) {
+          float* o = out + (((size_t)b * C) * h + gy) * w + gx;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) o[(size_t)(8 * n + 2 * tq + e) * h * w] = v[n][e];
+        }
+      } else {
+        float ss = 0.f, rgb[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            ss = fmaf(v[n][e], v[n][e], ss);
+#pragma unroll
+            for (int o = 0; o < 3; ++o) rgb[o] = fmaf(wh[o][n][e], v[n][e], rgb[o]);
+          }
+        ss = tc::quad_sum(ss);
+#pragma unroll
+        for (int o = 0; o < 3; ++o) rgb[o] = tc::quad_sum(rgb[o]);
+        if (inside && tq < 3) {
+          const float inv = rsqrtf(ss * (1.f / C) + kEps);
+          const float r = tq == 0 ? rgb[0] : (tq == 1 ? rgb[1] : rgb[2]);
+          out[(((size_t)b * 3 + tq) * h + gy) * w + gx] = fmaf(r * inv, s_head[0], b_head[tq]);
+        }
+      }
+    }
+}
+
+template <int C, bool HEAD>
+cudaError_t launch_c(const void* x, const void* w_up, const void* b_up, const void* s_up,
+                     const void* w_same, const void* b_same, const void* s_same,
+                     const void* w_head, const void* b_head, const void* s_head, void* out,
+                     int b, int hi, int wi, cudaStream_t stream) {
+  constexpr int smem = Cfg<C>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(section_kernel<C, HEAD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (2 * wi + kTile - 1) / kTile;
+  const int tiles_y = (2 * hi + kTile - 1) / kTile;
+  const long long blocks = (long long)b * tiles_x * tiles_y;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  auto f = [](const void* v) { return static_cast<const float*>(v); };
+  auto r = [](const void* v) { return static_cast<const uint4*>(v); };
+  section_kernel<C, HEAD><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      f(x), r(w_up), f(b_up), f(s_up), r(w_same), f(b_same), f(s_same), f(w_head), f(b_head),
+      f(s_head), static_cast<float*>(out), hi, wi, tiles_x, tiles_y);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w_up, const void* b_up, const void* s_up,
+                   const void* w_same, const void* b_same, const void* s_same,
+                   const void* w_head, const void* b_head, const void* s_head, void* out, int b,
+                   int c, int hi, int wi, cudaStream_t stream) {
+  const bool head = w_head != nullptr;
+#define WGS_TAIL_CASE(CC)                                                                   \
+  case CC:                                                                                  \
+    return head ? launch_c<CC, true>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head,  \
+                                      b_head, s_head, out, b, hi, wi, stream)               \
+                 : launch_c<CC, false>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, \
+                                       b_head, s_head, out, b, hi, wi, stream);
+  switch (c) {
+    WGS_TAIL_CASE(16)
+    WGS_TAIL_CASE(32)
+    WGS_TAIL_CASE(64)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef WGS_TAIL_CASE
+}
+
+}  // namespace tf
+
+// The operands every design takes, checked before any launch: 0 (with
+// *empty when there is nothing to do) or the cudaError_t to return.
+static int check_args(const void* w_head, const void* b_head, const void* s_head, int b, int c,
+                      int hi, int wi, bool* empty) {
+  *empty = false;
+  if (b < 0 || hi < 0 || wi < 0 || hi > 0x3fffffff || wi > 0x3fffffff)
+    return (int)cudaErrorInvalidValue;
+  if ((w_head == nullptr) != (b_head == nullptr) || (w_head == nullptr) != (s_head == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (c != 16 && c != 32 && c != 64) return (int)cudaErrorInvalidValue;
+  *empty = b == 0 || hi == 0 || wi == 0;
+  return (int)cudaSuccess;
+}
+
 // C entry point (loaded with ctypes). x is (B, 2C, hi, wi); the biases (C),
 // the scales one element each; with a head, w_head is (3, C), b_head (3),
 // s_head one element and out (B, 3, 2 hi, 2 wi); without, the three head
 // pointers are null and out is (B, C, 2 hi, 2 wi). All f32 (is_bf16 == 0) or
-// all bf16 (is_bf16 == 1), contiguous on one device. The weights: f32, w_up
-// (C, 2C, 3, 3) and w_same (C, C, 3, 3) as the model holds them (OIHW); bf16,
-// as the wrapper prepares them for the tensor cores, w_up the merged taps
+// all bf16 (is_bf16 == 1), contiguous on one device. The weights as the
+// wrapper prepares them: f32, split 16-byte records of B fragments
+// (ops/proggan_tail_cuda.py::f32_records), w_up the merged taps (4 x 2C / 16
+// chunks, 2, 4C / 8, 32, 4) and w_same (9 x C / 16, 2, C / 8, 32, 4), f32
+// records in tf::fetch_chunk's layout; bf16, w_up the merged taps
 // (2, 4, 4, C, 2C) as [hi, lo][tap (a, b)][parity (pi, pj)][co][ci] and w_same
 // (9, C, C) as [tap][co][ci]. Returns a cudaError_t; 0 is success.
 extern "C" int proggan_tail_section_launch(const void* x, const void* w_up, const void* b_up,
@@ -847,23 +1293,37 @@ extern "C" int proggan_tail_section_launch(const void* x, const void* w_up, cons
                                            const void* w_head, const void* b_head,
                                            const void* s_head, void* out, int is_bf16, int b,
                                            int c, int hi, int wi, void* stream) {
-  if (b < 0 || hi < 0 || wi < 0 || hi > 0x3fffffff || wi > 0x3fffffff)
-    return (int)cudaErrorInvalidValue;
-  if ((w_head == nullptr) != (b_head == nullptr) || (w_head == nullptr) != (s_head == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (c != 16 && c != 32 && c != 64) return (int)cudaErrorInvalidValue;
-  if (b == 0 || hi == 0 || wi == 0) return (int)cudaSuccess;
+  bool empty;
+  const int bad = check_args(w_head, b_head, s_head, b, c, hi, wi, &empty);
+  if (bad != 0 || empty) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? tc::launch(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head, s_head,
                            out, b, c, hi, wi, s)
-              : cc::launch<float>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head,
-                                  s_head, out, b, c, hi, wi, s);
+              : tf::launch(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head, s_head,
+                           out, b, c, hi, wi, s);
   return (int)err;
 }
 
-// Which design serves an operand type: the tensor cores for bf16, the CUDA
-// cores for f32.
+// The f32 design on the CUDA cores that the split-precision design replaced,
+// kept for comparison only (ops/proggan_tail_cuda_cores.py): the operands of
+// proggan_tail_section_launch in f32, w_up (C, 2C, 3, 3) and w_same (C, C, 3, 3)
+// as the model holds them (OIHW).
+extern "C" int proggan_tail_section_cc_launch(const void* x, const void* w_up, const void* b_up,
+                                              const void* s_up, const void* w_same,
+                                              const void* b_same, const void* s_same,
+                                              const void* w_head, const void* b_head,
+                                              const void* s_head, void* out, int b, int c,
+                                              int hi, int wi, void* stream) {
+  bool empty;
+  const int bad = check_args(w_head, b_head, s_head, b, c, hi, wi, &empty);
+  if (bad != 0 || empty) return bad;
+  return (int)cc::launch<float>(x, w_up, b_up, s_up, w_same, b_same, s_same, w_head, b_head,
+                                s_head, out, b, c, hi, wi, static_cast<cudaStream_t>(stream));
+}
+
+// Which design serves an operand type: the tensor cores for both, bf16
+// products for bf16, split TF32 products for f32.
 extern "C" const char* proggan_tail_design(int is_bf16) {
-  return is_bf16 ? "tensor cores (mma.sync m16n8k16)" : "CUDA cores";
+  return is_bf16 ? "tensor cores (mma.sync m16n8k16)" : "tensor cores (mma.sync m16n8k8, 3xTF32)";
 }

@@ -10,11 +10,17 @@ channels at (H, W) to C channels at (2H, 2W), in one launch:
 
 with no intermediate in device memory. Activations are NCHW, weights OIHW.
 The kernel has two designs, chosen in its C launch function by the operands'
-type (:func:`design` says which): float32 on the CUDA cores, all arithmetic
-float32; bfloat16 on the tensor cores (``mma.sync`` m16n8k16, bf16 operands
-and float32 accumulation), whose weights this wrapper prepares on every call
-(:func:`tc_weights`: the up-conv's merged taps and the same-conv's taps,
-K-contiguous, a few small elementwise passes on the card).
+type (:func:`design` says which), both on the tensor cores: bfloat16 as bf16
+products (``mma.sync`` m16n8k16, float32 accumulation); float32 in split
+precision (``mma.sync`` m16n8k8, each operand as TF32 hi + lo, three
+products). This wrapper prepares the weights each design reads
+(:func:`kernel_weights`), the up-conv's merged taps and the same-conv's taps:
+for bf16 K-contiguous (:func:`tc_weights`), a few small elementwise passes on
+the card on every call; for float32 split into 16-byte records of B fragments
+(:func:`f32_records`), made once for a weight pair and kept while the weights
+do not change (:func:`cached_f32_records`). The float32 design on the CUDA
+cores that the split-precision one replaced is bound for comparison only, by
+:mod:`warpedganspace_torch.ops.proggan_tail_cuda_cores`.
 
 - :func:`fused_section` is one section, :func:`proggan_tail` the chain of
   sections with the RGB head on the last: one launch per section. On CPU
@@ -31,11 +37,13 @@ K-contiguous, a few small elementwise passes on the card).
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
 from warpedganspace_torch.ops.proggan_tail import (TAIL_CHANNELS, fused_section_plain,
                                                    merge_up_taps)
+from warpedganspace_torch.ops.sg2_tail_cuda import split_records
 
 SOURCE = "proggan_tail.cu"
 launches = 0
@@ -71,6 +79,57 @@ def tc_weights(w_up: torch.Tensor, w_same: torch.Tensor):
     lo = (merged - hi.float()).to(torch.bfloat16)
     same = w_same.permute(2, 3, 0, 1).reshape(9, c, c).to(torch.bfloat16).contiguous()
     return torch.stack([hi, lo]).contiguous(), same
+
+
+def f32_records(w_up: torch.Tensor, w_same: torch.Tensor):
+    """The float32 design's weights as split records
+    (:func:`~warpedganspace_torch.ops.sg2_tail_cuda.split_records`): the
+    up-conv's merged taps, summed in float32 (:func:`merge_up_taps`), as
+    (4 taps x 2C / 16 chunks, 2, 4C / 8, 32, 4), taps (a, b) in row-major
+    order and the n8 tiles of a k8 step parity-major (parity (pi, pj)'s C
+    output channels are the C / 8 tiles from (2 pi + pj) C / 8 on), and the
+    same-conv's nine taps (ky, kx) in row-major order as
+    (9 x C / 16, 2, C / 8, 32, 4)."""
+    c = w_up.shape[0]
+    up = merge_up_taps(w_up).permute(2, 3, 0, 1, 4, 5).reshape(4, 4 * c, 2 * c)
+    same = w_same.permute(2, 3, 0, 1).reshape(9, c, c)
+    return split_records(up), split_records(same)
+
+
+# f32_records of the last few weight pairs: (id w_up, id w_same) -> (weak
+# references, the tensors' stamps, records).
+_RECORDS: dict = {}
+_RECORDS_KEPT = 8
+
+
+def _stamp(t: torch.Tensor) -> tuple:
+    return t._version, t.data_ptr(), t.device, tuple(t.shape)
+
+
+def cached_f32_records(w_up: torch.Tensor, w_same: torch.Tensor):
+    """:func:`f32_records`, made once for a weight pair and kept while both
+    tensors are the same objects with the same version counters and storage:
+    a generator's sections reuse them on every forward. Made anew on every
+    call, the records cost some twenty small launches, about 0.3 ms of the
+    host's time a section (``PERF.md``, PR 17), which a section at B=1 does
+    not hide."""
+    key, stamp = (id(w_up), id(w_same)), (_stamp(w_up), _stamp(w_same))
+    hit = _RECORDS.get(key)
+    if hit is not None and hit[0]() is w_up and hit[1]() is w_same and hit[2] == stamp:
+        return hit[3]
+    records = f32_records(w_up, w_same)
+    if key not in _RECORDS and len(_RECORDS) >= _RECORDS_KEPT:
+        del _RECORDS[next(iter(_RECORDS))]
+    _RECORDS[key] = (weakref.ref(w_up), weakref.ref(w_same), stamp, records)
+    return records
+
+
+def kernel_weights(w_up: torch.Tensor, w_same: torch.Tensor, dtype: torch.dtype):
+    """The weights as the kernel's design for ``dtype`` reads them:
+    :func:`tc_weights` for bfloat16, :func:`cached_f32_records` for float32."""
+    if dtype == torch.bfloat16:
+        return tc_weights(w_up, w_same)
+    return cached_f32_records(w_up, w_same)
 
 
 def _check_operands(x, w_up, b_up, s_up, w_same, b_same, s_same, head):
@@ -124,8 +183,7 @@ def _launch(x, w_up, b_up, s_up, w_same, b_same, s_same, head):
         return out
     lib = build()
     head_ptrs = [t.data_ptr() for t in head] if head is not None else [None] * 3
-    if x.dtype == torch.bfloat16:
-        w_up, w_same = tc_weights(w_up, w_same)
+    w_up, w_same = kernel_weights(w_up, w_same, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.proggan_tail_section_launch(
