@@ -5,21 +5,32 @@
                                               # (also: biggan, stylegan2, train_biggan,
                                               # attribute; --steps N walks N steps each way)
     python3 chip_smoke.py --profile dp --cards 4   # data-parallel training, 1 card and 4
+    python3 chip_smoke.py --profile cuda_cores     # the kernels beside the CUDA-core designs
+                                                   # they replaced
 
 Phases, each of which must pass; any failure ends the run with a non-zero
 exit and no result line:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels of ``warpedganspace_torch/csrc``, one ``nvcc`` per
-   source, started together (the CUDA-core designs kept for comparison too);
+   source, started together (with ``--profile cuda_cores`` also the CUDA-core
+   designs kept for comparison); each phase of 3, 4 and 5 starts as soon as
+   its sources are built (the attention backward's are the last);
 3. kernels, each against its plain PyTorch version and timed with CUDA events
-   (plain, kernel, kernel, plain):
+   (plain, kernel, kernel, plain); the CUDA-core designs that the tensor-core
+   designs replaced are timed beside them only under ``--profile
+   cuda_cores``. Each tensor-core design that accumulates in f32 on
+   ``mma.sync`` is held to a float64 twin beside the plain version at the same
+   dtype (the max abs error, and the signed mean error with its standard
+   error: the tensor cores' f32 sums round toward zero): the warp at R=64 and
+   at a traversal's R=2 (pooled over draws of z) with f32 and bf16 sets, the
+   bf16 attention's output and lse at B=16 and its backward's three gradients
+   at B=32, both tails' bf16 sections at B=4, and the f32 tails:
    - the RBF warp at the five shapes of ``ops/rbf_cuda_cores.py`` (``SHAPES``)
      (K=200 sets, 2N=1024 support vectors, d=512 at R=64 rows = 32 codes x
      +-, and at R=16, 12 and 2 as the eval pools and the ProgGAN CLI give
      it; BigGAN's K=120, 2N=512, d=120 at R=8) with f32 and bf16 set
-     storage, each call repeated for the same bits, and with the CUDA-core
-     design it replaced timed beside it; the bound is the bytes or the
+     storage, each call repeated for the same bits; the bound is the bytes or the
      products at the bf16 tensor-core peak, whichever is larger; then at the
      shapes the three traversals below give it;
    - the SA attention at BigGAN-128's shape (B=16, N=4096, M=1024, dk=24,
@@ -29,16 +40,15 @@ exit and no result line:
      and BigGAN D's operands (B=64, dk=12, dv=48) in f32, at a ragged shape and
      at logits near +-200 (lse too), with ``F.scaled_dot_product_attention``
      timed beside it (at B=16 and at the render batch) as a yardstick the port
-     never calls; in f32 also the CUDA-core design it replaced, through that
-     design's own C entry, all four in turns at B=16, B=1 and D's operands,
-     with two bounds: the least arithmetic at the TF32 tensor-core rate beside
-     the exponentials and the bytes, and the products on the CUDA cores;
+     never calls; in f32 all in turns at B=16, B=1 and D's operands, with two
+     bounds: the least arithmetic at the TF32 tensor-core rate beside the
+     exponentials and the bytes, and the products on the CUDA cores;
    - the SA attention's backward at BigGAN-128's training shape (B=32, N=4096,
      M=1024, dk=24, dv=96) in f32 and bf16, at B=1, at the ragged shape and in
      f32 at logits near +-200, each gradient within a tolerance of its largest
      entry, with the backward of ``F.scaled_dot_product_attention`` through
-     autograd as the yardstick (and in f32 the CUDA-core design it replaced,
-     in turns, with the same two bounds); at each of those shapes also what
+     autograd as the yardstick (in f32 with the same two bounds); at each of
+     those shapes also what
      the training forward saves for it, the forward kernel's output and its
      rows' log-sum-exp, against their plain versions;
    - ProgGAN's fused tail section at the three full-width sections of the
@@ -47,22 +57,18 @@ exit and no result line:
      the ProgGAN path below gives it (a bf16 render batch of 16, one f32
      sample), at a border-only and at a ragged odd shape, with WScale scales
      != 1 and random biases; in f32 (its split-precision tensor-core design,
-     3xTF32) also the CUDA-core design it replaced, through that design's own
-     C entry, in turns at B=4 and B=1, with two bounds (the least arithmetic
-     at the TF32 tensor cores and on the CUDA cores), and at B=4 each route's
-     signed mean error against a float64 section, the bf16 design's too; no
-     one PyTorch call computes a section;
+     3xTF32) in turns at B=4 and B=1, with two bounds (the least arithmetic
+     at the TF32 tensor cores and on the CUDA cores); no one PyTorch call
+     computes a section;
    - StyleGAN2's fused tail section at the two sections of the 1024^2
      generator (128 -> 64 channels at 512^2 writing x2, 64 -> 32 at 1024^2
      writing only the RGB; B=4) in f32 and bf16, at the shapes the StyleGAN2
      path below gives it (a bf16 render batch of 16, one f32 sample), at C=16,
      at border-only and at ragged odd shapes, x2 written and not, with noise
      weights != 0, random biases and s, d away from 1; in f32 (its
-     split-precision tensor-core design, 3xTF32) also the CUDA-core design it
-     replaced, through that design's own C entry, in turns at B=4 and B=1,
+     split-precision tensor-core design, 3xTF32) in turns at B=4 and B=1,
      with two bounds (the least arithmetic at the TF32 tensor cores and on the
-     CUDA cores), and at B=4 each route's signed mean error against a float64
-     section; no one PyTorch call computes a section;
+     CUDA cores); no one PyTorch call computes a section;
 4. generators with random weights from a seed: StyleGAN2-1024 in W space
    (B=4), BigGAN-128 at full width (class 239, B=16) and ProgGAN-1024 at full
    width (B=4), each in f32 and bf16 and in f32 on the card against f32 on
@@ -81,8 +87,8 @@ exit and no result line:
    ``traverse_latent_space``: a K=4, D=512 StyleGAN2-1024 W-space experiment
    for 2 steps each way at bf16 with GIFs, the K=120, D=256 BigGAN-128
    class-239 experiment for 5 steps each way at bf16 (1,320 frames), and the
-   K=200, D=512 ProgGAN-1024 Z-space experiment for 3 steps each way at bf16
-   (1,400 frames of 1024^2). Each kernel's launch count is set to 0 just
+   K=200, D=512 ProgGAN-1024 Z-space experiment for 1 step each way at bf16
+   (600 frames of 1024^2). Each kernel's launch count is set to 0 just
    before a path and read just after: the warp must show one launch per step
    on all three, the attention one launch per generator forward on BigGAN's,
    ProgGAN's tail three launches per generator forward on ProgGAN's and
@@ -98,7 +104,8 @@ exit and no result line:
    none of the port's kernels: the 26 ``eval_np`` and 12 ``eval_json`` files of
    shape (4, 41); the time of each stage per path (the host's ``_prep_path``
    and decode + NMS, the upload and the six predictors' forwards by CUDA
-   events) and the device's busy share of a traced run. Then the port's CPU run
+   events; ``--profile attribute`` adds three warm runs and a traced one, the
+   device's busy share and kernel table). Then the port's CPU run
    of the first path, and the card held to it: each predictor's raw outputs on
    the CPU run's inputs within 1e-3 relative + 1e-4 of the output's largest
    magnitude, the path's ``eval_np`` rows at rtol 1e-2 / atol 2e-3 with the
@@ -107,10 +114,18 @@ exit and no result line:
    maps); the native NMS must have run on the card, never the numpy one, and
    keep what the numpy one keeps on the run's candidate sets. Then
    ``rank_paths``: the port's ranking CLI on that tree with
-   ``stylegan2_full.sh``'s flags and its loop of eight attribute groups (the
-   first, ``Smiling-AU12``, with its top-k GIFs), each ``attr_idx`` CSV held
+   ``stylegan2_full.sh``'s flags and its loop of eight attribute groups
+   (without GIFs: the ProgGAN chain makes them), each ``attr_idx`` CSV held
    to a plain ``np.cov`` ranking written here and each JSON order to its CSV;
-   it launches none of the port's kernels;
+   it launches none of the port's kernels. Then the same chain for
+   ``PROGGAN_ATTR``, ``scripts/eval/proggan_full.sh`` without its ``--gif``: a
+   ProgGAN-1024 Z tree of the first 2 paths of K=200 seeded sets, 30 steps
+   each way (61 frames a path, 122 of 1024^2; bf16, batch 16; the warp 30
+   launches, the tail 3 per generator forward), one cold and one warm
+   attribute run on the card, the CPU run of the first path
+   and the same checks, the CPU run's CelebA input against the min-max over
+   all 61 frames of the path computed here, and ranking with the script's
+   group order (GIFs for ``Smiling-AU12``);
 7. the training path, ``train`` then ``traverse_latent_space``: the experiment
    of ``scripts/train/biggan.sh`` (BigGAN-128 class 239, ResNet reconstructor,
    K=120, D=256, learn-gammas, shifts in [0.1, 0.2], batch 32, bf16 G and R)
@@ -128,7 +143,12 @@ exit and no result line:
    cadence of logs and checkpoints, with a resume: SNGAN-MNIST (LeNet, K=64,
    D=128, batch 128, bf16 G, ``--steps-per-call 10``: a CUDA graph of ten
    steps; 40 iterations, then a resume at 40 to 60 with ``--profile``, and 40
-   iterations again with one step a call for its steps/s), StyleGAN2-1024
+   iterations again with one step a call, twice: the graphed run's log windows
+   before the resume held to the first eager run's as the second is, and the
+   steps/s), SNGAN-AnimeFaces (``scripts/train/anime.sh``: the same cut, 64^2
+   RGB, shifts in [0.25, 0.35]; its tree walked with
+   ``scripts/eval/animefaces.sh``'s flags but ``--gif``, 24 steps each way),
+   StyleGAN2-1024
    in W space (``--z-truncation 0.7``, ResNet, K=200, D=512, batch 12, bf16 G
    and R; 4 iterations, then a resume at 4 to 8) and ProgGAN-1024 (the same
    at batch 8). Each writes its tree, ``checkpoint2model`` splits the
@@ -137,7 +157,7 @@ exit and no result line:
    equalities: StyleGAN2's tail 4 and ProgGAN's 6 per training iteration
    (two sections or three in each of two generator forwards), the warp none
    in training and one per traversal step. Then each step alone, outside the
-   CLI: SNGAN's graphed chunk against its eager step, untraced and traced on
+   CLI: SNGAN-MNIST's graphed chunk against its eager step, untraced and traced on
    host and device for the device's busy share; StyleGAN2's and ProgGAN's
    step through the tail kernel against the same step with the plain tail, in
    turns, with peak device memory, and traced for the tail kernel's share of
@@ -194,7 +214,7 @@ SG2 = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=2, eps=0.2, batch=16,
            gif=True, pool="smoke")
 BIGGAN = dict(gan="BigGAN", k=120, dipoles=256, d=120, steps=5, eps=0.15, batch=64, res=128,
               gif=False, pool="smoke_biggan")
-PROGGAN = dict(gan="ProgGAN", k=200, dipoles=512, d=512, steps=3, eps=0.15, batch=16, res=1024,
+PROGGAN = dict(gan="ProgGAN", k=200, dipoles=512, d=512, steps=1, eps=0.15, batch=16, res=1024,
                gif=False, pool="smoke_proggan")
 PATHS = {"stylegan2": SG2, "biggan": BIGGAN, "proggan": PROGGAN}
 ATTN_SHAPE = (16, 4096, 1024, 24, 96)        # B, N, M, dk, dv of BigGAN-128's attention, timed
@@ -240,8 +260,21 @@ PROGGAN_TRAIN = dict(
           "-K", "200", "-D", "512", "--min-shift-magnitude", "0.1", "--max-shift-magnitude",
           "0.2", "--batch-size", "8", "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
           "--pair-layout", "s2d"])
-TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_stylegan2_w": SG2_TRAIN,
-               "train_proggan_z": PROGGAN_TRAIN}
+# scripts/train/anime.sh, cut as the MNIST path is; its tree walked with
+# scripts/eval/animefaces.sh's flags (--eps 0.25 --shift-steps 24, bf16; its
+# --shift-leap 1 and batch are the CLI's defaults, 2 x 24 + 1 frames) but its
+# --gif: the 8-core host of an H100 machine collates a GIF of 49 frames in
+# about 11 s, the 64 of them in 691 s. The graphed step alone is traced on the
+# MNIST path only (``step_alone``).
+ANIME_TRAIN = dict(
+    gan="SNGAN_AnimeFaces", k=64, dipoles=128, d=128, iters=40, resume_to=60, log_freq=10,
+    ckp_freq=20, steps=24, eps=0.25, render_batch=49, res=64, channels=3, pool="smoke_anime",
+    tail=None, per_forward=0, chunk=10, step_alone=False,
+    argv=["--learn-gammas", "--gan-type", "SNGAN_AnimeFaces", "--reconstructor-type", "LeNet",
+          "-K", "64", "-D", "128", "--min-shift-magnitude", "0.25", "--max-shift-magnitude",
+          "0.35", "--batch-size", "128", "--g-dtype", "bfloat16", "--steps-per-call", "10"])
+TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_sngan_anime": ANIME_TRAIN,
+               "train_stylegan2_w": SG2_TRAIN, "train_proggan_z": PROGGAN_TRAIN}
 # The multi-device path: the experiment of scripts/train/biggan.sh at full
 # width, data parallel. Part (a): two ranks that share the card over gloo, f32
 # (TF32 off), eager steps, then a traversal of one code a rank; held to the
@@ -269,16 +302,31 @@ MD_F64_RATIO = 2.0
 # rounding of the same steps, as far from float64 as cuDNN's) and traverses
 # as the others do.
 MD_SPREAD = 5.0
-# The attribute stage: scripts/eval/stylegan2_full.sh's traverse_attribute_space
-# --eps 0.15 --shift-steps 20 (41 frames a path) on a StyleGAN2-1024 W
-# traversal of that length, cut from its K=200 paths x 6 codes to 4 paths of one.
-ATTR = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=20, eps=0.15, batch=16, res=1024,
-            gif=False, pool="smoke_attr")
-# The ranking stage on that tree: stylegan2_full.sh's loop of attribute groups,
-# with its flags; the first group also writes its top-k GIFs.
-RANK_GROUPS = ("Smiling-AU12", "Age-FareFace", "Age-CelebA", "Gender", "Rotation",
-               "Smiling-CelebA", "Brow-Lowerer-AU4", "Bangs")
+# The evaluation chains (``phase_attribute_stage``). The ranking stage runs the
+# script's loop of attribute groups with its flags; ``gif_group`` (if any) also
+# writes its top-k GIFs, the others pass --no-gif.
 RANK_FLAGS = ["--num-imgs=5", "--gif-size=256", "--metric=corr+corr_l1"]
+# scripts/eval/stylegan2_full.sh: traverse_attribute_space --eps 0.15
+# --shift-steps 20 (41 frames a path) on a StyleGAN2-1024 W traversal of that
+# length, cut from its K=200 paths x 6 codes to 4 paths of one, its ranking
+# without GIFs (the ProgGAN chain makes them; these took 15.8 s of an H100
+# machine's host).
+ATTR = dict(gan="StyleGAN2", k=4, dipoles=512, d=512, steps=20, eps=0.15, batch=16, res=1024,
+            gif=False, pool="smoke_attr", script="stylegan2_full.sh",
+            rank_groups=("Smiling-AU12", "Age-FareFace", "Age-CelebA", "Gender", "Rotation",
+                         "Smiling-CelebA", "Brow-Lowerer-AU4", "Bangs"),
+            gif_group=None)
+# scripts/eval/proggan_full.sh: the ProgGAN-1024 Z traversal at --eps 0.15
+# --shift-steps 30 (61 frames a path; bf16, batch 16; without its --gif), then
+# traverse_attribute_space and ranking, cut from the script's K=200 paths x 8
+# codes to the first 2 paths of K=200 seeded sets (``sets``) and one code.
+PROGGAN_ATTR = dict(gan="ProgGAN", k=2, sets=200, dipoles=512, d=512, steps=30, eps=0.15,
+                    batch=16, res=1024, gif=False, pool="smoke_proggan_attr",
+                    script="proggan_full.sh",
+                    rank_groups=("Age-FareFace", "Age-CelebA", "Gender", "Rotation",
+                                 "Smiling-AU12", "Smiling-CelebA", "Brow-Lowerer-AU4", "Bangs"),
+                    gif_group="Smiling-AU12")
+ATTR_PATHS = {"attribute_stage": ATTR, "attribute_stage_proggan": PROGGAN_ATTR}
 # A crop rectangle (x0, x1, y0, y1) of a 256² frame that touches no border,
 # gathered on the card and on the CPU beside the first boxes' crops.
 INNER_RECT = (61, 190, 37, 203)
@@ -311,6 +359,20 @@ PEAK_EXP_PER_S = 16 * 132 * 1.83e9
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def in_turns(fns: dict, **kw) -> dict:
+    """Each of ``fns`` timed by :func:`cuda_ms` in turns, in order and back:
+    {name: [ms, ms]}."""
+    runs = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        runs[name].append(cuda_ms(fns[name], **kw))
+    return runs
+
+
+def ms_text(ms) -> str:
+    """A time, or where it is measured when this run did not."""
+    return "not timed (--profile cuda_cores)" if ms is None else f"{ms:.4f} ms"
 
 
 def card_line() -> str:
@@ -374,13 +436,28 @@ def attn_bounds(b, n, m, dk, dv, elem: int, backward: bool = False) -> dict:
     return res
 
 
-def phase_warp_kernel(card: str) -> dict:
+def warp_f64(ws, z):
+    """The warp's plain formula (``rbf_cuda._torch_kn``) in float64 on the same
+    packed sets (bf16 support vectors taken exactly) and codes."""
+    sv, g, ag, svsq, z = (t.double() for t in (ws.sv, ws.g, ws.ag, ws.svsq, z))
+    zsq = (z * z).sum(-1, keepdim=True)
+    w = ag[:, None, :] * (-g[:, None, :] * (zsq - 2.0 * (z @ sv.transpose(1, 2))
+                                            + svsq[:, None, :])).exp()
+    grad = -2.0 * w.sum(-1, keepdim=True) * z + 2.0 * (w @ sv)
+    return grad / grad.norm(dim=-1, keepdim=True)
+
+
+# The warp's shapes audited against float64: the timed R=64 and one traversal's R.
+WARP_AUDIT_ROWS = (64, 2)
+
+
+def phase_warp_kernel(card: str, cuda_cores: bool = False) -> dict:
     import torch
 
     from warpedganspace_torch.models.support_sets import SupportSets
     from warpedganspace_torch.ops import rbf_cuda, rbf_cuda_cores
 
-    cuda_cores = rbf_cuda_cores.cuda_cores()
+    cc_warp = rbf_cuda_cores.cuda_cores() if cuda_cores else None
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     sets, shapes = {}, []
@@ -399,9 +476,9 @@ def phase_warp_kernel(card: str) -> dict:
                 tag = str(dtype).split(".")[-1]
                 ws = rbf_cuda.prepare_warp_sets(S.support_sets, S.alphas, S.gammas(),
                                                 None if dtype == torch.float32 else dtype)
-                kern = lambda: rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")  # noqa: E731
-                plain = lambda: rbf_cuda._torch_kn(ws.sv, ws.g, ws.ag, ws.svsq, z)  # noqa: E731
-                cc = lambda: cuda_cores(ws, z)  # noqa: E731
+                fns = {"plain": lambda: rbf_cuda._torch_kn(ws.sv, ws.g, ws.ag, ws.svsq, z),
+                       "kernel": lambda: rbf_cuda.warp_grad_all_sets_kn(ws, z, backend="cuda")}
+                kern, plain = fns["kernel"], fns["plain"]
                 before = rbf_cuda.launches
                 out = kern()
                 torch.cuda.synchronize()
@@ -413,40 +490,64 @@ def phase_warp_kernel(card: str) -> dict:
                                    f"max abs {err:.3g} > 1e-4")
                 # Partials of the runs of 2N are added in a fixed order: the same bits.
                 check(torch.equal(kern(), out), f"warp kernel repeats differ at {name} {tag}")
-                cc_err = float((cc() - plain()).abs().max())
-                check(cc_err <= 1e-4, f"CUDA-core warp vs plain at {name} {tag}: {cc_err:.3g}")
+                if cc_warp is not None:
+                    fns["cuda_cores"] = lambda: cc_warp(ws, z)
+                    cc_err = float((fns["cuda_cores"]() - plain()).abs().max())
+                    check(cc_err <= 1e-4, f"CUDA-core warp vs plain at {name} {tag}: {cc_err:.3g}")
                 outs[tag] = out
-                # Plain, kernel, CUDA-core design, in turns.
-                p1, k1, c1, c2, k2, p2 = (cuda_ms(f) for f in (plain, kern, cc, cc, kern, plain))
+                # Plain, kernel (, the CUDA-core design), in turns and back.
+                runs = in_turns(fns)
                 nbytes, flops = rbf_cuda_cores.warp_cost(k, n2, d, rows, ws.sv.element_size())
                 # The bound: the bytes, or the products at the peak of the unit the
                 # design runs them on (bf16 tensor cores, whatever the sets' type).
                 bound_ms, bound_by = bound(nbytes, flops, bf16=True)
-                ms = (k1 + k2) / 2
-                rec[tag] = {"ms": ms, "runs": (k1, k2), "plain_ms": (p1 + p2) / 2,
-                            "plain_runs": (p1, p2), "cuda_cores_ms": (c1 + c2) / 2,
+                ms = sum(runs["kernel"]) / 2
+                rec[tag] = {"ms": ms, "runs": runs["kernel"], "plain_ms": sum(runs["plain"]) / 2,
+                            "plain_runs": runs["plain"],
+                            "cuda_cores_ms": (sum(runs["cuda_cores"]) / 2
+                                              if "cuda_cores" in runs else None),
                             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
                             "cuda_core_ops_ms": 1e3 * flops / PEAK_F32_FLOPS,
                             "evals_per_s": k * rows / ms * 1e3,
                             "share_of_bound": bound_ms / ms}
+                if k == 200 and rows in WARP_AUDIT_ROWS:
+                    # Against float64: does the tensor cores' truncating f32
+                    # accumulation bias the directions (the plain f32 version
+                    # beside)? Pooled over draws of z, 2**16 rows of d in all.
+                    draws = [z] + [torch.randn((k, rows, d), generator=gen).to(dev)
+                                   for _ in range(max(0, 2 ** 16 // (k * rows) - 1))]
+                    for route, fn in (("kernel", kern), ("plain", plain)):
+                        pairs = []
+                        for zz in draws:
+                            z = zz                    # the timed closures read z
+                            pairs.append((fn(), warp_f64(ws, zz)))
+                        rec[tag]["audit_" + route] = error_stats(pairs)
+                        del pairs
+                    rec[tag]["audit_draws"] = len(draws)
+                    z = draws[0]
             cos16 = float((outs["bfloat16"] * outs["float32"]).sum(-1).mean())
             # bf16 set storage against f32: the bound of tests/test_rbf_pallas.py.
             check(cos16 > 0.999, f"bf16 vs f32 sets mean cosine {cos16:.6f} <= 0.999 at {name}")
             rec["cos_bf16_vs_f32"] = cos16
             shapes.append(rec)
             f, b = rec["float32"], rec["bfloat16"]
+            audit = "".join(
+                f"; {t} sets against float64 over {r['audit_draws']} draws of z (max abs, "
+                f"signed mean error +- its standard error): kernel "
+                f"{stats_text(r['audit_kernel'])}, plain {stats_text(r['audit_plain'])}"
+                for t, r in (("f32", f), ("bf16", b)) if "audit_kernel" in r)
             print(f"[kernel] rbf_warp {name} ({label}) on {card}: "
                   f"f32 sets {f['ms']:.4f} ms ({f['runs'][0]:.4f}, {f['runs'][1]:.4f}), "
                   f"{f['evals_per_s'] / 1e6:.2f} M evals/s, {100 * f['share_of_bound']:.1f} % of "
                   f"its bound {f['bound_ms']:.4f} ms by {f['bound_by']}, plain "
-                  f"{f['plain_ms']:.4f} ms, CUDA-core design {f['cuda_cores_ms']:.4f} ms; "
+                  f"{f['plain_ms']:.4f} ms, CUDA-core design {ms_text(f['cuda_cores_ms'])}; "
                   f"bf16 sets {b['ms']:.4f} ms ({b['runs'][0]:.4f}, {b['runs'][1]:.4f}), "
                   f"{b['evals_per_s'] / 1e6:.2f} M evals/s, {100 * b['share_of_bound']:.1f} % of "
                   f"{b['bound_ms']:.4f} ms by {b['bound_by']}, plain {b['plain_ms']:.4f} ms, "
-                  f"CUDA-core design {b['cuda_cores_ms']:.4f} ms; least time of the products on "
-                  f"the CUDA cores (67 TFLOP/s, not this design's unit) {f['cuda_core_ops_ms']:.4f}"
-                  f" ms; max abs err f32 {f['max_abs_err']:.3g}, bf16 {b['max_abs_err']:.3g}; "
-                  f"bf16-vs-f32 cos {cos16:.6f}")
+                  f"CUDA-core design {ms_text(b['cuda_cores_ms'])}; least time of the products "
+                  f"on the CUDA cores (67 TFLOP/s, not this design's unit) "
+                  f"{f['cuda_core_ops_ms']:.4f} ms; max abs err f32 {f['max_abs_err']:.3g}, bf16 "
+                  f"{b['max_abs_err']:.3g}; bf16-vs-f32 cos {cos16:.6f}{audit}")
 
         # The CLIs' own shapes: one code x +- = 2 rows, and 64 rows at BigGAN's.
         errs = {}
@@ -471,6 +572,9 @@ def phase_warp_kernel(card: str) -> dict:
             "bound_by": f["bound_by"], "bound_ms_bf16": b["bound_ms"],
             "bound_by_bf16": b["bound_by"], "cuda_core_ops_ms": f["cuda_core_ops_ms"],
             "library_ms": None, "shape": f"{shapes[0]['shape']} f32",
+            "audit": {f"{r['shape']} {t}": {key: r[t][key] for key in
+                                             ("audit_kernel", "audit_plain", "audit_draws")}
+                      for r in shapes for t in ("float32", "bfloat16") if "audit_kernel" in r[t]},
             "design": {"float32": "tensor cores, 3 bf16 products a pass (hi + lo)",
                        "bfloat16": "tensor cores, 2 bf16 products a pass (hi + lo)"},
             "shapes": shapes}
@@ -489,7 +593,25 @@ def attn_inputs(shape, seed: int, dtype):
     return tuple(t.to(device="cuda", dtype=dtype) for t in (theta, phi, g))
 
 
-def phase_attn_kernel(card: str) -> dict:
+def attn_f64(theta, phi, g):
+    """softmax(theta phi^T) g and each row's log-sum-exp, in float64 on the
+    same operands."""
+    s = theta.double() @ phi.double().transpose(1, 2)
+    lse = s.logsumexp(-1)
+    return (s - lse[..., None]).exp() @ g.double(), lse
+
+
+def attn_bwd_f64(theta, phi, g, ct):
+    """(dtheta, dphi, dg) of :func:`attn_f64`'s output for ``ct``, in float64."""
+    th, ph, gd, ctd = (t.double() for t in (theta, phi, g, ct))
+    beta = (th @ ph.transpose(1, 2)).softmax(-1)
+    dbeta = ctd @ gd.transpose(1, 2)
+    ds = beta * (dbeta - (dbeta * beta).sum(-1, keepdim=True))
+    del dbeta
+    return ds @ ph, ds.transpose(1, 2) @ th, beta.transpose(1, 2) @ ctd
+
+
+def phase_attn_kernel(card: str, cuda_cores: bool = False) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -546,7 +668,20 @@ def phase_attn_kernel(card: str) -> dict:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
         lib_err16 = float((lib()[:, 0].float() - plain().float()).abs().max())
         ms16, plain_ms16, lib_ms16 = (k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(lib)
-        # f32 in turns: plain, kernel, the CUDA-core design it replaced (its own
+        # The bf16 design against float64 at B=16 (the plain bf16 version
+        # beside): does the tensor cores' truncating f32 accumulation bias the
+        # output or the rows' log-sum-exp?
+        theta, phi, g = attn_inputs(ATTN_SHAPE, 2, torch.bfloat16)
+        out, lse = attn_cuda.sa_attention_saved(theta, phi, g)
+        out64, lse64 = attn_f64(theta, phi, g)
+        plain_lse = torch.logsumexp(torch.bmm(theta.float(), phi.float().transpose(1, 2)), -1)
+        audit = {oname: {"kernel": error_stats([(got, ref64)]),
+                         "plain": error_stats([(plain_got, ref64)])}
+                 for oname, got, plain_got, ref64 in (
+                     ("out", out, sa_attention_plain(theta, phi, g), out64),
+                     ("lse", lse, plain_lse, lse64))}
+        del out, lse, out64, lse64, plain_lse
+        # f32 in turns: plain, kernel (, the CUDA-core design it replaced, its own
         # C entry), SDPA, and back, at B=16, one sampled code and BigGAN D's operands.
         from warpedganspace_torch.ops.attn_cuda_cores import cc_forward
 
@@ -556,15 +691,16 @@ def phase_attn_kernel(card: str) -> dict:
             q, k, v = theta[:, None], phi[:, None], g[:, None]
             fns = {"plain": lambda: sa_attention_plain(theta, phi, g),
                    "kernel": lambda: attn_cuda.sa_attention(theta, phi, g),
-                   "cuda_cores": lambda: cc_forward(theta, phi, g),
                    "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)}
-            cc_err = float((fns["cuda_cores"]()[0] - fns["plain"]()).abs().max())
-            check(cc_err <= 1e-4, f"the CUDA-core design vs plain at {shape}: {cc_err:.3g}")
-            runs = {name: [] for name in fns}
-            for name in list(fns) + list(fns)[::-1]:
-                runs[name].append(cuda_ms(fns[name], iters=20 if shape[0] > 16 else 50))
+            cc_err = None
+            if cuda_cores:
+                fns["cuda_cores"] = lambda: cc_forward(theta, phi, g)
+                cc_err = float((fns["cuda_cores"]()[0] - fns["plain"]()).abs().max())
+                check(cc_err <= 1e-4, f"the CUDA-core design vs plain at {shape}: {cc_err:.3g}")
+            runs = in_turns(fns, iters=20 if shape[0] > 16 else 50)
             bounds = attn_bounds(*shape, 4)
             f32[shape] = {f"{name}_ms": sum(r) / 2 for name, r in runs.items()}
+            f32[shape].setdefault("cuda_cores_ms", None)
             f32[shape].update(runs=runs, cc_err=cc_err, bound_ms=bounds["tc"][0],
                               bound_by=bounds["tc"][1],
                               bound_ms_cuda_cores=bounds["cuda_cores"][0])
@@ -596,22 +732,28 @@ def phase_attn_kernel(card: str) -> dict:
            "bound_ms_render_bf16": bound_render, "design": design,
            "f32_shapes": {str(shape): {key: val for key, val in t.items() if key != "runs"}
                           for shape, t in f32.items()},
-           "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+           "audit_bf16": audit, "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
     f32_text = "; ".join(
-        f"f32 {shape}: kernel {t['kernel_ms']:.4f} ms, CUDA-core design {t['cuda_cores_ms']:.4f} "
-        f"ms, plain {t['plain_ms']:.4f} ms, library SDPA {t['library_ms']:.4f} ms (each "
+        f"f32 {shape}: kernel {t['kernel_ms']:.4f} ms, CUDA-core design "
+        f"{ms_text(t['cuda_cores_ms'])}, plain {t['plain_ms']:.4f} ms, library SDPA "
+        f"{t['library_ms']:.4f} ms (each "
         + ", ".join(f"{name} " + "/".join(f"{x:.4f}" for x in r)
                     for name, r in t["runs"].items())
         + f"); bound {t['bound_ms']:.4f} ms by {t['bound_by']} at the TF32 tensor cores, "
-        f"{t['bound_ms_cuda_cores']:.4f} ms on the CUDA cores; CUDA-core design's max abs err "
-        f"{t['cc_err']:.3g}" for shape, t in f32.items())
+        f"{t['bound_ms_cuda_cores']:.4f} ms on the CUDA cores"
+        + (f"; CUDA-core design's max abs err {t['cc_err']:.3g}" if t["cc_err"] is not None
+           else "") for shape, t in f32.items())
+    audit_text = "; ".join(
+        f"{oname}: kernel {stats_text(a['kernel'])}, plain bf16 {stats_text(a['plain'])}"
+        for oname, a in audit.items())
     print(f"[kernel] sa_attention {res['shape']} on {card}; design f32: {design['float32']}, "
           f"bf16: {design['bfloat16']}: {f32_text}; bf16 kernel {ms16:.4f} ms "
           f"plain {plain_ms16:.4f} ms library SDPA {lib_ms16:.4f} ms (err {lib_err16:.3g}), "
           f"bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 tensor-core peak; "
           f"bf16 at the render batch B={ATTN_RENDER[0]}: kernel {render_ms:.4f} ms plain "
           f"{render_plain_ms:.4f} ms library SDPA {lib_render_ms:.4f} ms bound "
-          f"{bound_render:.4f} ms; "
+          f"{bound_render:.4f} ms; bf16 at B={ATTN_SHAPE[0]} against float64 (max abs, signed "
+          f"mean error +- its standard error): {audit_text}; "
           "max abs err " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
     return res
 
@@ -622,7 +764,7 @@ def rel_err(got, ref) -> float:
     return float((got.float() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def phase_attn_bwd_kernel(card: str) -> dict:
+def phase_attn_bwd_kernel(card: str, cuda_cores: bool = False) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -706,7 +848,7 @@ def phase_attn_bwd_kernel(card: str) -> dict:
             saved = attn_cuda.sa_attention_saved(theta, phi, g)
             fns = {"plain": lambda: sa_attention_bwd_plain(theta, phi, g, ct),
                    "kernel": lambda: attn_cuda.sa_attention_bwd(theta, phi, g, ct, saved=saved)}
-            if dtype == torch.float32:
+            if dtype == torch.float32 and cuda_cores:
                 fns["cuda_cores"] = lambda: cc_backward(theta, phi, g, *saved, ct)
         fns["library"] = lambda: torch.autograd.grad(out, (q, k, v), ct[:, None],
                                                      retain_graph=True)
@@ -720,10 +862,21 @@ def phase_attn_bwd_kernel(card: str) -> dict:
             with torch.no_grad() if name != "library" else torch.enable_grad():
                 runs[name].append(cuda_ms(fns[name], iters=10, warmup=2))
         times[dtype] = {f"{name}_ms": sum(r) / 2 for name, r in runs.items()}
+        times[dtype].setdefault("cuda_cores_ms", None)
         times[dtype].update(runs=runs, lib_err=lib_err, cc_err=cc_err)
+        if dtype == torch.bfloat16:
+            # The bf16 design's three gradients against float64 at the train
+            # shape (the plain bf16 version beside): does the tensor cores'
+            # truncating f32 accumulation bias them?
+            with torch.no_grad():
+                got, ref64 = fns["kernel"](), attn_bwd_f64(theta, phi, g, ct)
+                audit = {gname: {"kernel": error_stats([(a, r64)]),
+                                 "plain": error_stats([(p, r64)])}
+                         for gname, a, p, r64 in zip(("dtheta", "dphi", "dg"), got, ref, ref64)}
+            del got, ref64
         del out, q, k, v, ref, saved, fns
-    check(times[torch.float32]["cc_err"] <= 1e-4, "the CUDA-core backward design vs plain: "
-          f"{times[torch.float32]['cc_err']:.3g}")
+    check(times[torch.float32]["cc_err"] is None or times[torch.float32]["cc_err"] <= 1e-4,
+          f"the CUDA-core backward design vs plain: {times[torch.float32]['cc_err']}")
 
     b, n, m, dk, dv = ATTN_TRAIN
     design = {str(dt).split(".")[-1]: attn_cuda.bwd_design(dt)
@@ -742,7 +895,7 @@ def phase_attn_bwd_kernel(card: str) -> dict:
            "library_ms_bf16": t16["library_ms"],
            "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_cuda_cores": bound_cc,
            "bound_ms_bf16": bound_ms16, "bound_by_bf16": bound_by16, "design": design,
-           "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
+           "audit_bf16": audit, "shape": f"B={b} N={n} M={m} dk={dk} dv={dv} f32"}
 
     def each(t):
         return ", ".join(f"{name} " + "/".join(f"{x:.4f}" for x in r)
@@ -750,14 +903,18 @@ def phase_attn_bwd_kernel(card: str) -> dict:
 
     print(f"[kernel] sa_attention_bwd {res['shape']} on {card}; design f32: "
           f"{design['float32']}, bf16: {design['bfloat16']}: f32 kernel {res['ms']:.4f} ms, "
-          f"CUDA-core design {res['cc_ms']:.4f} ms (its error vs plain {t32['cc_err']:.3g}), "
+          f"CUDA-core design {ms_text(res['cc_ms'])} (its error vs plain {t32['cc_err']}), "
           f"plain {res['plain_ms']:.4f} ms, library SDPA backward {res['library_ms']:.4f} ms "
           f"(its error vs plain {t32['lib_err']:.3g}; each {each(t32)}); bound {bound_ms:.4f} ms "
           f"by {bound_by} at the TF32 tensor cores, {bound_cc:.4f} ms on the CUDA cores; bf16 "
           f"kernel {res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms library SDPA "
           f"backward {res['library_ms_bf16']:.4f} ms (err {t16['lib_err']:.3g}; each "
           f"{each(t16)}), bound {bound_ms16:.4f} ms by {bound_by16} at the bf16 tensor-core "
-          "peak; error relative to each gradient's largest entry (max abs for the forward's "
+          f"peak; bf16 at B={ATTN_TRAIN[0]} against float64 (max abs, signed mean error +- "
+          "its standard error): " + "; ".join(
+              f"{gname}: kernel {stats_text(a['kernel'])}, plain bf16 {stats_text(a['plain'])}"
+              for gname, a in audit.items())
+          + "; error relative to each gradient's largest entry (max abs for the forward's "
           "out and lse) " + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items()))
     return res
 
@@ -807,15 +964,57 @@ def tail_bound(b: int, c: int, h: int, w: int, head: bool, elem: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def signed_mean_error(got, ref64) -> float:
-    """The mean of (got - ref64) along the sign of the float64 reference, over
-    its mean magnitude: the tensor cores' truncating f32 sums make it
-    negative."""
-    return (float(((got.double() - ref64) * ref64.sign()).sum())
-            / float(ref64.abs().sum()))
+def error_stats(pairs) -> dict:
+    """Errors of outputs against their float64 references, pooled over the
+    (got, ref64) pairs (tuples of outputs taken together): the largest
+    absolute error (``f64``); the signed mean error (``sme``), the mean of
+    (got - ref64) along the reference's sign over its mean magnitude, which
+    the tensor cores' truncating f32 sums make negative; and its standard
+    error over the elements (``se``)."""
+    signed = mag = sq = n = worst = 0.0
+    for got, ref64 in pairs:
+        got, ref64 = (got, ref64) if isinstance(ref64, tuple) else ((got,), (ref64,))
+        for a, r in zip(got, ref64):
+            d = a.double() - r
+            e = d * r.sign()
+            signed, sq, n = signed + float(e.sum()), sq + float((e * e).sum()), n + e.numel()
+            mag, worst = mag + float(r.abs().sum()), max(worst, float(d.abs().max()))
+    var = max(sq / n - (signed / n) ** 2, 0.0)
+    return {"f64": worst, "sme": signed / mag, "se": math.sqrt(var * n) / mag}
 
 
-def phase_tail_kernel(card: str) -> dict:
+def stats_text(st: dict) -> str:
+    return f"{st['f64']:.3g}, {st['sme']:.3g} (+-{st['se']:.2g})"
+
+
+def sum_sections(res: dict, sections: list) -> None:
+    """One generator forward's tail is its sections: the times and bounds summed
+    into ``res`` (None where this run did not time a design)."""
+    for key in ("ms", "plain_ms", "cc_ms", "bound_ms", "bound_ms_cuda_cores", "ms_b1",
+                "plain_ms_b1", "cc_ms_b1", "bound_ms_b1", "bound_ms_cuda_cores_b1", "ms_bf16",
+                "plain_ms_bf16", "bound_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
+                "bound_ms_render_bf16"):
+        vals = [r[key] for r in sections]
+        res[key] = None if None in vals else sum(vals)
+
+
+def f32_section_text(r: dict) -> str:
+    """A tail section's f32 timings and its routes' errors against float64."""
+    text = "; ".join(
+        f"f32 B={bsz}: kernel {r['ms' + key]:.4f} ms, CUDA-core design "
+        f"{ms_text(r['cc_ms' + key])}, plain {r['plain_ms' + key]:.4f} ms (each " + ", ".join(
+            f"{name} " + "/".join(f"{t:.4f}" for t in ts) for name, ts in r["runs" + key].items())
+        + f"); bound {r['bound_ms' + key]:.4f} ms by {r['bound_by' + key]} at the TF32 tensor "
+        f"cores, {r['bound_ms_cuda_cores' + key]:.4f} ms on the CUDA cores"
+        + ("" if r["cc_err" + key] is None
+           else f"; CUDA-core design's max abs err {r['cc_err' + key]:.3g}")
+        for bsz, key in ((TAIL_B, ""), (1, "_b1")))
+    return text + "; against float64 (max abs, signed mean error): " + ", ".join(
+        f"{name} {r['f64_' + name]:.3g}, {r['sme_' + name]:.3g}"
+        for name in ("kernel", "cuda_cores", "plain") if "f64_" + name in r)
+
+
+def phase_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
     import torch
 
     from warpedganspace_torch.ops import proggan_tail_cuda
@@ -876,28 +1075,28 @@ def phase_tail_kernel(card: str) -> dict:
             # the path's sampled B=1.
             for bsz, key in ((TAIL_B, ""), (1, "_b1")):
                 ops, head = tail_problem(5, bsz, c, h, h, hd, torch.float32)
-                fns = {"kernel": proggan_tail_cuda.fused_section, "cuda_cores": cc_section,
-                       "plain": fused_section_plain}
+                fns = {"kernel": proggan_tail_cuda.fused_section, "plain": fused_section_plain}
+                if cuda_cores:
+                    fns["cuda_cores"] = cc_section
                 fns = {name: functools.partial(fn, *ops, head=head) for name, fn in fns.items()}
-                cc_err = float((fns["cuda_cores"]() - fns["plain"]()).abs().max())
-                check(cc_err <= 1e-4, f"the CUDA-core design vs plain at B={bsz} C={c}: "
-                                      f"{cc_err:.3g}")
-                runs = {name: [] for name in fns}
-                for name in list(fns) + list(fns)[::-1]:
-                    runs[name].append(cuda_ms(fns[name], iters=20, warmup=3))
+                cc_err = None
+                if cuda_cores:
+                    cc_err = float((fns["cuda_cores"]() - fns["plain"]()).abs().max())
+                    check(cc_err <= 1e-4, f"the CUDA-core design vs plain at B={bsz} C={c}: "
+                                          f"{cc_err:.3g}")
+                runs = in_turns(fns, iters=20, warmup=3)
                 for name, field in (("kernel", "ms"), ("cuda_cores", "cc_ms"),
                                     ("plain", "plain_ms")):
-                    row[field + key] = sum(runs[name]) / 2
+                    row[field + key] = sum(runs[name]) / 2 if name in runs else None
                 row["runs" + key], row["cc_err" + key] = runs, cc_err
                 if bsz == TAIL_B:
                     # Against float64: the max abs and the signed mean error of
                     # each route (the card tests' bound 1e-6 on the kernel's).
                     ref64 = f64(ops, head)
                     for name, fn in fns.items():
-                        out = fn()
-                        row[f"f64_{name}"] = float((out.double() - ref64).abs().max())
-                        row[f"sme_{name}"] = signed_mean_error(out, ref64)
-                    del ref64, out
+                        st = error_stats([(fn(), ref64)])
+                        row[f"f64_{name}"], row[f"sme_{name}"] = st["f64"], st["sme"]
+                    del ref64
                     check(abs(row["sme_kernel"]) <= 1e-6,
                           f"tail kernel's signed mean error against float64 at C={c}: "
                           f"{row['sme_kernel']:.3g}")
@@ -919,8 +1118,8 @@ def phase_tail_kernel(card: str) -> dict:
                                       head=head and tuple(t.float() for t in head))
             row["plain_bf16_err"] = float((plain().float() - ref).abs().max())
             ref64 = f64(ops, head)
-            row["sme_bf16"], row["sme_plain_bf16"] = (signed_mean_error(kern(), ref64),
-                                                      signed_mean_error(plain(), ref64))
+            row["audit_bf16"] = error_stats([(kern(), ref64)])
+            row["audit_plain_bf16"] = error_stats([(plain(), ref64)])
             del ref, ref64
             # The render batch's own shape (bf16, the CLI's batch size).
             ops, head = tail_problem(5, PROGGAN["batch"], c, h, h, hd, torch.bfloat16)
@@ -945,41 +1144,27 @@ def phase_tail_kernel(card: str) -> dict:
     check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
           and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
           "sections bound differently")
-    for key in ("ms", "plain_ms", "cc_ms", "bound_ms", "bound_ms_cuda_cores", "ms_b1",
-                "plain_ms_b1", "cc_ms_b1", "bound_ms_b1", "bound_ms_cuda_cores_b1", "ms_bf16",
-                "plain_ms_bf16", "bound_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
-                "bound_ms_render_bf16"):
-        res[key] = sum(r[key] for r in sections)
+    sum_sections(res, sections)
     for r in sections:
-        f32 = "; ".join(
-            f"f32 B={bsz}: kernel {r['ms' + key]:.4f} ms, CUDA-core design {r['cc_ms' + key]:.4f} "
-            f"ms, plain {r['plain_ms' + key]:.4f} ms (each " + ", ".join(
-                f"{name} " + "/".join(f"{t:.4f}" for t in ts)
-                for name, ts in r["runs" + key].items())
-            + f"); bound {r['bound_ms' + key]:.4f} ms by {r['bound_by' + key]} at the TF32 tensor "
-            f"cores, {r['bound_ms_cuda_cores' + key]:.4f} ms on the CUDA cores; CUDA-core "
-            f"design's max abs err {r['cc_err' + key]:.3g}"
-            for bsz, key in ((TAIL_B, ""), (1, "_b1")))
-        f32 += "; against float64 (max abs, signed mean error): " + ", ".join(
-            f"{name} {r['f64_' + name]:.3g}, {r['sme_' + name]:.3g}"
-            for name in ("kernel", "cuda_cores", "plain"))
+        f32 = f32_section_text(r)
         k1, k2, p1, p2 = r["runs_bf16"]
         print(f"[kernel] proggan_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
               f"{' + head' if r['head'] else ''} on {card}: {f32}; bf16 B={TAIL_B}: kernel "
               f"{r['ms_bf16']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms_bf16']:.4f} ms "
               f"({p1:.4f}, {p2:.4f}), bound {r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} "
               f"at the bf16 tensor-core peak; plain bf16 vs f32 max abs "
-              f"{r['plain_bf16_err']:.3g}; signed mean error against float64: bf16 kernel "
-              f"{r['sme_bf16']:.3g}, plain bf16 {r['sme_plain_bf16']:.3g}; "
+              f"{r['plain_bf16_err']:.3g}; against float64 (max abs, signed mean error +- its "
+              f"standard error): bf16 kernel {stats_text(r['audit_bf16'])}, plain bf16 "
+              f"{stats_text(r['audit_plain_bf16'])}; "
               f"bf16 at the render batch B={PROGGAN['batch']}: kernel {r['ms_render_bf16']:.4f} ms "
               f"plain {r['plain_ms_render_bf16']:.4f} ms bound {r['bound_ms_render_bf16']:.4f} ms; "
               "no library call")
     print(f"[kernel] proggan_tail, the three sections summed; design f32: "
           f"{res['design']['float32']}, bf16: {res['design']['bfloat16']}: f32 B={TAIL_B} kernel "
-          f"{res['ms']:.4f} ms, CUDA-core design {res['cc_ms']:.4f} ms, plain "
+          f"{res['ms']:.4f} ms, CUDA-core design {ms_text(res['cc_ms'])}, plain "
           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by {res['bound_by']} at the "
           f"TF32 tensor cores ({res['bound_ms_cuda_cores']:.4f} ms on the CUDA cores); f32 B=1 "
-          f"kernel {res['ms_b1']:.4f} ms, CUDA-core design {res['cc_ms_b1']:.4f} ms, plain "
+          f"kernel {res['ms_b1']:.4f} ms, CUDA-core design {ms_text(res['cc_ms_b1'])}, plain "
           f"{res['plain_ms_b1']:.4f} ms, bound {res['bound_ms_b1']:.4f} ms "
           f"({res['bound_ms_cuda_cores_b1']:.4f} ms); bf16 B={TAIL_B} kernel "
           f"{res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
@@ -1039,7 +1224,7 @@ def sg2_bound(b: int, c: int, h: int, w: int, want_x2: bool, elem: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_sg2_tail_kernel(card: str) -> dict:
+def phase_sg2_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
     import torch
 
     from warpedganspace_torch.ops import sg2_tail_cuda
@@ -1097,21 +1282,21 @@ def phase_sg2_tail_kernel(card: str) -> dict:
             # the path's sampled B=1.
             for bsz, key in ((TAIL_B, ""), (1, "_b1")):
                 ops = sg2_problem(6, bsz, c, h, h, torch.float32)
-                fns = {"kernel": sg2_tail_cuda.fused_section, "cuda_cores": cc_section,
-                       "plain": fused_section_plain}
+                fns = {"kernel": sg2_tail_cuda.fused_section, "plain": fused_section_plain}
+                if cuda_cores:
+                    fns["cuda_cores"] = cc_section
                 fns = {name: functools.partial(fn, *ops, want_x2=x2) for name, fn in fns.items()}
-                got, ref = fns["cuda_cores"](), fns["plain"]()
-                got, ref = (got, ref) if x2 else ((got,), (ref,))
-                cc_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                check(cc_err <= 1e-4, f"the CUDA-core design vs plain at B={bsz} C={c}: "
-                                      f"{cc_err:.3g}")
-                runs = {name: [] for name in fns}
-                for name in list(fns) + list(fns)[::-1]:
-                    runs[name].append(cuda_ms(fns[name], iters=5 if bsz > 1 else 20,
-                                              warmup=1 if bsz > 1 else 3))
+                cc_err = None
+                if cuda_cores:
+                    got, ref = fns["cuda_cores"](), fns["plain"]()
+                    got, ref = (got, ref) if x2 else ((got,), (ref,))
+                    cc_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                    check(cc_err <= 1e-4, f"the CUDA-core design vs plain at B={bsz} C={c}: "
+                                          f"{cc_err:.3g}")
+                runs = in_turns(fns, iters=5 if bsz > 1 else 20, warmup=1 if bsz > 1 else 3)
                 for name, field in (("kernel", "ms"), ("cuda_cores", "cc_ms"),
                                     ("plain", "plain_ms")):
-                    row[field + key] = sum(runs[name]) / 2
+                    row[field + key] = sum(runs[name]) / 2 if name in runs else None
                 row["runs" + key], row["cc_err" + key] = runs, cc_err
                 if bsz == TAIL_B:
                     # Against float64: the max abs and the signed mean error (the
@@ -1119,17 +1304,10 @@ def phase_sg2_tail_kernel(card: str) -> dict:
                     # of each route; the tensor cores' truncating f32 sums would
                     # make the kernel's negative (the card tests' bound 1e-6).
                     ref64 = fused_section_plain(*[t.double() for t in ops], want_x2=x2)
-                    ref64 = ref64 if x2 else (ref64,)
                     for name, fn in fns.items():
-                        out = fn()
-                        out = out if x2 else (out,)
-                        row[f"f64_{name}"] = max(float((o.double() - r).abs().max())
-                                                 for o, r in zip(out, ref64))
-                        row[f"sme_{name}"] = (
-                            sum(float(((o.double() - r) * torch.sign(r)).sum())
-                                for o, r in zip(out, ref64))
-                            / sum(float(r.abs().sum()) for r in ref64))
-                    del ref64, out
+                        st = error_stats([(fn(), ref64)])
+                        row[f"f64_{name}"], row[f"sme_{name}"] = st["f64"], st["sme"]
+                    del ref64
                     check(abs(row["sme_kernel"]) <= 1e-6,
                           f"sg2 tail kernel's signed mean error against float64 at C={c}: "
                           f"{row['sme_kernel']:.3g}")
@@ -1144,12 +1322,20 @@ def phase_sg2_tail_kernel(card: str) -> dict:
             row["runs_bf16"] = (k1, k2, p1, p2)
             row["bound_ms_bf16"], row["bound_by_bf16"] = sg2_bound(TAIL_B, c, h, h, x2, 2)
             # How far the plain bf16 version, which rounds every intermediate,
-            # is from the f32 one on the same operands.
+            # is from the f32 one on the same operands; and the bf16 design's
+            # and plain bf16's signed mean error against float64 (do the
+            # tensor cores' truncating f32 sums bias the bf16 design?).
             ref = fused_section_plain(*[t.float() for t in ops], want_x2=x2)
             got = plain()
             got, ref = (got, ref) if x2 else ((got,), (ref,))
             row["plain_bf16_err"] = max(float((g.float() - r).abs().max())
                                         for g, r in zip(got, ref))
+            ref64 = fused_section_plain(*[t.double() for t in ops], want_x2=x2)
+            ref64 = ref64 if x2 else (ref64,)
+            for name, fn in (("bf16", kern), ("plain_bf16", plain)):
+                out = fn()
+                row["audit_" + name] = error_stats([(out if x2 else (out,), ref64)])
+            del ref, ref64, got, out
             # The render batch's own shape (bf16, the CLI's batch size).
             ops = sg2_problem(6, SG2["batch"], c, h, h, torch.bfloat16)
             p1, k1, k2, p2 = (cuda_ms(f, iters=3, warmup=1) for f in (plain, kern, kern, plain))
@@ -1173,39 +1359,27 @@ def phase_sg2_tail_kernel(card: str) -> dict:
     check(all(r["bound_by" + k] == res["bound_by" + k] for r in sections for k in ("", "_bf16"))
           and all(r["bound_by_render_bf16"] == res["bound_by_bf16"] for r in sections),
           "sections bound differently")
-    for key in ("ms", "plain_ms", "cc_ms", "bound_ms", "bound_ms_cuda_cores", "ms_b1",
-                "plain_ms_b1", "cc_ms_b1", "bound_ms_b1", "bound_ms_cuda_cores_b1", "ms_bf16",
-                "plain_ms_bf16", "bound_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
-                "bound_ms_render_bf16"):
-        res[key] = sum(r[key] for r in sections)
+    sum_sections(res, sections)
     for r in sections:
-        f32 = "; ".join(
-            f"f32 B={bsz}: kernel {r['ms' + key]:.4f} ms, CUDA-core design {r['cc_ms' + key]:.4f} "
-            f"ms, plain {r['plain_ms' + key]:.4f} ms (each " + ", ".join(
-                f"{name} " + "/".join(f"{t:.4f}" for t in ts)
-                for name, ts in r["runs" + key].items())
-            + f"); bound {r['bound_ms' + key]:.4f} ms by {r['bound_by' + key]} at the TF32 tensor "
-            f"cores, {r['bound_ms_cuda_cores' + key]:.4f} ms on the CUDA cores; CUDA-core "
-            f"design's max abs err {r['cc_err' + key]:.3g}"
-            for bsz, key in ((TAIL_B, ""), (1, "_b1")))
-        f32 += "; against float64 (max abs, signed mean error): " + ", ".join(
-            f"{name} {r['f64_' + name]:.3g}, {r['sme_' + name]:.3g}"
-            for name in ("kernel", "cuda_cores", "plain"))
+        f32 = f32_section_text(r)
         k1, k2, p1, p2 = r["runs_bf16"]
         print(f"[kernel] sg2_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
               f"{' + x2' if r['want_x2'] else ''} on {card}: {f32}; bf16 B={TAIL_B}: kernel "
               f"{r['ms_bf16']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms_bf16']:.4f} ms "
               f"({p1:.4f}, {p2:.4f}), bound {r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} "
               f"at the bf16 tensor-core peak; plain bf16 vs f32 max abs "
-              f"{r['plain_bf16_err']:.3g}; bf16 at the render batch B={SG2['batch']}: kernel "
+              f"{r['plain_bf16_err']:.3g}; against float64 (max abs, signed mean error +- its "
+              f"standard error): bf16 kernel {stats_text(r['audit_bf16'])}, plain bf16 "
+              f"{stats_text(r['audit_plain_bf16'])}; bf16 at the render batch "
+              f"B={SG2['batch']}: kernel "
               f"{r['ms_render_bf16']:.4f} ms plain {r['plain_ms_render_bf16']:.4f} ms bound "
               f"{r['bound_ms_render_bf16']:.4f} ms; no library call")
     print(f"[kernel] sg2_tail, the two sections summed; design f32: {res['design']['float32']}, "
           f"bf16: {res['design']['bfloat16']}: f32 B={TAIL_B} kernel {res['ms']:.4f} ms, "
-          f"CUDA-core design {res['cc_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"CUDA-core design {ms_text(res['cc_ms'])}, plain {res['plain_ms']:.4f} ms, bound "
           f"{res['bound_ms']:.4f} ms by {res['bound_by']} at the TF32 tensor cores "
           f"({res['bound_ms_cuda_cores']:.4f} ms on the CUDA cores); f32 B=1 kernel "
-          f"{res['ms_b1']:.4f} ms, CUDA-core design {res['cc_ms_b1']:.4f} ms, plain "
+          f"{res['ms_b1']:.4f} ms, CUDA-core design {ms_text(res['cc_ms_b1'])}, plain "
           f"{res['plain_ms_b1']:.4f} ms, bound {res['bound_ms_b1']:.4f} ms "
           f"({res['bound_ms_cuda_cores_b1']:.4f} ms); bf16 B={TAIL_B} kernel "
           f"{res['ms_bf16']:.4f} ms plain {res['plain_ms_bf16']:.4f} ms bound "
@@ -1891,9 +2065,12 @@ def fabricated_experiment(cfg: dict):
     gan, k = cfg["gan"], cfg["k"]
     exp = osp.join("experiments", "complete", "smoke_exp")
     os.makedirs(osp.join(exp, "models"))
-    S = SupportSets(k, cfg["dipoles"], cfg["d"], learn_gammas=True,
+    # ``sets`` seeded sets, of which the experiment keeps the first k.
+    S = SupportSets(cfg.get("sets", k), cfg["dipoles"], cfg["d"], learn_gammas=True,
                     generator=torch.Generator().manual_seed(0))
-    torch.save(S.to_torch_state_dict(), osp.join(exp, "models", "support_sets.pt"))
+    sd = {key: t[:k] for key, t in S.to_torch_state_dict().items()}
+    S = SupportSets(k, cfg["dipoles"], cfg["d"], learn_gammas=True).from_torch_state_dict(sd)
+    torch.save(sd, osp.join(exp, "models", "support_sets.pt"))
     args_json = {"gan_type": gan, "num_support_sets": k,
                  "num_support_dipoles": cfg["dipoles"], "learn_alphas": False,
                  "learn_gammas": True, "gamma": None}
@@ -2096,8 +2273,8 @@ def plain_path_ranking(attrs, names, ranges):
 
 def rank_paths(exp: str, cfg: dict, h_dir: str) -> dict:
     """``rank_paths``: the port's ranking CLI on the attribute stage's tree with
-    ``scripts/eval/stylegan2_full.sh``'s flags, the group loop in its order
-    (GIFs for ``RANK_GROUPS[0]``, ``--no-gif`` for the rest). Every
+    the flags of ``cfg['script']``, its loop of ``cfg['rank_groups']`` in its
+    order (GIFs for ``cfg['gif_group']``, ``--no-gif`` for the rest). Every
     ``attr_idx_<metric>.csv`` is held to :func:`plain_path_ranking` of the
     tree's ``eval_np`` arrays to the CSV's 3 decimals; each attribute's order
     in ``interpretable_paths.json`` must be the CSV column's, largest first,
@@ -2116,9 +2293,10 @@ def rank_paths(exp: str, cfg: dict, h_dir: str) -> dict:
     argv = ["--exp", exp, "--pool", cfg["pool"], f"--eps={cfg['eps']}",
             f"--shift-steps={cfg['steps']}"] + RANK_FLAGS
     seconds, n_csv, n_gif = {}, 0, 0
-    for i, group in enumerate(RANK_GROUPS):
+    for group in cfg["rank_groups"]:
+        gifs = group == cfg["gif_group"]
         t0 = time.perf_counter()
-        rank.main(argv + [f"--attr-group={group}"] + ([] if i == 0 else ["--no-gif"]))
+        rank.main(argv + [f"--attr-group={group}"] + ([] if gifs else ["--no-gif"]))
         seconds[group] = time.perf_counter() - t0
 
         names = ATTRIBUTE_GROUPS[group]
@@ -2167,9 +2345,8 @@ def rank_paths(exp: str, cfg: dict, h_dir: str) -> dict:
                   and bool(np.all(np.abs(got_diag - firsts)[~np.isnan(firsts)] <= 5e-3 + 1e-9)),
                   f"{group}/{metric}: the diagonal CSV against the plain ranking's first rows")
             n_csv += 1
-        if i == 0:
-            gifs = [f for d, _, fs in os.walk(g_dir) for f in fs if f.endswith(".gif")]
-            n_gif = len(gifs)
+        if gifs:
+            n_gif = sum(f.endswith(".gif") for _, _, fs in os.walk(g_dir) for f in fs)
             top_k = min(3, attrs.shape[1])
             check(n_gif == top_k * len(names) * 2,
                   f"{group}: {n_gif} GIFs, not {top_k * len(names) * 2}")
@@ -2178,21 +2355,24 @@ def rank_paths(exp: str, cfg: dict, h_dir: str) -> dict:
     return {"seconds": seconds, "csv": n_csv, "gifs": n_gif}
 
 
-def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
+def phase_attribute_stage(card: str, cfg: dict = ATTR, profile_rows: int = 0,
                           warm_runs: int = 0) -> dict:
-    """The attribute stage (``ATTR``): ``traverse_latent_space`` writes a
-    StyleGAN2-1024 W tree of 41-frame paths, six predictor files are
-    fabricated into ``models/pretrained/`` (the detector's heads fitted to the
-    tree's first path), and ``traverse_attribute_space`` runs on the card: a
-    cold run, a warm one with each stage timed (CUDA events; its wall time
-    too), ``warm_runs`` more, and two traced (the second inside the marked
-    window) for the device's busy share. Then the port's CPU run of
-    the first path, and the card held to it: each predictor's raw outputs on
-    the CPU run's inputs, the path's ``eval_np`` rows, the first SFD box of
-    every frame, the face-crop gathers (and one inside every border); the
-    native NMS against the numpy NMS on the run's candidate sets. The host's
-    ``_prep_path``, the upload and the anchor decode are timed apart from the
-    CLI. Returns the traversal's kernel launches (the attribute CLI launches
+    """An evaluation chain of ``ATTR_PATHS``: ``traverse_latent_space`` writes
+    the tree of ``cfg['script']`` (``2 steps + 1`` frames a path), six
+    predictor files are fabricated into ``models/pretrained/`` (the detector's
+    heads fitted to the tree's first path), and ``traverse_attribute_space``
+    runs on the card: a cold run, a warm one with each stage timed (CUDA
+    events; its wall time too), ``warm_runs`` more, and with ``profile_rows``
+    one traced for the device's busy share and its kernel table. Then the
+    port's CPU run of the
+    first path, and the card held to it: each predictor's raw outputs on the
+    CPU run's inputs, the path's ``eval_np`` rows, the first SFD box of every
+    frame, the face-crop gathers (and one inside every border); the native NMS
+    against the numpy NMS on the run's candidate sets; the CelebA input of the
+    CPU run against the script's normalisation of the whole path, computed
+    here. The host's ``_prep_path``, the upload and the anchor decode are
+    timed apart from the CLI. Then :func:`rank_paths`. Returns the
+    traversal's kernel launches (the attribute and ranking CLIs launch
     none)."""
     import shutil
 
@@ -2203,11 +2383,12 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
     from warpedganspace_torch.evalzoo import sfd
     from warpedganspace_torch.evalzoo.crop_resize import crop_resize, plan_crop_resize
     from warpedganspace_torch.evalzoo.fabricate import predictor_state_dicts, write_pretrained
-    from warpedganspace_torch.evalzoo.transforms import crop_rect
+    from PIL import Image
+
+    from warpedganspace_torch.evalzoo.transforms import crop_rect, normalize_imagenet, resize_center
     from warpedganspace_torch.native import load_native, native_error
     from warpedganspace_torch.utils.io import load_pt, save_pt
 
-    cfg = ATTR if cfg is None else cfg
     k, steps = cfg["k"], cfg["steps"]
     T = 2 * steps + 1
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
@@ -2216,7 +2397,7 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
     with tempfile.TemporaryDirectory(prefix="wgs_smoke_attr_") as tmp:
         os.chdir(tmp)
         try:
-            # 1. The tree, as scripts/eval/stylegan2_full.sh's traversal writes it.
+            # 1. The tree, as the script's traversal writes it.
             exp, S = fabricated_experiment(cfg)
             launches, t_sample, t_traverse, err = traverse_and_verify(cfg, exp, S)
             config = f"{2 * steps}_{cfg['eps']}_{round(2 * steps * cfg['eps'], 3)}"
@@ -2246,8 +2427,10 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
             t_warm += [run_attribute_cli(exp, cfg) for _ in range(warm_runs)]
             card_np, card_json = read_eval_tree(h_dir)
             marks["card runs"] = time.perf_counter()
-            traced = trace_device(lambda: run_attribute_cli(exp, cfg), rows=profile_rows)
-            marks["traced run"] = time.perf_counter()
+            traced = None
+            if profile_rows:
+                traced = trace_device(lambda: run_attribute_cli(exp, cfg), rows=profile_rows)
+                marks["traced run"] = time.perf_counter()
             check(launch_counts() == dict.fromkeys(launch_counts(), 0),
                   f"the attribute CLI launched {launch_counts()}")
             ranked = rank_paths(exp, cfg, h_dir)
@@ -2389,16 +2572,13 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
             check(gather_err <= 1e-3, f"the crop gathers differ card against CPU by {gather_err:.3g}")
 
             # 4e. The host stages and the upload, timed apart from the CLI:
-            # _prep_path of each path (the JPEG decode and the two full-frame
+            # _prep_path of path 0 (the JPEG decode and the two full-frame
             # resizes the CLI's pool runs), the upload of path 0's two host
             # batches (CUDA events, best of 3), the anchor decode of path 0's
             # card maps.
-            t_prep = []
-            for d in range(k):
-                t0 = time.perf_counter()
-                host = cli._prep_path(osp.join(h_dir, "paths_images", f"path_{d:03d}"),
-                                      cfg["gan"])
-                t_prep.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            host = cli._prep_path(osp.join(h_dir, "paths_images", "path_000"), cfg["gan"])
+            t_prep = time.perf_counter() - t0
             copies = []
             for _ in range(3):
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2410,8 +2590,29 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sfd.decode_batch(card_maps)
-            apart = {"prep": 1e3 * sum(t_prep) / k, "decode": 1e3 * (time.perf_counter() - t0),
+            apart = {"prep": 1e3 * t_prep, "decode": 1e3 * (time.perf_counter() - t0),
                      "upload": min(s.elapsed_time(e) for s, e in copies)}
+            # 4f. The CPU run's CelebA input against the script's normalisation
+            # of the whole path, computed here from the path's JPEGs: StyleGAN2
+            # frames taken as [-1, 1]-scaled, the others min-max normalised over
+            # all T frames (JAX traverse_attribute_space.py:98-104), not over a
+            # render batch or another part of the path.
+            p0 = osp.join(h_dir, "paths_images", "path_000")
+            path0 = torch.from_numpy(np.stack([
+                np.asarray(Image.open(osp.join(p0, f"{t:06d}.jpg")).convert("RGB"), np.float32)
+                for t in range(T)])).permute(0, 3, 1, 2)
+            if cfg["gan"] == "StyleGAN2":
+                norm = path0 / 255.0 * 2.0 - 1.0
+            else:
+                norm = (path0 - path0.min()) / (path0.max() - path0.min())
+            celeba_err = float((rec.calls["celeba"][0][0]
+                                - normalize_imagenet(resize_center(norm, 224))).abs().max())
+            check(celeba_err <= 1e-6, f"the CelebA input of path 0 is {celeba_err:.3g} from the "
+                                      "script's normalisation of the whole path")
+            whole = (float(path0.min()), float(path0.max()))
+            n_ranges = sum((float(path0[i:i + cfg["batch"]].min()),
+                            float(path0[i:i + cfg["batch"]].max())) != whole
+                           for i in range(0, T, cfg["batch"]))
             marks["comparisons"] = time.perf_counter()
             check(min(margin) > 100,
                   f"a first box leads by only {min(margin):.3g}x what the card moved its and the "
@@ -2427,22 +2628,25 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
     device_ms = sum(per[n] for n in ("upload", "sfd", "arcface", "fairface", "hopenet",
                                      "fanau", "celeba"))
     per_frame = sum(gflop.values()) / T
-    print(f"[attribute] tree: sample_gan {t_sample:.2f} s, traverse_latent_space K={k} "
+    tag = f"[attribute {cfg['gan']}, {cfg['script']}]"
+    print(f"{tag} tree: sample_gan {t_sample:.2f} s, traverse_latent_space K={k} "
           f"steps={steps} eps={cfg['eps']} bf16 batch {cfg['batch']}: {frames} frames of "
           f"{cfg['res']}² in {t_traverse:.2f} s; launches {launches}; codes vs plain warp "
           f"max abs {err:.3g}; {len(files)} predictor files ({mb:.0f} MiB) fabricated in "
           f"{t_fab:.2f} s on {card}")
-    print(f"[attribute] traverse_attribute_space on the card: {frames} frames ({k} paths of "
+    traced_text = ("" if traced is None else
+                   f", {traced['ms'] / 1e3:.2f} s traced on the device with it busy "
+                   f"{100 * traced['busy']:.1f} % of that ({traced['kernel_ms']:.1f} ms in "
+                   f"{traced['launches']} kernels and copies)")
+    print(f"{tag} traverse_attribute_space on the card: {frames} frames ({k} paths of "
           f"{T}) in {t_cold:.2f} s cold, "
           + ", ".join(f"{t:.2f} s" for t in t_warm)
-          + f" warm, the first with its stages timed ({frames / min(t_warm):.1f} frames/s), "
-          f"{traced['ms'] / 1e3:.2f} s traced on the device with it busy "
-          f"{100 * traced['busy']:.1f} % of that ({traced['kernel_ms']:.1f} ms in "
-          f"{traced['launches']} kernels and copies) on {card}; the phase's seconds: "
+          + f" warm, the first with its stages timed ({frames / min(t_warm):.1f} frames/s)"
+          f"{traced_text} on {card}; the phase's seconds: "
           + ", ".join(f"{name} {t - prev:.1f}" for (name, t), prev
                       in zip(list(marks.items())[1:], list(marks.values())[:-1])))
-    print(f"[attribute] per path of {T} frames on {card}: host _prep_path {per['prep']:.1f} ms "
-          f"(timed apart, one thread; JPEG decode and the two full-frame resizes), upload "
+    print(f"{tag} per path of {T} frames on {card}: host _prep_path {per['prep']:.1f} ms "
+          f"(path 0, timed apart, one thread; JPEG decode and the two full-frame resizes), upload "
           f"{per['upload']:.2f} ms (timed apart), SFD forward {per['sfd']:.2f} ms, host decode + "
           f"NMS {per['decode'] + per['sfd_nms']:.1f} ms ({per['decode']:.1f} timed apart + "
           f"{per['sfd_nms']:.1f}), ArcFace {per['arcface']:.2f} ms, FairFace "
@@ -2450,12 +2654,12 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
           f"{per['fanau']:.2f} ms, CelebA {per['celeba']:.2f} ms (CUDA events); device stages "
           f"{device_ms:.1f} ms; the CLI {1e3 * min(t_warm) / k:.0f} ms a path on the host's "
           f"clock")
-    print(f"[attribute] FLOPs a frame, counted from the shapes: "
+    print(f"{tag} FLOPs a frame, counted from the shapes: "
           + ", ".join(f"{n} {g / T:.1f} G" for n, g in gflop.items())
           + f"; {per_frame:.1f} GFLOP a frame, {sum(gflop.values()) / 1e3:.2f} TFLOP a path; "
           + ", ".join(f"{n} {g / per[n]:.1f} TFLOP/s" for n, g in gflop.items())
           + f" (f32, TF32 off) on {card}")
-    print(f"[attribute] card against the port's CPU run of path 0 ({t_cpu:.1f} s on the CPU): "
+    print(f"{tag} card against the port's CPU run of path 0 ({t_cpu:.1f} s on the CPU): "
           f"raw outputs within 1e-3 rel + 1e-4 of max|out| (worst "
           + ", ".join(f"{n} {v:.2e}" for n, v in raw.items())
           + f"); eval_np rows within rtol 1e-2 / atol 2e-3, argmaxes equal (worst "
@@ -2463,8 +2667,11 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
           + f"); the same first SFD box in all {T} frames ({int(faceless.sum())} without a "
           f"face); the crop gathers of its {len(faced) - 1} first boxes (with each crop's "
           f"padding; {n_inner} of the {3 * (len(faced) - 1)} rectangles inside every border) "
-          f"and of the rectangle {INNER_RECT} within {gather_err:.2g} of the CPU's")
-    print(f"[attribute] NMS: native ({osp.basename(lib._name)}, g++) loaded before and after "
+          f"and of the rectangle {INNER_RECT} within {gather_err:.2g} of the CPU's; the CelebA "
+          f"input within {celeba_err:.2g} of the {cfg['gan']} normalisation of all {T} frames "
+          f"(their range {whole}; {n_ranges} of the {math.ceil(T / cfg['batch'])} render "
+          f"batches of {cfg['batch']} span another)")
+    print(f"{tag} NMS: native ({osp.basename(lib._name)}, g++) loaded before and after "
           f"the card runs, so every card run's NMS was native; on path 0's "
           f"{len(cands)} candidate sets ({min(n_cands)}-{max(n_cands)} boxes) native keeps "
           f"equal numpy's; each first box leads the next candidate by {min(lead):.3g} in score "
@@ -2474,13 +2681,14 @@ def phase_attribute_stage(card: str, cfg: dict = None, profile_rows: int = 0,
           + f"), and the next kept box by {min(lead_kept) if lead_kept else float('inf'):.3g} "
           f"logits at least; {len(set(firsts))} distinct first-box corners in path 0 "
           f"({firsts[0]} in frame 0)")
-    print(f"[rank_paths] rank_interpretable_paths on that tree ({k} paths of {T} points, "
-          f"one code), stylegan2_full.sh's {len(RANK_GROUPS)} groups: "
+    print(f"[rank_paths {cfg['gan']}] rank_interpretable_paths on that tree ({k} paths of {T} "
+          f"points, one code), {cfg['script']}'s {len(cfg['rank_groups'])} groups: "
           f"{sum(ranked['seconds'].values()):.2f} s wall on the host of {card} ("
           + ", ".join(f"{g} {t:.2f} s" for g, t in ranked["seconds"].items())
-          + f"; {ranked['gifs']} GIFs of {RANK_GROUPS[0]}); {ranked['csv']} attr_idx CSVs "
+          + f"; {ranked['gifs']} GIFs of {cfg['gif_group'] or 'no group'}); {ranked['csv']} "
+          "attr_idx CSVs "
           "held to the plain np.cov ranking, every JSON order and sorted CSV the CSV's")
-    if profile_rows:
+    if traced is not None:
         print(traced["table"])
     return launches
 
@@ -3487,8 +3695,9 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
     without its final ``support_sets.pt``, as an interrupted run leaves it, so
     that the traversal reads the split file. Launch counts as equalities: the
     tail kernel ``per_forward`` times a forward, two forwards an iteration;
-    the warp none in training and one per traversal step. Then the step alone,
-    outside the CLI: graphed against eager (SNGAN), or through the tail kernel
+    the warp none in training and one per traversal step. Then (unless
+    ``cfg['step_alone']`` is False) the step alone, outside the CLI: graphed
+    against eager (SNGAN-MNIST), or through the tail kernel
     against the plain tail with peak memory and the tail's share of a traced
     step (StyleGAN2, ProgGAN). Returns each kernel's launches on the path."""
     import contextlib
@@ -3552,15 +3761,40 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
                       "--profile wrote no trace")
             # The first window builds, warms up and (graphed) captures.
             first_s, first_n = step_s(first, 2 if graphed else 1)
-            eager_s = eager_n = None
+            eager_s = eager_n = apart = None
             if graphed:
-                # The same run with one step a call, in a root of its own.
-                os.makedirs("eager")
-                os.chdir("eager")
-                with contextlib.redirect_stdout(io.StringIO()):
-                    eager = train.main(argv(cfg["iters"], ["--steps-per-call", "1"]))
-                os.chdir(tmp)
-                eager_s, eager_n = step_s(eager, 1)
+                # The same run with one step a call, twice, each in a root of its
+                # own. The graphed run's log windows before the resume (which runs
+                # the stored iteration again and logs its window anew) are held to
+                # the first eager run's as the second eager run is (MD_SPREAD times
+                # as far; cuDNN's algorithms do not repeat their bits), or within
+                # 1e-3 of the largest metric (tests/test_torch_train_graph_cuda.py's
+                # rule, for more steps).
+                eager_stats = []
+                for root in ("eager", "eager_again"):
+                    os.makedirs(root)
+                    os.chdir(root)
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        eager = train.main(argv(cfg["iters"], ["--steps-per-call", "1"]))
+                    with open(osp.join(wip, "stats.json")) as f:
+                        eager_stats.append(json.load(f))
+                    os.chdir(tmp)
+                    if root == "eager":
+                        eager_s, eager_n = step_s(eager, 1)
+                want, again = ({w: row for w, row in st.items() if int(w) < cfg["iters"]}
+                               for st in eager_stats)
+                check(len(want) > 0 and set(want) == set(again) <= set(stats),
+                      "the eager runs' log windows")
+
+                def stats_apart(a):
+                    return max(abs(a[w][m] - v) for w, row in want.items() for m, v in row.items())
+
+                apart = {"graphed": stats_apart(stats), "eager again": stats_apart(again)}
+                largest = max(abs(v) for row in want.values() for v in row.values())
+                check(apart["graphed"] <= max(MD_SPREAD * apart["eager again"], 1e-3 * largest),
+                      f"{name}: the graphed run's windows before iteration {cfg['iters']} lie "
+                      f"{apart['graphed']:.3g} from the eager run's log windows, the second "
+                      f"eager run {apart['eager again']:.3g}")
 
             checkpoint2model.main(["--exp", wip])
             split = osp.join(wip, "models", f"support_sets-{cfg['resume_to']}.pt")
@@ -3590,8 +3824,13 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
         line += (f" with --steps-per-call {cfg['chunk']} (one CUDA graph of {cfg['chunk']} "
                  f"steps a call); {1e3 * eager_s:.3f} ms per step = {1 / eager_s:.2f} steps/s "
                  f"over {eager_n} iterations with --steps-per-call 1: the graph "
-                 f"{eager_s / first_s:.2f}x the eager steps/s")
+                 f"{eager_s / first_s:.2f}x the eager steps/s; its log windows before "
+                 f"iteration {cfg['iters']} {apart['graphed']:.3g} from the eager run's (a "
+                 f"second eager run {apart['eager again']:.3g})")
     print(line + f" on {card}")
+    launches = {kname: train_launches[kname] + trav_launches[kname] for kname in train_launches}
+    if not cfg.get("step_alone", True):
+        return launches
 
     # The step alone, outside the CLI.
     state, G32 = direct_train_state(cfg)
@@ -3652,7 +3891,7 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
               + routes_read)
     del state, G32
     torch.cuda.empty_cache()
-    return {kname: train_launches[kname] + trav_launches[kname] for kname in train_launches}
+    return launches
 
 
 def phase_generator_sngan(card: str) -> None:
@@ -4003,13 +4242,60 @@ def profile_dp(card: str, cards: int) -> None:
                   for it, row in one.items()))
 
 
+def start_builds(pool, cuda_cores: bool = False) -> dict:
+    """Start building every kernel source on ``pool``, one ``nvcc`` per source;
+    with ``cuda_cores`` also the warp's and the f32 attention's CUDA-core
+    designs, which the tensor-core designs replaced. Returns {source: future}."""
+    from warpedganspace_torch.ops import (_build, attn_cuda, attn_cuda_cores, proggan_tail_cuda,
+                                          rbf_cuda, rbf_cuda_cores, sg2_tail_cuda)
+
+    builds = {rbf_cuda.SOURCE: rbf_cuda.build, attn_cuda.SOURCE: attn_cuda.build,
+              attn_cuda.BWD_SOURCE: attn_cuda.build_bwd,
+              proggan_tail_cuda.SOURCE: proggan_tail_cuda.build,
+              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build}
+    if cuda_cores:
+        for cc_source in (rbf_cuda_cores.SOURCE, attn_cuda_cores.SOURCE,
+                          attn_cuda_cores.BWD_SOURCE):
+            builds[cc_source] = lambda src=cc_source: _build.load_library(src)
+    return {src: pool.submit(build) for src, build in builds.items()}
+
+
+def build_line(futures: dict, seconds: float) -> str:
+    from warpedganspace_torch.ops import _build
+
+    return (f"[build] {', '.join(futures)} side by side: {seconds:.2f} s (nvcc "
+            + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s" for src in futures)
+            + "; 0 = already built)")
+
+
+def build_kernels(cuda_cores: bool = False) -> None:
+    """Build every kernel source, all started together, and wait for them."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        futures = start_builds(pool, cuda_cores)
+        for f in futures.values():
+            f.result()
+    print(build_line(futures, time.perf_counter() - t0))
+
+
+def profile_cuda_cores(card: str) -> None:
+    """The kernel phases with the CUDA-core designs that the tensor-core designs
+    replaced built and timed beside them, in turns."""
+    build_kernels(cuda_cores=True)
+    for phase in (phase_warp_kernel, phase_sg2_tail_kernel, phase_tail_kernel, phase_attn_kernel,
+                  phase_attn_bwd_kernel):
+        phase(card, cuda_cores=True)
+
+
 def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
-    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan", "attribute", "dp"),
+    parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan", "attribute", "dp",
+                                                              "cuda_cores"),
                         help="instead of the smoke test, say where that main path's time goes "
-                             "(dp: data-parallel training on 1 card and on --cards)")
+                             "(dp: data-parallel training on 1 card and on --cards; cuda_cores: "
+                             "the kernels beside the CUDA-core designs they replaced)")
     parser.add_argument("--steps", type=int, default=None,
                         help="with --profile of a traversal: steps each way (default: the "
                              "smoke test's)")
@@ -4037,38 +4323,21 @@ def main(argv=None) -> int:
             profile_train(card, TRAIN)
         elif args.profile == "attribute":
             phase_attribute_stage(card, profile_rows=24, warm_runs=3)
+        elif args.profile == "cuda_cores":
+            profile_cuda_cores(card)
         else:
             cfg = PATHS[args.profile]
             profile_path(card, cfg if args.steps is None else dict(cfg, steps=args.steps))
         return 0
 
-    from warpedganspace_torch.ops import (_build, attn_cuda, attn_cuda_cores, proggan_tail_cuda,
-                                          rbf_cuda, rbf_cuda_cores, sg2_tail_cuda)
-
     t_start = time.perf_counter()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"devices {torch.cuda.device_count()}")
     print(card)
 
-    t0 = time.perf_counter()
-    builds = {rbf_cuda.SOURCE: rbf_cuda.build, attn_cuda.SOURCE: attn_cuda.build,
-              attn_cuda.BWD_SOURCE: attn_cuda.build_bwd,
-              proggan_tail_cuda.SOURCE: proggan_tail_cuda.build,
-              sg2_tail_cuda.SOURCE: sg2_tail_cuda.build}
-    # the CUDA-core designs of the warp and the f32 attention, timed beside the shipped ones
-    for cc_source in (rbf_cuda_cores.SOURCE, attn_cuda_cores.SOURCE,
-                      attn_cuda_cores.BWD_SOURCE):
-        builds[cc_source] = lambda src=cc_source: _build.load_library(src)
-    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc per source, all started together
-        list(pool.map(lambda build: build(), builds.values()))
-    print(f"[build] {', '.join(builds)} side by side: "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          + ", ".join(f"{_build.build_seconds.get(src, 0.0):.2f} s" for src in builds)
-          + "; 0 = already built)")
-
-    seconds = {"build": time.perf_counter() - t0}
+    seconds = {}
 
     def timed(name, phase, *args):
         t = time.perf_counter()
@@ -4076,19 +4345,44 @@ def main(argv=None) -> int:
         seconds[name] = time.perf_counter() - t
         return out
 
-    warp = timed("rbf_warp", phase_warp_kernel)
-    attn = timed("sa_attention", phase_attn_kernel)
-    attn_bwd = timed("sa_attention_bwd", phase_attn_bwd_kernel)
-    tail = timed("proggan_tail", phase_tail_kernel)
-    sg2_tail = timed("sg2_tail", phase_sg2_tail_kernel)
-    timed("generator_stylegan2", phase_generator_stylegan2)
-    timed("generator_biggan", phase_generator_biggan)
-    timed("generator_biggan_grad", phase_generator_biggan_grad, torch.float32)
-    timed("generator_biggan_grad_bf16", phase_generator_biggan_grad, torch.bfloat16)
-    timed("generator_proggan", phase_generator_proggan)
-    timed("generator_sngan", phase_generator_sngan)
-    paths = {name: timed(f"cli_{name}", phase_cli, cfg) for name, cfg in PATHS.items()}
-    paths["attribute_stage"] = timed("attribute_stage", phase_attribute_stage)
+    # Each kernel, generator and CLI phase runs as soon as the sources it needs
+    # are built, while the others still compile: the attention backward's nvcc
+    # takes the longest, so its phases come last (the kernels are timed with
+    # CUDA events; a launch bound by the host's Python may read slower while
+    # nvcc shares its cores).
+    attn, bwd = "sa_attention.cu", "sa_attention_bwd.cu"
+    early = (("rbf_warp", phase_warp_kernel, (), ("rbf_warp.cu",)),
+             ("sg2_tail", phase_sg2_tail_kernel, (), ("sg2_tail.cu",)),
+             ("proggan_tail", phase_tail_kernel, (), ("proggan_tail.cu",)),
+             ("sa_attention", phase_attn_kernel, (), (attn,)),
+             ("generator_stylegan2", phase_generator_stylegan2, (), ("sg2_tail.cu",)),
+             ("generator_biggan", phase_generator_biggan, (), (attn,)),
+             ("generator_proggan", phase_generator_proggan, (), ("proggan_tail.cu",)),
+             ("generator_sngan", phase_generator_sngan, (), ()),
+             ("cli_stylegan2", phase_cli, (SG2,), ("rbf_warp.cu", "sg2_tail.cu")),
+             ("cli_biggan", phase_cli, (BIGGAN,), ("rbf_warp.cu", attn)),
+             ("cli_proggan", phase_cli, (PROGGAN,), ("rbf_warp.cu", "proggan_tail.cu")),
+             ("sa_attention_bwd", phase_attn_bwd_kernel, (), (attn, bwd)),
+             ("generator_biggan_grad", phase_generator_biggan_grad, (torch.float32,), (attn, bwd)),
+             ("generator_biggan_grad_bf16", phase_generator_biggan_grad, (torch.bfloat16,),
+              (attn, bwd)))
+    t0 = time.perf_counter()
+    early_res = {}
+    with ThreadPoolExecutor(8) as pool:
+        futures = start_builds(pool)
+        for phase_name, phase, args, sources in early:
+            for src in sources:
+                futures[src].result()
+            early_res[phase_name] = timed(phase_name, phase, *args)
+    # "build": the time spent waiting for nvcc beside those phases.
+    seconds["build"] = time.perf_counter() - t0 - sum(seconds.values())
+    print(build_line(futures, time.perf_counter() - t0) + " with the kernel, generator and "
+          f"CLI phases, {seconds['build']:.2f} s of it waiting for nvcc")
+    warp, attn, attn_bwd, tail, sg2_tail = (early_res[k] for k in (
+        "rbf_warp", "sa_attention", "sa_attention_bwd", "proggan_tail", "sg2_tail"))
+    paths = {name: early_res[f"cli_{name}"] for name in PATHS}
+    for path, cfg in ATTR_PATHS.items():
+        paths[path] = timed(path, phase_attribute_stage, cfg)
     paths["train_biggan"] = timed("train_biggan", phase_train, TRAIN)
     for path, cfg in TRAIN_PATHS.items():
         paths[path] = timed(path, phase_train_path, path, cfg)
@@ -4110,18 +4404,19 @@ def main(argv=None) -> int:
                row("sa_attention", "warpedganspace_torch/csrc/sa_attention.cu",
                    "warpedganspace_tpu/ops/attn_pallas.py:30", attn)]
     for key in ("bound_ms_bf16", "bound_by_bf16", "cuda_cores_ms", "cuda_cores_ms_bf16",
-                "cuda_core_ops_ms", "shapes"):
+                "cuda_core_ops_ms", "shapes", "audit"):
         kernels[0][key] = warp[key]
     for key in ("library_ms_bf16", "ms_render_bf16", "plain_ms_render_bf16",
                 "library_ms_render_bf16", "bound_ms_bf16", "bound_by_bf16",
-                "bound_ms_render_bf16", "cc_ms", "bound_ms_cuda_cores", "f32_shapes"):
+                "bound_ms_render_bf16", "cc_ms", "bound_ms_cuda_cores", "f32_shapes",
+                "audit_bf16"):
         kernels[1][key] = attn[key]
     for key, value in attn_d.items():
         kernels[1][key + "_discriminator"] = value
     kernels.append(row("sa_attention_bwd", "warpedganspace_torch/csrc/sa_attention_bwd.cu",
                        "warpedganspace_tpu/ops/attn_pallas.py:106", attn_bwd))
     for key in ("library_ms_bf16", "bound_ms_bf16", "bound_by_bf16", "max_abs_errs", "err_is",
-                "cc_ms", "bound_ms_cuda_cores"):
+                "cc_ms", "bound_ms_cuda_cores", "audit_bf16"):
         kernels[2][key] = attn_bwd[key]
     kernels.append(row("proggan_tail", "warpedganspace_torch/csrc/proggan_tail.cu",
                        "warpedganspace_tpu/ops/proggan_tail_pallas.py:173", tail))
@@ -4141,7 +4436,7 @@ def main(argv=None) -> int:
           + ", ".join(f"{name} {sec:.1f} s" for name, sec in seconds.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

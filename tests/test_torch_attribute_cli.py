@@ -12,7 +12,13 @@ files, with values at the gates of the reference oracle
 same argmaxes where a score is (argmax + max probability) / n. The case runs
 for a StyleGAN2 tree and a ProgGAN one (the two CelebA normalisations), and
 the detector's face bias is set so that one frame has no face, for the
-reference's 256.0.
+reference's 256.0. A third case is one ProgGAN path at
+``scripts/eval/proggan_full.sh``'s ``--eps 0.15 --shift-steps 30`` (config
+``60_0.15_9.0``): 61 frames, whose CelebA input is min-max normalised over
+the whole path, not over a render batch of 16. Its frames are those of the
+two-path tree, to which the detector is fitted, each held for 7 frames, and
+those of the second render batch of 16 at a lower contrast, so that the
+batch does not span the path's range; the port's CLI runs it on 4 threads.
 """
 import json
 import os
@@ -36,56 +42,79 @@ torch.set_num_threads(1)
 POOL, STEPS, EPS = "pool", 2, 0.2
 CONFIG = f"{2 * STEPS}_{EPS}_{round(2 * STEPS * EPS, 3)}"
 K, T, SIZE = 2, 2 * STEPS + 1, 64
+# proggan_full.sh's path length: one path of 61 frames, each frame of the
+# two-path tree held for LONG_HOLD of them.
+LONG_STEPS, LONG_EPS, LONG_HOLD = 30, 0.15, 7
 RTOL, ATOL = 1e-2, 2e-3
 # Scores whose integer part is an argmax: (argmax + max prob) / n.
 ARGMAX_N = {"age": 9, "race": 7, "celeba_bangs": 6, "celeba_eyeglasses": 6,
             "celeba_beard": 6, "celeba_smiling": 6, "celeba_age": 6}
 
 
-def _frames(seed):
-    """(K, T, SIZE, SIZE, 3) uint8: smooth random images drifting along each path."""
+def _frames(seed, k=K, t=T):
+    """(k, t, SIZE, SIZE, 3) uint8: smooth random images drifting along each path."""
     rng = np.random.default_rng(seed)
-    base = rng.random((K, 1, 8, 8, 3))
-    drift = 0.3 * rng.random((K, T, 8, 8, 3)) * np.linspace(0, 1, T)[None, :, None, None, None]
-    coarse = torch.from_numpy((base + drift).reshape(K * T, 8, 8, 3)).permute(0, 3, 1, 2)
+    base = rng.random((k, 1, 8, 8, 3))
+    drift = 0.3 * rng.random((k, t, 8, 8, 3)) * np.linspace(0, 1, t)[None, :, None, None, None]
+    coarse = torch.from_numpy((base + drift).reshape(k * t, 8, 8, 3)).permute(0, 3, 1, 2)
     x = torch.nn.functional.interpolate(coarse, size=(SIZE, SIZE), mode="bicubic",
                                         align_corners=False).clamp(0, 1)
-    return (255 * x).permute(0, 2, 3, 1).numpy().astype(np.uint8).reshape(K, T, SIZE, SIZE, 3)
+    return (255 * x).permute(0, 2, 3, 1).numpy().astype(np.uint8).reshape(k, t, SIZE, SIZE, 3)
 
 
-def make_tree(root, gan_type, seed=0):
-    """The experiment directory and its one hash dir."""
+def _long_frames():
+    """(1, 61, SIZE, SIZE, 3): the two-path tree's frames, each held for
+    LONG_HOLD, those of the second render batch of 16 in [16, 240] (every
+    frame spans [0, 255])."""
+    flat = _frames(0).reshape(K * T, SIZE, SIZE, 3)
+    out = flat[[(i // LONG_HOLD) % (K * T) for i in range(2 * LONG_STEPS + 1)]]
+    out[16:32] = 16 + (out[16:32].astype(np.float32) * (224 / 255)).round().astype(np.uint8)
+    return out[None]
+
+
+def make_tree(root, gan_type, seed=0, steps=STEPS, eps=EPS, frames=None):
+    """The experiment directory and its one hash dir: ``frames`` (paths,
+    frames, SIZE, SIZE, 3), by default K paths of ``2 steps + 1``."""
     from PIL import Image
 
+    frames = _frames(seed, K, 2 * steps + 1) if frames is None else frames
+    k, t = frames.shape[:2]
+    config = f"{2 * steps}_{eps}_{round(2 * steps * eps, 3)}"
     exp = osp.join(root, "exp")
-    h_dir = osp.join(exp, "results", POOL, CONFIG, "0123abcd")
+    h_dir = osp.join(exp, "results", POOL, config, "0123abcd")
     os.makedirs(h_dir)
     with open(osp.join(exp, "args.json"), "w") as f:
         json.dump({"gan_type": gan_type}, f)
-    save_pt(np.zeros((K, T, 8), np.float32), osp.join(h_dir, "paths_latent_codes.pt"))
-    frames = _frames(seed)
-    for k in range(K):
-        d = osp.join(h_dir, "paths_images", f"path_{k:03d}")
+    save_pt(np.zeros((k, t, 8), np.float32), osp.join(h_dir, "paths_latent_codes.pt"))
+    for p in range(k):
+        d = osp.join(h_dir, "paths_images", f"path_{p:03d}")
         os.makedirs(d)
-        for t in range(T):
-            save_jpeg(Image.fromarray(frames[k, t]), osp.join(d, f"{t:06d}.jpg"))
-    os.makedirs(osp.join(exp, "results", POOL, CONFIG, "paths_gifs"))   # not a hash
+        for i in range(t):
+            save_jpeg(Image.fromarray(frames[p, i]), osp.join(d, f"{i:06d}.jpg"))
+    os.makedirs(osp.join(exp, "results", POOL, config, "paths_gifs"))   # not a hash
     return exp, h_dir
+
+
+def _path_frames256(h_dir):
+    """The 256² frames of every path of a hash dir, as the port's host stage makes them."""
+    from warpedganspace_torch.cli.traverse_attribute_space import _prep_path
+
+    paths = sorted(os.listdir(osp.join(h_dir, "paths_images")))
+    return torch.cat([_prep_path(osp.join(h_dir, "paths_images", p), "x")[0] for p in paths])
 
 
 def _with_one_faceless_frame(sds, h_dir):
     """Lower the stride-4 face bias so that exactly the frame whose face logit
-    is lowest falls under the 0.5 score, halfway between it and the next."""
-    from warpedganspace_torch.cli.traverse_attribute_space import _prep_path
-
+    is lowest falls under the 0.5 score, halfway between it and the next.
+    Returns the state dicts and that frame's index (the paths' frames in order)."""
     det = SFDDetector.from_state_dict(sds["sfd"])
-    f256 = torch.cat([_prep_path(osp.join(h_dir, "paths_images", f"path_{k:03d}"), "x")[0]
-                      for k in range(K)])
-    top = np.sort([b[:, 4].max() for b in decode_batch(
+    f256 = _path_frames256(h_dir)
+    tops = np.array([b[:, 4].max() for b in decode_batch(
         [m.numpy() for m in det.forward_maps(f256)])])
+    top = np.sort(tops)
     logits = np.log(top / (1 - top))
     sds["sfd"]["conv3_3_norm_mbox_conf.bias"][3] -= float(logits[0] + logits[1]) / 2
-    return sds
+    return sds, int(np.argmin(tops))
 
 
 def _jax_predictors(sds):
@@ -124,17 +153,13 @@ def _port_predictors(sds):
 
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
-    """One fabricated weight set, its SFD heads fitted to the tree's frames,
-    one frame faceless; both packages' predictors built once (the JAX ones
-    compile once for both trees)."""
-    root = str(tmp_path_factory.mktemp("calib"))
-    _, h_dir = make_tree(root, "StyleGAN2")
-    from warpedganspace_torch.cli.traverse_attribute_space import _prep_path
-
-    calib = torch.cat([_prep_path(osp.join(h_dir, "paths_images", f"path_{k:03d}"), "x")[0]
-                       for k in range(K)])
-    sds = _with_one_faceless_frame(predictor_state_dicts(seed=0, calibration=calib), h_dir)
-    return _port_predictors(sds), _jax_predictors(sds)
+    """One fabricated weight set, its SFD heads fitted to the two-path tree's
+    frames, one frame faceless; both packages' predictors built once (the JAX
+    ones compile once for both trees), and the faceless frame's index."""
+    _, h_dir = make_tree(str(tmp_path_factory.mktemp("calib")), "StyleGAN2")
+    sds, faceless = _with_one_faceless_frame(
+        predictor_state_dicts(seed=0, calibration=_path_frames256(h_dir)), h_dir)
+    return _port_predictors(sds), _jax_predictors(sds), faceless
 
 
 def _read(h_dir):
@@ -147,42 +172,64 @@ def _read(h_dir):
     return arrays, jsons
 
 
-@pytest.mark.parametrize("gan_type", ["StyleGAN2", "ProgGAN"])
-def test_port_cli_matches_jax_cli(gan_type, weights, tmp_path, monkeypatch):
-    port_preds, jax_preds = weights
+@pytest.mark.parametrize("gan_type, steps, eps", [
+    pytest.param("StyleGAN2", STEPS, EPS, id="StyleGAN2"),
+    pytest.param("ProgGAN", STEPS, EPS, id="ProgGAN"),
+    pytest.param("ProgGAN", LONG_STEPS, LONG_EPS, id="ProgGAN-61-frames"),
+])
+def test_port_cli_matches_jax_cli(gan_type, steps, eps, weights, tmp_path, monkeypatch):
+    port_preds, jax_preds, faceless_index = weights
+    long = steps == LONG_STEPS
+    frames = _long_frames() if long else None
+    if long:
+        # A render batch of 16 that does not span the path's range: a min-max
+        # over it would give another CelebA input.
+        whole = (frames.min(), frames.max())
+        assert any((frames[0, i:i + 16].min(), frames[0, i:i + 16].max()) != whole
+                   for i in range(0, frames.shape[1], 16))
     trees = {}
     for side in ("jax", "port"):
-        exp, h_dir = make_tree(str(tmp_path / side), gan_type)
+        exp, h_dir = make_tree(str(tmp_path / side), gan_type, steps=steps, eps=eps,
+                               frames=frames)
         trees[side] = h_dir
-        argv = ["--exp", exp, "--pool", POOL, "--shift-steps", str(STEPS), "--eps", str(EPS)]
+        argv = ["--exp", exp, "--pool", POOL, "--shift-steps", str(steps), "--eps", str(eps)]
         if side == "jax":
             monkeypatch.setattr(jcli, "load_predictors", lambda: jax_preds)
             jcli.main(argv)
         else:
             monkeypatch.setattr(pcli, "load_predictors", lambda device: port_preds)
-            pcli.main(argv + ["--no-cuda"])
+            threads = torch.get_num_threads()
+            torch.set_num_threads(4 if long else threads)
+            try:
+                pcli.main(argv + ["--no-cuda"])
+            finally:
+                torch.set_num_threads(threads)
+    k, t = (1, 2 * LONG_STEPS + 1) if long else (K, T)
     (j_np, j_json), (p_np, p_json) = _read(trees["jax"]), _read(trees["port"])
     assert sorted(p_np) == sorted(j_np) and len(p_np) == 26
     assert sorted(p_json) == sorted(j_json) and len(p_json) == 12
     worst = {}
     for name, want in j_np.items():
         got = p_np[name]
-        assert got.shape == want.shape == (K, T), name
+        assert got.shape == want.shape == (k, t), name
         assert np.isfinite(got).all() and np.isfinite(want).all(), name
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=name)
         if name in ARGMAX_N:
             assert np.array_equal(np.floor(got * ARGMAX_N[name]),
                                   np.floor(want * ARGMAX_N[name])), name
         worst[name] = float(np.abs(got - want).max())
-    print(f"{gan_type}: worst abs difference by array: "
+    print(f"{gan_type}, {k} x {t} frames: worst abs difference by array: "
           + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items())))
     # The frame without a face counts as 256.0 on both sides; the others have one.
     faceless = p_np["face_width"] == 256.0
-    assert faceless.sum() == 1 and np.array_equal(faceless, j_np["face_width"] == 256.0)
+    n_faceless = (sum((i // LONG_HOLD) % (K * T) == faceless_index for i in range(t))
+                  if long else 1)
+    assert faceless.sum() == n_faceless
+    assert np.array_equal(faceless, j_np["face_width"] == 256.0)
     assert np.array_equal(p_np["face_height"] == 256.0, faceless)
-    for d in range(K):
+    for d in range(k):
         pb, jb = p_json["face_bbox"][str(d)], j_json["face_bbox"][str(d)]
-        assert len(pb) == len(jb) == T - int(faceless[d].sum())
+        assert len(pb) == len(jb) == t - int(faceless[d].sum())
         np.testing.assert_allclose(pb, jb, rtol=1e-4, atol=1e-3)
     for key in ("identity", "age", "race", "gender", "pose", "au", "celeba_smiling"):
         np.testing.assert_allclose(np.asarray(p_json[key]["0"]), np.asarray(j_json[key]["0"]),

@@ -177,6 +177,43 @@ def test_native_nms_builds_and_matches_numpy(monkeypatch):
     assert psfd.nms(np.zeros((0, 5)), 0.3) == []
 
 
+def _nms_in_order(dets, order, thresh):
+    """Greedy NMS (the reference's loop) visiting ``dets`` in ``order``."""
+    keep, order = [], np.asarray(order)
+    x1, y1, x2, y2 = (dets[:, i].astype(np.float64) for i in range(4))
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    while order.size > 0:
+        i = order[0]
+        keep.append(int(i))
+        w = np.maximum(0.0, np.minimum(x2[i], x2[order[1:]]) - np.maximum(x1[i], x1[order[1:]]) + 1)
+        h = np.maximum(0.0, np.minimum(y2[i], y2[order[1:]]) - np.maximum(y1[i], y1[order[1:]]) + 1)
+        order = order[np.where(w * h / (areas[i] + areas[order[1:]] - w * h) <= thresh)[0] + 1]
+    return keep
+
+
+def test_native_nms_keeps_numpys_boxes_under_equal_scores():
+    """Candidate sets with equal scores, as a detector's decode gives by
+    chance (1 of 61 frames of a ProgGAN-1024 path on the card): the native NMS
+    visits the boxes in numpy's argsort order, which is not a stable sort's,
+    and keeps what the numpy NMS keeps. A stable order (the native NMS's
+    earlier own sort) keeps other boxes in some of these sets."""
+    from warpedganspace_torch.native import load_native, native_error
+
+    lib = load_native()
+    if lib is None:
+        pytest.skip(f"no C++ toolchain: {native_error()}")
+    rng = np.random.default_rng(40)
+    stable_differs = 0
+    for trial in range(20):
+        dets = _dets(rng)
+        dets[:, 4] = np.round(dets[:, 4] * 5) / 5          # six score values
+        want = psfd.nms_numpy(dets, 0.3)
+        assert psfd.nms_native(lib, dets, 0.3) == want, trial
+        stable = np.argsort(dets[:, 4], kind="stable")[::-1]
+        stable_differs += _nms_in_order(dets, stable, 0.3) != want
+    assert stable_differs > 0
+
+
 def test_loaders_read_the_reference_files(tmp_path, monkeypatch):
     """``write_pretrained`` puts the six files where the loaders look (AU and
     CelebA wrapped in {"state_dict": ...}); each loads with strict keys, and

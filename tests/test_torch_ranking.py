@@ -3,7 +3,8 @@
 The same seeded numpy inputs go through both packages:
 ``path_attribute_correlations`` and ``l1_normalize_rows`` directly, and both
 ranking CLIs over one fabricated traversal tree (K=200 paths, 2 latent codes,
-41 points and 41 JPEG frames a path, every attribute of the registry), with
+41 points and 41 JPEG frames a path, every attribute of the registry; for the
+tree test also 61 of each, ``scripts/eval/proggan_full.sh``'s config), with
 planted ties (attributes saturated at their clip, paths with equal
 sequences) and paths whose every attribute is constant (their L1 row is NaN).
 The port's ``interpretable_paths/`` tree must equal the JAX CLI's file for
@@ -29,7 +30,7 @@ from warpedganspace_torch.ranking import engine
 from warpedganspace_torch.utils import aux
 
 K, T, STEPS, EPS = 200, 41, 20, 0.15
-CONFIG = f"{2 * STEPS}_{EPS}_{round(2 * STEPS * EPS, 3)}"
+LONG_STEPS = 30                 # proggan_full.sh's --shift-steps 30: config 60_0.15_9.0
 HASHES = ("5f0c1e", "a93b72")
 SATURATED = range(10, 60)       # au_12 held above its range: |corr| 0, a 50-way tie
 EQUAL = range(60, 100)          # gender and age: one sequence, in range, for all of them
@@ -37,41 +38,52 @@ CONSTANT = (5, 150, 199)        # every attribute constant: the L1 row is NaN
 GROUP = "Smiling-AU12"
 
 
-def fabricate_attributes(seed: int) -> dict:
-    """{attribute: (K, T) array} for one latent code, on every attribute's range."""
+def fabricate_attributes(seed: int, t: int = T) -> dict:
+    """{attribute: (K, t) array} for one latent code, on every attribute's range."""
     rng = np.random.default_rng(seed)
-    ramp = np.linspace(-1.0, 1.0, T)
+    ramp = np.linspace(-1.0, 1.0, t)
     out = {}
     for name, (lo, hi) in engine.ATTRIBUTE_RANGES.items():
         slope = rng.standard_normal((K, 1))
-        a = lo + (hi - lo) * (0.5 + 0.3 * slope * ramp + 0.1 * rng.standard_normal((K, T)))
+        a = lo + (hi - lo) * (0.5 + 0.3 * slope * ramp + 0.1 * rng.standard_normal((K, t)))
         a[list(EQUAL)] = lo + (hi - lo) * (0.5 + 0.4 * ramp ** 3)
         if name == "au_12_Lip_Corner_Puller":
-            a[list(SATURATED)] = hi + 2.0 + rng.random((len(SATURATED), T))
+            a[list(SATURATED)] = hi + 2.0 + rng.random((len(SATURATED), t))
         a[list(CONSTANT)] = lo + 0.25 * (hi - lo)
         out[name] = a
     return out
 
 
-@pytest.fixture(scope="module")
-def tree(tmp_path_factory):
-    """exp/results/<pool>/<config>/<hash>/{eval_np/*.npy, paths_images/path_*/*.jpg}."""
-    root = tmp_path_factory.mktemp("rank")
-    hashes_root = root / "exp" / "results" / "pool" / CONFIG
+def _make_tree(root, steps):
+    """exp/results/<pool>/<config>/<hash>/{eval_np/*.npy, paths_images/path_*/*.jpg}
+    at ``2 steps + 1`` points a path."""
+    t = 2 * steps + 1
+    config = f"{2 * steps}_{EPS}_{round(2 * steps * EPS, 3)}"
+    hashes_root = root / "exp" / "results" / "pool" / config
     rng = np.random.default_rng(7)
     for s, h in enumerate(HASHES):
         np_dir = hashes_root / h / "eval_np"
         np_dir.mkdir(parents=True)
-        for name, a in fabricate_attributes(s).items():
+        for name, a in fabricate_attributes(s, t).items():
             np.save(np_dir / f"{name}.npy", a)
         for k in range(K):
             p_dir = hashes_root / h / "paths_images" / f"path_{k:03d}"
             p_dir.mkdir(parents=True)
             base = rng.integers(0, 256, (12, 12, 3))
-            for t in range(T):
-                frame = np.clip(base + 3 * t, 0, 255).astype(np.uint8)
-                Image.fromarray(frame).save(p_dir / f"{t:06d}.jpg")
+            for i in range(t):
+                frame = np.clip(base + 3 * i, 0, 255).astype(np.uint8)
+                Image.fromarray(frame).save(p_dir / f"{i:06d}.jpg")
     return root, hashes_root
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    return _make_tree(tmp_path_factory.mktemp("rank"), STEPS)
+
+
+@pytest.fixture(scope="module")
+def tree_long(tmp_path_factory):
+    return _make_tree(tmp_path_factory.mktemp("rank_long"), LONG_STEPS)
 
 
 def _argv(root, metric, extra=()):
@@ -137,17 +149,21 @@ def test_sort_descending_is_pandas_order():
                               np.argsort(-v, kind="stable")[:len(want) - 30])
 
 
-@pytest.mark.parametrize("metric", ["corr", "corr_l1", "corr+corr_l1"])
-def test_cli_tree_equals_jax(tree, tmp_path, metric, monkeypatch):
+METRICS = ("corr", "corr_l1", "corr+corr_l1")
+
+
+@pytest.mark.parametrize("metric, steps", [pytest.param(m, STEPS, id=m) for m in METRICS]
+                         + [pytest.param(m, LONG_STEPS, id=f"{m}-61-points") for m in METRICS])
+def test_cli_tree_equals_jax(metric, steps, request, tmp_path, monkeypatch):
     """Also: the port makes each (code, path) GIF once and copies it to every
     other name the top-k lists give it."""
-    root, hashes_root = tree
+    root, hashes_root = request.getfixturevalue("tree" if steps == STEPS else "tree_long")
     made = []
     make = rank.create_summarizing_gif
     monkeypatch.setattr(rank, "create_summarizing_gif",
                         lambda **kw: made.append(kw["imgs_root"]) or make(**kw))
     want, got = _run_both(root, hashes_root, _argv(root, metric, ("--eps", str(EPS),
-                                                                  "--shift-steps", str(STEPS))),
+                                                                  "--shift-steps", str(steps))),
                           tmp_path)
     files = _assert_same_tree(want, got)
     gifs = [f for f in files if f.endswith(".gif")]

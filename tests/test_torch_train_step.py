@@ -47,13 +47,13 @@ CFG = dict(batch_size=B, num_support_sets=K, min_shift_magnitude=0.1, max_shift_
 METRICS = ("total_loss", "classification_loss", "regression_loss", "accuracy")
 
 
-def _batch(seed, b=B, dim_z=DIM_Z, truncation=None):
+def _batch(seed, b=B, dim_z=DIM_Z, truncation=None, mags=(0.1, 0.2)):
     rng = np.random.default_rng(seed)
     z = rng.standard_normal((b, dim_z)).astype(np.float32)
     if truncation is not None:
         z = np.clip(z, -truncation, truncation)
     idx = rng.integers(0, K, b).astype(np.int32)
-    mags = (rng.uniform(0.1, 0.2, b) * rng.choice([-1.0, 1.0], b)).astype(np.float32)
+    mags = (rng.uniform(*mags, b) * rng.choice([-1.0, 1.0], b)).astype(np.float32)
     return z, idx, mags
 
 
@@ -243,6 +243,21 @@ def _sngan_pair():
     return small_sngan_bundles(seed=1), "LeNet", 1, 128, {}
 
 
+def _sngan_anime_pair():
+    """A narrow SNGAN-AnimeFaces chain (64^2 RGB, four up blocks) with the
+    LeNet reconstructor on the 6-channel pair and anime.sh's shifts."""
+    from tests.test_torch_sngan import small_sngans
+    from warpedganspace_tpu.models.api import GeneratorBundle as JBundle
+    from warpedganspace_torch.models.api import GeneratorBundle
+
+    jgen, jparams, gen = small_sngans(channels=(32, 32, 16, 16, 16), img_size=64,
+                                      image_channels=3, seed=2)
+    jG = JBundle(name="SNGAN_AnimeFaces", dim_z=128, resolution=64, out_channels=3,
+                 params=jparams, apply_fn=jgen.apply)
+    G = GeneratorBundle("SNGAN_AnimeFaces", gen, dim_z=128, resolution=64)
+    return (jG, G), "LeNet", 3, 128, dict(min_shift_magnitude=0.25, max_shift_magnitude=0.35)
+
+
 def _stylegan2_w_pair():
     from warpedganspace_tpu.models.api import GeneratorBundle as JBundle
     from warpedganspace_tpu.models.stylegan2 import StyleGAN2Generator as JStyleGAN2
@@ -279,8 +294,8 @@ def _proggan_pair():
     return (jG, G), "ResNet", 3, TINY_CH[0], {}
 
 
-FAMILIES = {"SNGAN_MNIST": (_sngan_pair, B), "StyleGAN2_W": (_stylegan2_w_pair, 4),
-            "ProgGAN": (_proggan_pair, B)}
+FAMILIES = {"SNGAN_MNIST": (_sngan_pair, B), "SNGAN_AnimeFaces": (_sngan_anime_pair, B),
+            "StyleGAN2_W": (_stylegan2_w_pair, 4), "ProgGAN": (_proggan_pair, B)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,7 +309,9 @@ def _family_run(family):
     def fresh():
         return _setup_pair(jG, G, rtype, channels, dim_z, batch_size=b, **cfg_kw)
 
-    batch = _batch(4, b=b, dim_z=dim_z, truncation=cfg_kw.get("z_truncation"))
+    batch = _batch(4, b=b, dim_z=dim_z, truncation=cfg_kw.get("z_truncation"),
+                   mags=(cfg_kw.get("min_shift_magnitude", 0.1),
+                         cfg_kw.get("max_shift_magnitude", 0.2)))
     with pytest.MonkeyPatch.context() as mp:
         jnew, jmetrics = _jax_step(fresh()[0], batch, mp)
     return jnew, jmetrics, batch, rtype, lambda: fresh()[1]
@@ -302,11 +319,12 @@ def _family_run(family):
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_one_step_matches_jax_per_family(family):
-    """The step of ``scripts/train/{mnist,stylegan2,proggan}.sh`` on a small
-    generator of each family, against the JAX step: the gate of the BigGAN
-    step above."""
+    """The step of ``scripts/train/{mnist,anime,stylegan2,proggan}.sh`` on a
+    small generator of each family, against the JAX step: the gate of the
+    BigGAN step above (the SNGAN families, with LeNet, at its elementwise rule)."""
     jnew, jmetrics, batch, rtype, state = _family_run(family)
-    _check_one_step(jnew, jmetrics, state(), batch, rtype, deep_g=family != "SNGAN_MNIST")
+    _check_one_step(jnew, jmetrics, state(), batch, rtype,
+                    deep_g=not family.startswith("SNGAN"))
 
 
 def _tail_fault(family):

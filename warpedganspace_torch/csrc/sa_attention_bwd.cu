@@ -140,8 +140,18 @@ cudaError_t launch(const T* ct, const T* out, float* rdot, long long rows, int d
 //   ds and beta rounded to bf16 before their products, every product
 //   accumulated in f32, each output rounded once. (rowsum(dbeta * beta) is
 //   taken from the forward's bf16 output, as in the f32 design.)
+// - The tensor cores' f32 accumulation rounds toward zero, so one chain of
+//   mma.sync over all of N (dphi, dg: 256 products at N=4096) shrinks the
+//   key pass's gradients: signed mean error against float64 -1.24e-5 and
+//   -7.9e-6, 2.1x the plain bf16 version's (16 draws at the BigGAN training
+//   shape on an H100, scripts/measure_attention_bf16_error.py). Every
+//   kSumChunks chunks each lane adds its accumulators into f32 sums of its own
+//   in shared memory and starts them again from 0 (-8.4e-6 and -4.1e-6, 1.4x
+//   and 1.1x; 3 % more time there); the outputs are the sums, rounded once.
+//   The order is fixed, so repeats stay bit-equal.
 // - Shared memory: 128 + 2 x 64 rows (the row tile and two chunk buffers) of
-//   dk and dv values, 73 KB at dk=24, dv=96.
+//   dk and dv values and the lanes' sums, 137 KB in the key pass and 89 KB in
+//   the query pass at dk=24, dv=96.
 namespace tc {
 
 constexpr int kWarps = 8;
@@ -154,10 +164,34 @@ constexpr int kKeyStep = 64;
 constexpr int kMaxT1 = 64;               // dk-wide output columns per block (<= 8 n8 tiles)
 constexpr int kMaxT2 = 128;              // dv-wide output columns per block (<= 16 n8 tiles)
 constexpr int kSmemBytes = 227 * 1024;
+// Chunks between two additions of the accumulators into the sums.
+constexpr int kSumChunks = 4;
 
 __host__ __device__ __forceinline__ size_t smem_bytes(int dk, int dv) {
   return (size_t)(kTileRows + 2 * kChunk) * (row_units(dk) + row_units(dv)) * 16  // rows, chunks
          + (size_t)2 * 2 * kChunk * sizeof(float);                              // 2 x lse, rdot
+}
+
+// Column tiles of at most `most` columns, each a multiple of 16 (whole pairs
+// of n8 tiles); returns the tile width and sets the number of tiles.
+__host__ __device__ __forceinline__ int column_tiles(int d, int most, int* ntiles) {
+  const int nt = (d + most - 1) / most;
+  const int t = value_units((d + nt - 1) / nt) * 8;
+  *ntiles = (d + t - 1) / t;
+  return t;
+}
+
+// The lanes' f32 sums of the n8 tiles a pass keeps (16 bytes a lane a tile).
+__host__ __device__ __forceinline__ size_t sums_bytes(int n8_tiles) {
+  return (size_t)kThreads * n8_tiles * 16;
+}
+
+// A launch's shared memory: the key pass's, whose sums hold dphi's and dg's
+// column tiles (the query pass's hold dtheta's alone).
+__host__ __device__ __forceinline__ size_t smem_bytes_launch(int dk, int dv) {
+  int nt1, nt2;
+  return smem_bytes(dk, dv) + sums_bytes(value_units(column_tiles(dk, kMaxT1, &nt1)) +
+                                         value_units(column_tiles(dv, kMaxT2, &nt2)));
 }
 
 // One pass. KEYS == false, the query pass: rows are queries (a1 = theta,
@@ -183,6 +217,8 @@ sa_attention_bwd_tc_kernel(const bf16* __restrict__ a1, const bf16* __restrict__
   char* bs = a2s + kTileRows * u2 * 16;               // 2 x (kChunk x u1, kChunk x u2)
   const int bstride = kChunk * (u1 + u2) * 16;        // bytes of one chunk buffer
   float* stats = reinterpret_cast<float*>(bs + 2 * bstride);   // 2 x (lse[64], rdot[64])
+  // The lanes' sums: tile t of out1 at (t * kThreads + tid), then out2's.
+  float4* sums1 = reinterpret_cast<float4*>(stats + 4 * kChunk);
 
   const int b = blockIdx.x / rtiles;
   const int row0 = (blockIdx.x % rtiles) * kTileRows;
@@ -193,6 +229,7 @@ sa_attention_bwd_tc_kernel(const bf16* __restrict__ a1, const bf16* __restrict__
   const int nt1 = w1 > 0 ? value_units(w1) : 0;                // n8 tiles computed
   const int nt2 = (KEYS && w2 > 0) ? value_units(w2) : 0;
   const int nq = KEYS ? ncols : nrows;                          // queries per sample
+  float4* sums2 = sums1 + (size_t)nt1 * kThreads;
 
   const bf16* a1b = a1 + (size_t)b * nrows * d1;
   const bf16* a2b = a2 + (size_t)b * nrows * d2;
@@ -247,6 +284,35 @@ sa_attention_bwd_tc_kernel(const bf16* __restrict__ a1, const bf16* __restrict__
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_unit = (lane >> 3) & 1;
   const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_unit = lane >> 4;
   const uint32_t a1a = smem_addr(a1s), a2a = smem_addr(a2s), bsa = smem_addr(bs);
+
+  // The accumulators added into this lane's sums (written, the first time),
+  // then started again from 0.
+  bool flushed = false;
+  auto flush = [&]() {
+#pragma unroll
+    for (int t = 0; t < NT1; ++t)
+      if (t < nt1) {
+        float4 v = make_float4(acc1[t][0], acc1[t][1], acc1[t][2], acc1[t][3]);
+        if (flushed) {
+          const float4 p = sums1[t * kThreads + tid];
+          v = make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
+        }
+        sums1[t * kThreads + tid] = v;
+        acc1[t][0] = acc1[t][1] = acc1[t][2] = acc1[t][3] = 0.f;
+      }
+#pragma unroll
+    for (int t = 0; t < NT2; ++t)
+      if (t < nt2) {
+        float4 v = make_float4(acc2[t][0], acc2[t][1], acc2[t][2], acc2[t][3]);
+        if (flushed) {
+          const float4 p = sums2[t * kThreads + tid];
+          v = make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
+        }
+        sums2[t * kThreads + tid] = v;
+        acc2[t][0] = acc2[t][1] = acc2[t][2] = acc2[t][3] = 0.f;
+      }
+    flushed = true;
+  };
 
   const int nchunks = (ncols + kChunk - 1) / kChunk;
   fetch(0);
@@ -357,7 +423,21 @@ sa_attention_bwd_tc_kernel(const bf16* __restrict__ a1, const bf16* __restrict__
       }
     }
     __syncthreads();   // the buffer is refilled in the next chunk
+    if ((c + 1) % kSumChunks == 0 && c + 1 < nchunks) flush();
   }
+  if (flushed) flush();   // the last chunks' products into the sums, read back below
+#pragma unroll
+  for (int t = 0; t < NT1; ++t)
+    if (flushed && t < nt1) {
+      const float4 v = sums1[t * kThreads + tid];
+      acc1[t][0] = v.x, acc1[t][1] = v.y, acc1[t][2] = v.z, acc1[t][3] = v.w;
+    }
+#pragma unroll
+  for (int t = 0; t < NT2; ++t)
+    if (flushed && t < nt2) {
+      const float4 v = sums2[t * kThreads + tid];
+      acc2[t][0] = v.x, acc2[t][1] = v.y, acc2[t][2] = v.z, acc2[t][3] = v.w;
+    }
 
   // Each output rounded once; rows past the edge are not written.
 #pragma unroll
@@ -388,6 +468,8 @@ cudaError_t launch_pass(const bf16* a1, const bf16* a2, const bf16* b1, const bf
                         int nrows, int ncols, int d1, int d2, int t1, int t2, int ytiles,
                         size_t smem, cudaStream_t stream) {
   auto kernel = sa_attention_bwd_tc_kernel<KEYS, NT1, NT2>;
+  // The lanes' sums of the tiles this pass keeps.
+  smem += sums_bytes(value_units(t1) + (KEYS ? value_units(t2) : 0));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -414,15 +496,6 @@ cudaError_t key_pass(const bf16* phi, const bf16* g, const bf16* theta, const bf
   if (nv <= 12) return WGS_KEY_PASS(12);
   return WGS_KEY_PASS(16);
 #undef WGS_KEY_PASS
-}
-
-// Column tiles of at most `most` columns, each a multiple of 16 (whole pairs
-// of n8 tiles); returns the tile width and sets the number of tiles.
-inline int column_tiles(int d, int most, int* ntiles) {
-  const int nt = (d + most - 1) / most;
-  const int t = value_units((d + nt - 1) / nt) * 8;
-  *ntiles = (d + t - 1) / t;
-  return t;
 }
 
 cudaError_t launch(const void* theta_, const void* phi_, const void* g_, const void* out_,
@@ -928,7 +1001,7 @@ extern "C" int sa_attention_bwd_max_dv(int dk) {
   if (dk < 1 || dk > tf::kMaxDk) return 0;
   int best = 0;
   for (int dv = 4; dv <= 4096; dv += 4)
-    if (tc::smem_bytes(dk, dv) <= (size_t)tc::kSmemBytes &&
+    if (tc::smem_bytes_launch(dk, dv) <= (size_t)tc::kSmemBytes &&
         tf::smem_bytes(dk, dv) <= (size_t)tf::kSmemBytes)
       best = dv;
   return best;
@@ -964,7 +1037,8 @@ extern "C" int sa_attention_bwd_launch(const void* theta, const void* phi, const
                                        void* rdot, void* dtheta, void* dphi, void* dg,
                                        int is_bf16, int b, int n, int m, int dk, int dv,
                                        void* stream) {
-  cudaError_t err = is_bf16 ? check_shapes(b, n, m, dk, dv, tc::smem_bytes(dk, dv), tc::kSmemBytes)
+  cudaError_t err = is_bf16 ? check_shapes(b, n, m, dk, dv, tc::smem_bytes_launch(dk, dv),
+                                           tc::kSmemBytes)
                             : check_shapes(b, n, m, dk, dv, tf::smem_bytes(dk, dv),
                                            tf::kSmemBytes);
   if (err != cudaSuccess || b == 0) return (int)err;

@@ -124,10 +124,14 @@ def nms_numpy(dets: np.ndarray, thresh: float) -> list:
 
 
 def nms_native(lib, dets: np.ndarray, thresh: float) -> list:
-    """The same NMS in C++ (``native/sfd_post.cpp``), on float32 boxes."""
+    """The same NMS in C++ (``native/sfd_post.cpp``), on float32 boxes, visited
+    in :func:`nms_numpy`'s order, numpy's argsort (not a stable sort: under
+    equal scores no other sort keeps what it keeps)."""
     d = np.ascontiguousarray(dets, dtype=np.float32)
+    order = np.ascontiguousarray(dets[:, 4].argsort()[::-1], dtype=np.int32)
     keep = np.empty(len(d), dtype=np.int32)
-    n = lib.wgs_nms(d.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(d),
+    n = lib.wgs_nms(d.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    order.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), len(d),
                     ctypes.c_float(thresh), keep.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     return keep[:n].tolist()
 

@@ -33,8 +33,8 @@ def _build() -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     lib.wgs_nms.restype = ctypes.c_int
-    lib.wgs_nms.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
-                            ctypes.POINTER(ctypes.c_int)]
+    lib.wgs_nms.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+                            ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 

@@ -4,28 +4,21 @@
 // including the +1 area convention): boxes are visited in descending score
 // order; a box is kept if its IoU with every previously kept box is <= thresh.
 // The O(n^2) suppression loop is sequential and branchy, a poor fit for a
-// device and for Python, hence this C++ implementation on the host.
+// device and for Python, hence this C++ implementation on the host. The
+// order is the caller's: the reference's scores.argsort()[::-1], whose sort
+// numpy does not keep stable, so that under equal scores the visit (and what
+// is kept) is the reference's; no sort written here matches numpy's there.
 
 #include <algorithm>
-#include <cstdint>
-#include <numeric>
 #include <vector>
 
 extern "C" {
 
-// dets: n rows of (x1, y1, x2, y2, score). keep_out: caller-allocated n ints.
-// Returns the number of kept indices written to keep_out.
-int wgs_nms(const float* dets, int n, float thresh, int* keep_out) {
+// dets: n rows of (x1, y1, x2, y2, score); order: the n row indices in the
+// order of the visit. keep_out: caller-allocated n ints. Returns the number of
+// kept indices written to keep_out.
+int wgs_nms(const float* dets, const int* order, int n, float thresh, int* keep_out) {
   if (n <= 0) return 0;
-  // Match numpy's scores.argsort()[::-1] exactly (stable ascending, then
-  // reversed — so score ties break toward the LARGER original index).
-  std::vector<int> order(n);
-  std::iota(order.begin(), order.end(), 0);
-  std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
-    return dets[a * 5 + 4] < dets[b * 5 + 4];
-  });
-  std::reverse(order.begin(), order.end());
-
   std::vector<float> areas(n);
   for (int i = 0; i < n; ++i) {
     const float* d = dets + i * 5;

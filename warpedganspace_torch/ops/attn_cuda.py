@@ -38,9 +38,10 @@ reaches them.
   :func:`warpedganspace_torch.ops.attn.sa_attention_bwd_plain`).
 - The forward kernel takes every N, M and dv (ragged edges are masked) and dk
   up to the limit its library reports. The backward kernel keeps both row
-  operands in shared memory, so besides the same dk limit it has a dv limit
-  that depends on dk (dk=24 with dv up to 264 and dk=48 with dv=192 fit; the
-  smaller of the two designs' limits); above the limits the wrapper raises.
+  operands in shared memory (the bf16 design also its lanes' f32 sums), so
+  besides the same dk limit it has a dv limit that depends on dk (dk=24 with
+  dv up to 264 and dk=48 with dv=192 fit; the smaller of the two designs'
+  limits); above the limits the wrapper raises.
 
 ``launches`` counts forward-kernel launches and ``bwd_launches`` backward
 launches (one per call: the backward's two passes and its row-dot prologue are
