@@ -5,6 +5,7 @@
                                               # (also: biggan, stylegan2, train_biggan,
                                               # attribute; --steps N walks N steps each way)
     python3 chip_smoke.py --profile dp --cards 4   # data-parallel training, 1 card and 4
+                                                   # (--dp-config biggan, stylegan2, proggan)
     python3 chip_smoke.py --profile cuda_cores     # the kernels beside the CUDA-core designs
                                                    # they replaced
 
@@ -150,18 +151,24 @@ exit and no result line:
    ``scripts/eval/animefaces.sh``'s flags but ``--gif``, 24 steps each way),
    StyleGAN2-1024
    in W space (``--z-truncation 0.7``, ResNet, K=200, D=512, batch 12, bf16 G
-   and R; 4 iterations, then a resume at 4 to 8) and ProgGAN-1024 (the same
-   at batch 8). Each writes its tree, ``checkpoint2model`` splits the
-   checkpoint, and ``traverse_latent_space`` walks the tree without its final
-   ``support_sets.pt``, as an interrupted run leaves it. Launch counts as
-   equalities: StyleGAN2's tail 4 and ProgGAN's 6 per training iteration
-   (two sections or three in each of two generator forwards), the warp none
-   in training and one per traversal step. Then each step alone, outside the
-   CLI: SNGAN-MNIST's graphed chunk against its eager step, untraced and traced on
-   host and device for the device's busy share; StyleGAN2's and ProgGAN's
-   step through the tail kernel against the same step with the plain tail, in
-   turns, with peak device memory, and traced for the tail kernel's share of
-   the device time. Before the paths, SNGAN-AnimeFaces at full width (B=64)
+   and R) and ProgGAN-1024 (the same at batch 8), both graphed with
+   ``--steps-per-call 2``: 10 iterations logged every 2 (the warm-up, the
+   capture, two windows of replays, the checkpoint's), then a resume at 10 to
+   20 with ``--profile``, and 8 iterations with one step a call, twice, held
+   as the SNGAN paths are. Each writes its tree, ``checkpoint2model`` splits
+   the checkpoint, and ``traverse_latent_space`` walks the tree without its
+   final ``support_sets.pt``, as an interrupted run leaves it. Launch counts
+   as equalities: StyleGAN2's tail 4 and ProgGAN's 6 per counted training
+   step (two sections or three in each of two generator forwards; a graphed
+   run counts its eager warm-up and its capture, not its replays:
+   ``counted_steps``), the warp none in training and one per traversal step.
+   Then each step alone, outside the CLI, graphed against eager
+   (``graph_against_eager``): ms per step untraced in turns and traced on host
+   and device for the device's busy share, peak device memory allocated and
+   reserved of each route; StyleGAN2's and ProgGAN's step also through the
+   tail kernel against the same step with the plain tail, in turns, with peak
+   device memory, the tail kernel's share of the device time, and
+   ``compare_routes``. Before the paths, SNGAN-AnimeFaces at full width (B=64)
    in f32 and bf16 on the card against f32 on the CPU;
 9. ``multi_device``: ``--multi-device``, the
    experiment of ``scripts/train/biggan.sh`` at full width, data parallel
@@ -243,23 +250,28 @@ SNGAN_TRAIN = dict(
     argv=["--learn-gammas", "--gan-type", "SNGAN_MNIST", "--reconstructor-type", "LeNet",
           "-K", "64", "-D", "128", "--min-shift-magnitude", "0.15", "--max-shift-magnitude",
           "0.25", "--batch-size", "128", "--g-dtype", "bfloat16", "--steps-per-call", "10"])
+# The 1024^2 experiments run graphed, --steps-per-call 2 added to their
+# scripts' flags: the first run of 10 iterations logs 5 windows of one chunk,
+# of which the first two are the eager warm-up and the capture and the last
+# holds the checkpoint, so two clean windows of replays remain; the resume
+# runs the stored iteration 10 alone, then chunks 11-12 to 19-20.
 SG2_TRAIN = dict(
-    gan="StyleGAN2", k=200, dipoles=512, d=512, iters=4, resume_to=8, log_freq=1, ckp_freq=4,
-    steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_sg2_train", tail="sg2_tail",
-    per_forward=2, chunk=1,
+    gan="StyleGAN2", k=200, dipoles=512, d=512, iters=10, resume_to=20, log_freq=2,
+    ckp_freq=10, steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_sg2_train",
+    tail="sg2_tail", per_forward=2, chunk=2,
     argv=["--learn-gammas", "--gan-type", "StyleGAN2", "--stylegan2-resolution", "1024",
           "--z-truncation", "0.7", "--shift-in-w-space", "--reconstructor-type", "ResNet",
           "-K", "200", "-D", "512", "--min-shift-magnitude", "0.1", "--max-shift-magnitude",
           "0.2", "--batch-size", "12", "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
-          "--pair-layout", "s2d"])
+          "--pair-layout", "s2d", "--steps-per-call", "2"])
 PROGGAN_TRAIN = dict(
-    gan="ProgGAN", k=200, dipoles=512, d=512, iters=4, resume_to=8, log_freq=1, ckp_freq=4,
+    gan="ProgGAN", k=200, dipoles=512, d=512, iters=10, resume_to=20, log_freq=2, ckp_freq=10,
     steps=1, eps=0.15, render_batch=16, res=1024, pool="smoke_proggan_train",
-    tail="proggan_tail", per_forward=3, chunk=1,
+    tail="proggan_tail", per_forward=3, chunk=2,
     argv=["--learn-gammas", "--gan-type", "ProgGAN", "--reconstructor-type", "ResNet",
           "-K", "200", "-D", "512", "--min-shift-magnitude", "0.1", "--max-shift-magnitude",
           "0.2", "--batch-size", "8", "--g-dtype", "bfloat16", "--r-dtype", "bfloat16",
-          "--pair-layout", "s2d"])
+          "--pair-layout", "s2d", "--steps-per-call", "2"])
 # scripts/train/anime.sh, cut as the MNIST path is; its tree walked with
 # scripts/eval/animefaces.sh's flags (--eps 0.25 --shift-steps 24, bf16; its
 # --shift-leap 1 and batch are the CLI's defaults, 2 x 24 + 1 frames) but its
@@ -2804,11 +2816,16 @@ def phase_train(card: str, cfg: dict) -> dict:
 
 def md_argv(cfg: dict, bf16: bool) -> list:
     """The experiment of scripts/train/biggan.sh, cut in iterations; f32 for
-    part (a), the script's bf16 G and R with graphed chunks for part (b)."""
+    part (a), the script's bf16 G and R with graphed chunks for part (b). A
+    ``cfg`` with ``argv`` (one of ``TRAIN_PATHS``' experiments, for the check
+    of ``--profile dp``) gives part (b) of that experiment."""
     if bf16:
-        return train_argv(dict(cfg, log_freq=cfg["graph_log_freq"],
-                               ckp_freq=cfg["graph_ckp_freq"]),
-                          cfg["graph_iters"]) + ["--steps-per-call", str(cfg["chunk"])]
+        cadence = ["--log-freq", str(cfg["graph_log_freq"]), "--ckp-freq",
+                   str(cfg["graph_ckp_freq"]), "--max-iter", str(cfg["graph_iters"])]
+        base = cfg["argv"] + cadence if "argv" in cfg else train_argv(
+            dict(cfg, log_freq=cfg["graph_log_freq"], ckp_freq=cfg["graph_ckp_freq"]),
+            cfg["graph_iters"])
+        return base + ["--steps-per-call", str(cfg["chunk"])]
     return [a for a in train_argv(cfg, cfg["iters"])
             if a not in ("--g-dtype", "--r-dtype", "bfloat16")]
 
@@ -2920,7 +2937,17 @@ def md_step_timing(state, n: int = 3) -> tuple:
 
 
 def md_exp_name(cfg: dict) -> str:
+    if "argv" in cfg:
+        return argv_exp_name(cfg["argv"])
     return f"BigGAN-239-ResNet-K{cfg['k']}-D{cfg['dipoles']}-LearnGammas-eps0.1_0.2"
+
+
+def argv_exp_name(argv: list) -> str:
+    """The experiment directory ``cli.train`` names for ``argv``."""
+    from warpedganspace_torch.cli import train
+    from warpedganspace_torch.utils.aux import experiment_name
+
+    return experiment_name(vars(train.build_parser().parse_args(argv)))
 
 
 def md_first_step(G, first, cfg, dtype, native_conv: bool = False) -> tuple:
@@ -2978,7 +3005,8 @@ def multi_device_worker(part: str, workdir: str, cfg_json: str) -> int:
     its steps; rank 0 saves the first step's gradients. Part ``b``:
     the graphed run without a group, then the same run as the one rank of an
     NCCL group, both with the deterministic algorithms; the two trees must be
-    the same bits. ``cfg_json`` is the phase's configuration (``MD``). Prints
+    the same bits. ``cfg_json`` is the phase's configuration (``MD``, or a
+    1024^2 experiment's from ``dp_check``). Prints
     its report as ``MD_REPORT {json}``."""
     import torch
     import torch.distributed as dist
@@ -3011,7 +3039,8 @@ def multi_device_worker(part: str, workdir: str, cfg_json: str) -> int:
 
         torch.backends.cudnn.deterministic = True
         torch.use_deterministic_algorithms(True, warn_only=True)
-        train.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
+        if cfg["gan"] == "BigGAN":
+            train.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
         states, trees = [], {}
         real_train = Trainer.train
 
@@ -3154,6 +3183,35 @@ def md_rel(got: list, want: list) -> float:
     """|got - want| / |want|, in norm over a list of tensors."""
     num = sum(float((a - b).double().pow(2).sum()) for a, b in zip(got, want))
     return math.sqrt(num / sum(float(b.double().pow(2).sum()) for b in want))
+
+
+def check_one_nccl_rank(b: dict, cfg: dict, per_step: dict) -> None:
+    """The checks of a part (b) report ``b`` (``multi_device_worker``): both
+    runs launched ``per_step`` kernels in each counted step (the eager
+    warm-up's and the capture's ``2 * chunk``; replays are not counted), the
+    group is NCCL, ``all_reduce`` was called for each BatchNorm of ResNet-18
+    forward and backward, the flat gradient and the metric row in each
+    counted step and never in a replay, the statistics are finite, and the
+    graphed one-rank NCCL run is the run without a group, bit for bit."""
+    k = cfg["chunk"]
+    want = {name: 2 * k * per_step.get(name, 0) for name in b["plain"]["launches"]}
+    for run in ("plain", "dp"):
+        check(b[run]["launches"] == want, f"part (b), {run}: {cfg['graph_iters']} graphed "
+              f"iterations launched {b[run]['launches']}, not {want} (the eager warm-up "
+              "and the capture; replays are not counted)")
+    check(b["backend"] == "nccl", f"part (b) ran on {b['backend']}, not NCCL")
+    # ResNet-18 has 20 BatchNorms: each all-reduces its moments forward and
+    # backward; then the flat gradient and the metric row. Replays call nothing.
+    calls = 2 * 20 + 2
+    check(b["all_reduce_calls"] == 2 * k * calls,
+          f"part (b) called all_reduce {b['all_reduce_calls']} times, not "
+          f"{2 * k * calls} (the warm-up's and the capture's {2 * k} steps)")
+    check(all(math.isfinite(v) for row in b["stats"].values() for v in row.values()),
+          "part (b): non-finite statistics")
+    check(b["stats_equal"] and b["tensors_equal"],
+          f"part (b): the graphed one-rank NCCL run is not the run without a group, bit for "
+          f"bit (stats max abs difference {b['max_stat_diff']:.3g}; S and R equal: "
+          f"{b['tensors_equal']})")
 
 
 def phase_multi_device(card: str, cfg: dict = MD) -> dict:
@@ -3340,26 +3398,8 @@ def phase_multi_device(card: str, cfg: dict = MD) -> dict:
                                               f"{runs[name]['launches']}, not {want}")
 
     # (b): the graphed one-rank NCCL run is the run without a group, bit for bit.
+    check_one_nccl_rank(b, cfg, {"sa_attention": 2, "sa_attention_bwd": 1})
     k = cfg["chunk"]
-    want_b = {"rbf_warp": 0, "sa_attention": 2 * 2 * k, "sa_attention_bwd": 2 * k,
-              "proggan_tail": 0, "sg2_tail": 0}
-    for run in ("plain", "dp"):
-        check(b[run]["launches"] == want_b, f"part (b), {run}: {cfg['graph_iters']} graphed "
-              f"iterations launched {b[run]['launches']}, not {want_b} (the eager warm-up "
-              "and the capture; replays are not counted)")
-    check(b["backend"] == "nccl", f"part (b) ran on {b['backend']}, not NCCL")
-    # ResNet-18 has 20 BatchNorms: each all-reduces its moments forward and
-    # backward; then the flat gradient and the metric row. Replays call nothing.
-    per_step = 2 * 20 + 2
-    check(b["all_reduce_calls"] == 2 * k * per_step,
-          f"part (b) called all_reduce {b['all_reduce_calls']} times, not "
-          f"{2 * k * per_step} (the warm-up's and the capture's {2 * k} steps)")
-    check(all(math.isfinite(v) for row in b["stats"].values() for v in row.values()),
-          "part (b): non-finite statistics")
-    check(b["stats_equal"] and b["tensors_equal"],
-          f"part (b): the graphed one-rank NCCL run is not the run without a group, bit for "
-          f"bit (stats max abs difference {b['max_stat_diff']:.3g}; S and R equal: "
-          f"{b['tensors_equal']})")
 
     a_ms = [rep["step_ms"] for rep in ranks]
     secs = [rep["seconds"] for rep in ranks]
@@ -3687,6 +3727,99 @@ def trace_device(run, rows: int = 0) -> dict:
     return out
 
 
+def counted_steps(start: int, max_iter: int, k: int) -> int:
+    """The steps whose kernel launches the wrappers count in one run of
+    ``cli.train`` from iteration ``start`` to ``max_iter`` with
+    ``--steps-per-call k``, by the trainer's schedule (``train/trainer.py``):
+    a chunk of k starts where ``(iteration - 1) % k == 0`` with a whole chunk
+    ahead, every other iteration runs alone. A run's first chunk runs eagerly
+    (the warm-up) and its second is captured, both counted; its later chunks
+    replay the graph, whose launches no wrapper counts."""
+    counted, chunks, it = 0, 0, start
+    while it <= max_iter:
+        if k > 1 and (it - 1) % k == 0 and it + k - 1 <= max_iter:
+            counted += k if chunks < 2 else 0
+            chunks += 1
+            it += k
+        else:
+            counted += 1
+            it += 1
+    return counted
+
+
+def graph_against_eager(state, k: int, steps: int, trace_steps: int, tag: str | None = None,
+                        rows: int = 12) -> tuple:
+    """The step of ``state`` graphed (a ``StepChunk`` of ``k``) against the
+    eager step (``train_step``). Peak device memory of each route, allocated
+    and reserved, the allocator's cache emptied and both peaks reset before
+    each: the eager route's over two steps, then the graph's over its eager
+    warm-up, its capture and a replay (its private pool beside the blocks the
+    warm-up cached). ms per step untraced, in turns graph, eager, eager,
+    graph, about ``steps`` steps a turn; then ``trace_steps`` steps of each
+    traced on host and device (``trace_calls``; with ``tag`` the share of
+    the kernel time in kernels whose name holds it; the kernel tables of
+    ``rows`` rows). Returns (what it read, the chunk)."""
+    import torch
+
+    from warpedganspace_torch.train.train_step import StepChunk, train_step
+
+    first = iter(range(1, 10 ** 6, k))               # each replay's first iteration
+
+    def replay():
+        return chunk(next(first))
+
+    def peaks():
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() / 2 ** 30,
+                torch.cuda.max_memory_reserved() / 2 ** 30)
+
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        train_step(state, 1)
+    out["eager_gib"] = peaks()
+    chunk = StepChunk(state, k)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):                                # the warm-up, the capture, a replay
+        replay()
+    check(chunk.graph is not None, f"--steps-per-call {k}: the chunk was not captured")
+    out["graph_gib"] = peaks()
+    replays = max(1, steps // k)
+    turns = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        turns[route].append(wall_ms(replay, replays) / k if route == "graph"
+                            else wall_ms(lambda: train_step(state, 1), replays * k))
+    out["turns"] = turns
+    out["ms"] = {route: sum(v) / len(v) for route, v in turns.items()}
+    graph = trace_calls(replay, max(1, trace_steps // k), tag=tag, rows=rows)
+    out["graph"] = dict(graph, ms=graph["ms"] / k, kernel_ms=graph["kernel_ms"] / k,
+                        launches=graph["launches"] / k)
+    out["eager"] = trace_calls(lambda: train_step(state, 1), trace_steps, tag=tag, rows=rows)
+    if tag is not None:
+        out["graph"]["tag_ms"] = graph["tag_ms"] / k
+    return out, chunk
+
+
+def graph_text(name: str, k: int, g: dict, card: str) -> str:
+    """The line of :func:`graph_against_eager`'s readings."""
+    tr, eg, (g1, g2), ms = g["graph"], g["eager"], g["turns"]["graph"], g["ms"]
+    turns = ", ".join(f"{t:.3f}" for t in (g1, *g["turns"]["eager"], g2))
+    return (f"[train step] {name} graphed (--steps-per-call {k}, one CUDA graph of {k} steps "
+            f"a replay) against eager on {card}: untraced in turns graph, eager, eager, graph "
+            f"{turns} ms per step: graphed {ms['graph']:.3f} ms ({1e3 / ms['graph']:.2f} "
+            f"steps/s) against eager {ms['eager']:.3f} ms ({1e3 / ms['eager']:.2f} steps/s), "
+            f"the graph {ms['eager'] / ms['graph']:.3f}x the eager steps/s; traced on "
+            f"host and device: graphed {tr['ms']:.3f} ms per step, device busy "
+            f"{100 * tr['busy']:.1f} %, {tr['kernel_ms']:.3f} ms of kernels and "
+            f"{tr['launches']:.1f} device events per step; eager {eg['ms']:.3f} ms per step, busy "
+            f"{100 * eg['busy']:.1f} %, {eg['kernel_ms']:.3f} ms of kernels in "
+            f"{eg['launches']:.1f} events; peak device memory allocated / reserved: eager "
+            f"{g['eager_gib'][0]:.2f} / {g['eager_gib'][1]:.2f} GiB, graphed "
+            f"{g['graph_gib'][0]:.2f} / {g['graph_gib'][1]:.2f} GiB")
+
+
 def phase_train_path(card: str, name: str, cfg: dict) -> dict:
     """One training path of ``TRAIN_PATHS``: ``train`` for ``cfg['iters']``
     iterations, the same command with a larger ``--max-iter`` (a resume at the
@@ -3694,12 +3827,16 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
     ``checkpoint2model`` on the tree and ``traverse_latent_space`` on it
     without its final ``support_sets.pt``, as an interrupted run leaves it, so
     that the traversal reads the split file. Launch counts as equalities: the
-    tail kernel ``per_forward`` times a forward, two forwards an iteration;
-    the warp none in training and one per traversal step. Then (unless
+    tail kernel ``per_forward`` times a forward, two forwards a counted step
+    (``counted_steps``: a graphed run's warm-up and capture, not its
+    replays); the warp none in training and one per traversal step. Where
+    the step is graphed (``cfg['chunk'] > 1``), the log windows of the first
+    run before the resume are held to two eager runs'. Then (unless
     ``cfg['step_alone']`` is False) the step alone, outside the CLI: graphed
-    against eager (SNGAN-MNIST), or through the tail kernel
-    against the plain tail with peak memory and the tail's share of a traced
-    step (StyleGAN2, ProgGAN). Returns each kernel's launches on the path."""
+    against eager (``graph_against_eager``) and, for StyleGAN2 and ProgGAN,
+    through the tail kernel against the plain tail with peak memory, the
+    tail's share of a traced step and ``compare_routes``. Returns each
+    kernel's launches on the path."""
     import contextlib
     import io
 
@@ -3710,12 +3847,13 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
     from warpedganspace_torch.models.support_sets import SupportSets
     from warpedganspace_torch.ops.proggan_tail import proggan_tail_plain
     from warpedganspace_torch.ops.sg2_tail import fused_section_plain
-    from warpedganspace_torch.train.train_step import StepChunk, train_step
+    from warpedganspace_torch.train.train_step import train_step
     from warpedganspace_torch.utils.aux import experiment_name
 
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
     exp_name = experiment_name(vars(train.build_parser().parse_args(cfg["argv"])))
-    graphed = cfg["chunk"] > 1
+    k = cfg["chunk"]
+    graphed = k > 1
 
     def argv(max_iter, extra=()):
         return cfg["argv"] + ["--log-freq", str(cfg["log_freq"]), "--ckp-freq",
@@ -3747,12 +3885,15 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
             check("Adam moments reset" not in log.getvalue(),
                   "the resumed run could not read its own optimizer sidecar")
             n_iters = cfg["iters"] + (cfg["resume_to"] - cfg["iters"] + 1)
+            n_counted = (counted_steps(1, cfg["iters"], k)
+                         + counted_steps(cfg["iters"], cfg["resume_to"], k))
             train_launches = launch_counts()
             want = {kname: 0 for kname in train_launches}
             if cfg["tail"]:
-                want[cfg["tail"]] = 2 * cfg["per_forward"] * n_iters
+                want[cfg["tail"]] = 2 * cfg["per_forward"] * n_counted
             check(train_launches == want, f"{n_iters} training iterations of {cfg['gan']} "
-                                          f"launched {train_launches}, not {want}")
+                                          f"({n_counted} of them counted steps) launched "
+                                          f"{train_launches}, not {want}")
             wip = osp.join("experiments", "wip", exp_name)
             stats, init, moved = check_trained_tree(cfg, wip,
                                                     osp.join("experiments", "complete", exp_name))
@@ -3764,18 +3905,20 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
             eager_s = eager_n = apart = None
             if graphed:
                 # The same run with one step a call, twice, each in a root of its
-                # own. The graphed run's log windows before the resume (which runs
-                # the stored iteration again and logs its window anew) are held to
-                # the first eager run's as the second eager run is (MD_SPREAD times
-                # as far; cuDNN's algorithms do not repeat their bits), or within
-                # 1e-3 of the largest metric (tests/test_torch_train_graph_cuda.py's
+                # own, to the last log window before the resume. The graphed
+                # run's log windows before the resume (which runs the stored
+                # iteration again and logs its window anew) are held to the first
+                # eager run's as the second eager run is (MD_SPREAD times as far;
+                # cuDNN's algorithms do not repeat their bits), or within 1e-3
+                # of the largest metric (tests/test_torch_train_graph_cuda.py's
                 # rule, for more steps).
                 eager_stats = []
                 for root in ("eager", "eager_again"):
                     os.makedirs(root)
                     os.chdir(root)
                     with contextlib.redirect_stdout(io.StringIO()):
-                        eager = train.main(argv(cfg["iters"], ["--steps-per-call", "1"]))
+                        eager = train.main(argv(cfg["iters"] - cfg["log_freq"],
+                                                ["--steps-per-call", "1"]))
                     with open(osp.join(wip, "stats.json")) as f:
                         eager_stats.append(json.load(f))
                     os.chdir(tmp)
@@ -3812,21 +3955,23 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
     print(f"[train] {name} ({' '.join(cfg['argv'])}) on {card}: {cfg['iters']} iterations in "
           f"{t1 - t0:.2f} s (generator build and first calls included), resumed at "
           f"{cfg['iters']} and ran to {cfg['resume_to']} in {t2 - t1:.2f} s; launches "
-          f"{train_launches} over {n_iters} iterations; last window: total loss "
-          f"{last['total_loss']:.4f}, accuracy {last['accuracy']:.3f}; moved {moved}; "
-          f"checkpoint2model, then traverse_latent_space of the tree: "
+          f"{train_launches} over {n_iters} iterations ({n_counted} counted steps); last "
+          f"window: total loss {last['total_loss']:.4f}, accuracy {last['accuracy']:.3f}; "
+          f"moved {moved}; checkpoint2model, then traverse_latent_space of the tree: "
           f"{cfg['k'] * (2 * cfg['steps'] + 1)} frames in {t_traverse:.2f} s, launches "
-          f"{trav_launches}, codes vs plain warp max abs {err:.3g}")
+          f"{trav_launches}, codes vs plain warp max abs {err:.3g}; the first run's log "
+          f"windows took " + ", ".join(f"{sec:.2f}" for _, sec, _ in first.window_times)
+          + " s")
     line = (f"[train] {name} through the CLI: {1e3 * first_s:.3f} ms per step = "
             f"{1 / first_s:.2f} steps/s over {first_n} iterations (log windows after the "
             f"{'first two' if graphed else 'first'}, none with a checkpoint)")
     if graphed:
-        line += (f" with --steps-per-call {cfg['chunk']} (one CUDA graph of {cfg['chunk']} "
-                 f"steps a call); {1e3 * eager_s:.3f} ms per step = {1 / eager_s:.2f} steps/s "
-                 f"over {eager_n} iterations with --steps-per-call 1: the graph "
-                 f"{eager_s / first_s:.2f}x the eager steps/s; its log windows before "
-                 f"iteration {cfg['iters']} {apart['graphed']:.3g} from the eager run's (a "
-                 f"second eager run {apart['eager again']:.3g})")
+        line += (f" with --steps-per-call {k} (one CUDA graph of {k} steps a call); "
+                 f"{1e3 * eager_s:.3f} ms per step = {1 / eager_s:.2f} steps/s over {eager_n} "
+                 f"iterations with --steps-per-call 1: the graph {eager_s / first_s:.2f}x the "
+                 f"eager steps/s; its log windows before iteration {cfg['iters']} "
+                 f"{apart['graphed']:.3g} from the eager run's (a second eager run "
+                 f"{apart['eager again']:.3g})")
     print(line + f" on {card}")
     launches = {kname: train_launches[kname] + trav_launches[kname] for kname in train_launches}
     if not cfg.get("step_alone", True):
@@ -3834,61 +3979,59 @@ def phase_train_path(card: str, name: str, cfg: dict) -> dict:
 
     # The step alone, outside the CLI.
     state, G32 = direct_train_state(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    if graphed:
-        k = cfg["chunk"]
-        chunk = StepChunk(state, k)
-        it = iter(range(1, 10 ** 6, k))
-        for _ in range(2):                            # the eager warm-up, the capture
-            chunk(next(it))
-        graph = trace_calls(lambda: chunk(next(it)), 5, rows=12)
-        eager = trace_calls(lambda: train_step(state, 1), 10)
-        graph_ms = wall_ms(lambda: chunk(next(it)), 10) / k
-        eager_ms = wall_ms(lambda: train_step(state, 1), 50)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[train step] {name}, batch {state.cfg.batch_size}, bf16 G on {card}: untraced "
-              f"{graph_ms:.3f} ms per step graphed ({k} steps a replay, "
-              f"{1e3 / graph_ms:.1f} steps/s) against {eager_ms:.3f} ms eager "
-              f"({1e3 / eager_ms:.1f} steps/s, {eager_ms / graph_ms:.2f}x); traced on host and "
-              f"device: graphed {graph['ms'] / k:.3f} ms per step, device busy "
-              f"{100 * graph['busy']:.1f} % of the window, {graph['kernel_ms'] / k:.3f} ms of "
-              f"kernels and {graph['launches'] / k:.1f} device events per step; eager "
-              f"{eager['ms']:.3f} ms per step, busy {100 * eager['busy']:.1f} %, "
-              f"{eager['kernel_ms']:.3f} ms of kernels in {eager['launches']:.1f} events; "
-              f"peak device memory {peak:.2f} GiB; the kernel table of the 6 traced replays:")
-        print(graph["table"])
-    else:
-        module, attr, plain = ((stylegan2, "fused_section", fused_section_plain)
-                               if cfg["tail"] == "sg2_tail"
-                               else (proggan, "proggan_tail", proggan_tail_plain))
-        kernel_fn = getattr(module, attr)
-        routes = {}
-        try:
-            for route in ("kernel", "plain", "kernel again", "plain again"):
-                setattr(module, attr, plain if route.startswith("plain") else kernel_fn)
-                train_step(state, 1)                  # cuDNN's first calls, the allocator
-                torch.cuda.reset_peak_memory_stats()
-                routes[route] = (wall_ms(lambda: train_step(state, 1), 3),
-                                 torch.cuda.max_memory_allocated() / 2 ** 30)
-            setattr(module, attr, kernel_fn)
+    b = state.cfg.batch_size
+    if not cfg["tail"]:
+        g, chunk = graph_against_eager(state, k, steps=30, trace_steps=10)
+        print(graph_text(f"{name}, batch {b}, bf16 G", k, g, card)
+              + "; the kernel table of the traced replays:")
+        print(g["graph"]["table"])
+        del state, G32, chunk
+        torch.cuda.empty_cache()
+        return launches
+    module, attr, plain = ((stylegan2, "fused_section", fused_section_plain)
+                           if cfg["tail"] == "sg2_tail"
+                           else (proggan, "proggan_tail", proggan_tail_plain))
+    kernel_fn = getattr(module, attr)
+    routes = {}
+    try:
+        for route in ("kernel", "plain", "kernel again", "plain again"):
+            setattr(module, attr, plain if route.startswith("plain") else kernel_fn)
+            train_step(state, 1)                      # cuDNN's first calls, the allocator
+            torch.cuda.reset_peak_memory_stats()
+            routes[route] = (wall_ms(lambda: train_step(state, 1), 2),
+                             torch.cuda.max_memory_allocated() / 2 ** 30)
+        setattr(module, attr, kernel_fn)
+        g = None
+        if graphed:
+            g, chunk = graph_against_eager(state, k, steps=4, trace_steps=2,
+                                           tag="section_kernel")
+            del chunk                                 # the graph's pool
+            torch.cuda.empty_cache()
+            traced = g["eager"]
+        else:
             traced = trace_calls(lambda: train_step(state, 1), 2, tag="section_kernel", rows=12)
-            routes_read = compare_routes(
-                state, G32, lambda kernel: setattr(module, attr, kernel_fn if kernel else plain))
-        finally:
-            setattr(module, attr, kernel_fn)
-        print(f"[train step] {name}, batch {state.cfg.batch_size}, bf16 G and R on {card}: "
-              f"untraced, in turns kernel, plain, kernel, plain: "
-              + ", ".join(f"{route} {ms:.1f} ms (peak {gib:.2f} GiB)"
-                          for route, (ms, gib) in routes.items())
-              + f"; traced on host and device (kernel route): {traced['ms']:.1f} ms per step, "
-              f"device busy {100 * traced['busy']:.1f} %, {traced['kernel_ms']:.1f} ms of "
-              f"kernels per step, the tail kernel {traced['tag_ms']:.2f} ms of it "
-              f"({100 * traced['tag_share']:.1f} %) in {traced['tag_launches']:.0f} launches; "
-              "the kernel table of the 3 traced steps:")
-        print(traced["table"])
-        print(f"[train step] {name} on the kernel route and the plain tail from one state "
-              f"and batch at batch {state.cfg.batch_size}, deterministic algorithms, on {card}: "
-              + routes_read)
+        routes_read = compare_routes(
+            state, G32, lambda kernel: setattr(module, attr, kernel_fn if kernel else plain))
+    finally:
+        setattr(module, attr, kernel_fn)
+    print(f"[train step] {name}, batch {b}, bf16 G and R on {card}: untraced, in turns kernel, "
+          "plain, kernel, plain: "
+          + ", ".join(f"{route} {ms:.1f} ms (peak {gib:.2f} GiB)"
+                      for route, (ms, gib) in routes.items())
+          + f"; traced on host and device (kernel route, eager): {traced['ms']:.1f} ms per "
+          f"step, device busy {100 * traced['busy']:.1f} %, {traced['kernel_ms']:.1f} ms of "
+          f"kernels per step, the tail kernel {traced['tag_ms']:.2f} ms of it "
+          f"({100 * traced['tag_share']:.1f} %) in {traced['tag_launches']:.0f} launches; the "
+          "kernel table of the traced steps:")
+    print(traced["table"])
+    if g is not None:
+        print(graph_text(f"{name}, batch {b}, bf16 G and R", k, g, card)
+              + f"; the tail kernel {g['graph']['tag_ms']:.2f} ms a graphed step "
+              f"({100 * g['graph']['tag_share']:.1f} % of its kernel time); the kernel table "
+              "of the traced replays:")
+        print(g["graph"]["table"])
+    print(f"[train step] {name} on the kernel route and the plain tail from one state "
+          f"and batch at batch {b}, deterministic algorithms, on {card}: " + routes_read)
     del state, G32
     torch.cuda.empty_cache()
     return launches
@@ -4130,18 +4273,44 @@ def profile_train(card: str, cfg: dict, rows: int = 24) -> None:
         del state, G, S, R
 
 
-# ``--profile dp``: the experiment of scripts/train/biggan.sh at full width
-# (bf16 G and R, global batch 32), data parallel over the cards of one host.
-DP = dict(iters=40, log_freq=10, batch=32, traced_steps=5)
+# ``--profile dp --dp-config NAME``: an experiment at full width, bf16 G and R,
+# data parallel over the cards of one host, one step a call and graphed in
+# chunks of ``chunk``: ``biggan`` is scripts/train/biggan.sh (global batch 32),
+# ``stylegan2`` and ``proggan`` the 1024^2 experiments of ``TRAIN_PATHS``
+# (global batches 12 and 8: 3 and 2 rows a card on four). ``iters`` at
+# ``log_freq``: the log windows after the first (eager) or the first two
+# (graphed: the warm-up, the capture) are timed. The 1024^2 experiments are
+# also checked on one card first: one NCCL rank against the run without a
+# group (``check``, part (b) of ``multi_device``).
+DP = {"biggan": dict(iters=40, log_freq=10, batch=32, traced_steps=5, chunk=10),
+      "stylegan2": dict(iters=20, log_freq=4, batch=12, traced_steps=3, chunk=2,
+                        train=SG2_TRAIN),
+      "proggan": dict(iters=20, log_freq=4, batch=8, traced_steps=3, chunk=2,
+                      train=PROGGAN_TRAIN)}
 
 
-def dp_worker(run_dir: str, steps_per_call: int) -> None:
+def dp_argv(config: str, steps_per_call: int) -> list:
+    """The training CLI's arguments of one ``--profile dp`` run."""
+    dp = DP[config]
+    if config == "biggan":
+        argv = train_argv(dict(MD, batch=dp["batch"], log_freq=dp["log_freq"], ckp_freq=1000),
+                          dp["iters"])
+    else:
+        argv = dp["train"]["argv"] + ["--log-freq", str(dp["log_freq"]), "--ckp-freq", "1000",
+                                      "--max-iter", str(dp["iters"])]
+    return argv + ["--multi-device", "--steps-per-call", str(steps_per_call)]
+
+
+def dp_worker(run_dir: str, steps_per_call: int, config: str) -> None:
     """One rank of one ``--profile dp`` run, started by torch's launcher: the
     training CLI with ``--multi-device``, then traced eager steps of the
-    trained state (every rank traces, so that all take the same steps);
-    rank 0 writes ``result.json``."""
+    trained state (every rank traces, so that all take the same steps).
+    Every rank writes its peak device memory of the training run to
+    ``rank<r>.json``, rank 0 also ``result.json``."""
     import contextlib
     import io
+
+    import torch
 
     from warpedganspace_torch.cli import train
     from warpedganspace_torch.models import gan_load
@@ -4151,7 +4320,8 @@ def dp_worker(run_dir: str, steps_per_call: int) -> None:
 
     os.environ["WGS_ALLOW_RANDOM_G"] = "1"
     os.chdir(run_dir)
-    train.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
+    if config == "biggan":
+        train.build_gan = lambda **kw: open_attention(gan_load.build_gan(**kw))
     states = []
     real_train = trainer_module.Trainer.train
 
@@ -4160,18 +4330,22 @@ def dp_worker(run_dir: str, steps_per_call: int) -> None:
         return states[-1]
 
     trainer_module.Trainer.train = keep_state
-    cfg = dict(MD, batch=DP["batch"], log_freq=DP["log_freq"], ckp_freq=1000)
+    argv = dp_argv(config, steps_per_call)
     with contextlib.redirect_stdout(io.StringIO()):
-        trainer = train.main(train_argv(cfg, DP["iters"])
-                             + ["--multi-device", "--steps-per-call", str(steps_per_call)])
+        trainer = train.main(argv)
+    torch.cuda.synchronize()
+    with open(osp.join(run_dir, f"rank{mesh.rank()}.json"), "w") as f:
+        json.dump({"peak_gib": [torch.cuda.max_memory_allocated() / 2 ** 30,
+                                torch.cuda.max_memory_reserved() / 2 ** 30]}, f)
     # The log windows after the first (one step a call) or the first two
     # (graphed: the eager warm-up, the capture), without a checkpoint.
     windows = [w for w in trainer.window_times[1 if steps_per_call == 1 else 2:] if not w[2]]
     state = states[-1]
     it = iter(range(10 ** 6, 2 * 10 ** 6))
-    traced = trace_calls(lambda: train_step(state, next(it)), DP["traced_steps"], tag="nccl")
+    traced = trace_calls(lambda: train_step(state, next(it)), DP[config]["traced_steps"],
+                         tag="nccl")
     if mesh.is_coordinator():
-        with open(osp.join("experiments", "wip", md_exp_name(cfg), "stats.json")) as f:
+        with open(osp.join("experiments", "wip", argv_exp_name(argv), "stats.json")) as f:
             stats = json.load(f)
         result = {"step_ms": 1e3 * sum(w[1] for w in windows) / sum(w[0] for w in windows),
                   "steps_timed": sum(w[0] for w in windows), "stats": stats,
@@ -4182,16 +4356,16 @@ def dp_worker(run_dir: str, steps_per_call: int) -> None:
     mesh.sync_processes("profile-dp-done")
 
 
-def dp_launch(cards: int, steps_per_call: int, run_dir: str) -> dict:
+def dp_launch(cards: int, steps_per_call: int, run_dir: str, config: str = "biggan") -> dict:
     """One ``--profile dp`` run: ``cards`` processes under torch's launcher
     (``python -m torch.distributed.run``, NCCL), each this script as a
-    worker."""
+    worker. Returns rank 0's result with every rank's peak memory."""
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(cards),
            "--master-addr", "127.0.0.1", "--master-port", str(md_free_port()),
            osp.abspath(__file__), "--dp-run-dir", run_dir, "--dp-steps-per-call",
-           str(steps_per_call)]
+           str(steps_per_call), "--dp-config", config]
     root = osp.dirname(osp.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
@@ -4204,39 +4378,77 @@ def dp_launch(cards: int, steps_per_call: int, run_dir: str) -> dict:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
         raise
-    check(proc.returncode == 0, f"--profile dp, {cards} card(s), --steps-per-call "
-                                f"{steps_per_call}: exit {proc.returncode}\n{stdout[-4000:]}\n"
-                                f"{stderr[-8000:]}")
+    check(proc.returncode == 0, f"--profile dp --dp-config {config}, {cards} card(s), "
+                                f"--steps-per-call {steps_per_call}: exit {proc.returncode}\n"
+                                f"{stdout[-4000:]}\n{stderr[-8000:]}")
     with open(osp.join(run_dir, "result.json")) as f:
-        return json.load(f)
+        result = json.load(f)
+    result["peak_gib"] = []
+    for r in range(cards):
+        with open(osp.join(run_dir, f"rank{r}.json")) as f:
+            result["peak_gib"].append(json.load(f)["peak_gib"])
+    return result
 
 
-def profile_dp(card: str, cards: int) -> None:
-    """Data-parallel training on 1 card and on ``cards``, one step a call and
-    ``--steps-per-call 10`` (a CUDA graph of ten steps, its collectives
-    captured): ms per step over the log windows, steps/s, images/s and the
-    speed against one card; an eager step traced on rank 0 for the NCCL
+def dp_check(card: str, config: str) -> None:
+    """One NCCL rank at full width on one card against the same run without a
+    group, both graphed in chunks of ``DP[config]['chunk']`` (6 iterations:
+    the warm-up, the capture, a replay), under the deterministic algorithms:
+    part (b) of ``multi_device`` (``multi_device_worker``,
+    ``check_one_nccl_rank``) for one experiment of ``TRAIN_PATHS``."""
+    train_cfg = DP[config]["train"]
+    cfg = dict(gan=train_cfg["gan"], argv=train_cfg["argv"], graph_iters=6, graph_log_freq=2,
+               graph_ckp_freq=1000, chunk=DP[config]["chunk"])
+    with tempfile.TemporaryDirectory(prefix="wgs_dp_check_") as tmp:
+        t0 = time.perf_counter()
+        (b,) = md_spawn("b", tmp, 1, cfg)
+        seconds = time.perf_counter() - t0
+    check_one_nccl_rank(b, cfg, {train_cfg["tail"]: 2 * train_cfg["per_forward"]})
+    tr = b["traced"]
+    print(f"[dp] check: 1 NCCL rank, {config} at full width (batch {DP[config]['batch']}), "
+          f"--steps-per-call {cfg['chunk']}, {cfg['graph_iters']} iterations, deterministic "
+          f"algorithms, against the run without a group on {card}: the same bits; "
+          f"{b['dp']['step_ms']:.2f} ms per graphed step with the group against "
+          f"{b['plain']['step_ms']:.2f} ms without; {b['all_reduce_calls']} all_reduce calls; "
+          f"launches {b['dp']['launches']}; an eager step with the group traced: "
+          f"{tr['ms']:.2f} ms, device busy {100 * tr['busy']:.1f} %, NCCL {tr['tag_ms']:.3f} ms "
+          f"({100 * tr['tag_share']:.2f} %) in {tr['tag_launches']:.0f} launches; "
+          f"{seconds:.1f} s", flush=True)
+
+
+def profile_dp(card: str, cards: int, config: str = "biggan") -> None:
+    """Data-parallel training of ``DP[config]`` on 1 card and on ``cards``,
+    one step a call and graphed (``--steps-per-call DP[config]['chunk']``, a
+    CUDA graph of that many steps, its collectives captured): ms per step over
+    the log windows, steps/s, images/s and the speed against one card; peak
+    device memory of each rank; an eager step traced on rank 0 for the NCCL
     kernels' share of the kernel time and the device's busy share; the
-    statistics of ``cards`` cards against one."""
+    statistics of ``cards`` cards against one. The 1024^2 experiments are
+    checked first (``dp_check``)."""
+    dp = DP[config]
+    if config != "biggan":
+        dp_check(card, config)
     results = {}
     with tempfile.TemporaryDirectory(prefix="wgs_dp_") as tmp:
-        for k in (1, 10):
+        for k in (1, dp["chunk"]):
             for n in sorted({1, cards}):
                 run_dir = osp.join(tmp, f"cards{n}_k{k}")
                 os.makedirs(run_dir)
-                results[n, k] = res = dp_launch(n, k, run_dir)
-                base, tr, batch = results[1, k]["step_ms"], res["traced"], DP["batch"]
-                print(f"[dp] {n} card(s), global batch {batch} ({batch // n} a card), "
+                results[n, k] = res = dp_launch(n, k, run_dir, config)
+                base, tr, batch = results[1, k]["step_ms"], res["traced"], dp["batch"]
+                print(f"[dp] {config}, {n} card(s), global batch {batch} ({batch // n} a card), "
                       f"--steps-per-call {k}: {res['step_ms']:.2f} ms per step over "
                       f"{res['steps_timed']} steps = {1e3 / res['step_ms']:.2f} steps/s = "
                       f"{batch * 1e3 / res['step_ms']:.1f} images/s ({base / res['step_ms']:.2f}x "
-                      f"one card); an eager step traced on rank 0: {tr['ms']:.2f} ms, device "
+                      f"one card); peak device memory allocated / reserved by rank "
+                      + ", ".join(f"{a:.2f} / {r:.2f}" for a, r in res["peak_gib"])
+                      + f" GiB; an eager step traced on rank 0: {tr['ms']:.2f} ms, device "
                       f"busy {100 * tr['busy']:.1f} %, {tr['kernel_ms']:.2f} ms of kernels, "
                       f"NCCL {tr['tag_ms']:.3f} ms ({100 * tr['tag_share']:.2f} %) in "
                       f"{tr['tag_launches']:.0f} launches; on {card}", flush=True)
-    for k in (1, 10):
+    for k in (1, dp["chunk"]):
         one, many = results[1, k]["stats"], results[cards, k]["stats"]
-        print(f"[dp] --steps-per-call {k}: stats of {cards} cards against one, max abs "
+        print(f"[dp] {config}, --steps-per-call {k}: stats of {cards} cards against one, max abs "
               "difference by log window " + ", ".join(
                   f"{it}: {max(abs(many[it][m] - v) for m, v in row.items()):.3g}"
                   for it, row in one.items()))
@@ -4302,13 +4514,16 @@ def main(argv=None) -> int:
     parser.add_argument("--cards", type=int, default=None,
                         help="with --profile dp: the cards of the data-parallel run "
                              "(default: every card of the host)")
+    parser.add_argument("--dp-config", choices=tuple(DP), default="biggan",
+                        help="with --profile dp: the experiment (biggan: scripts/train/"
+                             "biggan.sh; stylegan2, proggan: the 1024^2 experiments)")
     parser.add_argument("--dp-run-dir", help=argparse.SUPPRESS)
     parser.add_argument("--dp-steps-per-call", type=int, default=1, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.dp_run_dir:                       # a rank of --profile dp, under torch's launcher
-        dp_worker(args.dp_run_dir, args.dp_steps_per_call)
+        dp_worker(args.dp_run_dir, args.dp_steps_per_call, args.dp_config)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4318,7 +4533,7 @@ def main(argv=None) -> int:
         print(card)
         if args.profile == "dp":
             print(f"{torch.cuda.device_count()} x {card}; torch {torch.__version__}")
-            profile_dp(card, args.cards or torch.cuda.device_count())
+            profile_dp(card, args.cards or torch.cuda.device_count(), args.dp_config)
         elif args.profile == "train_biggan":
             profile_train(card, TRAIN)
         elif args.profile == "attribute":

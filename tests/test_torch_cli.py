@@ -695,18 +695,52 @@ def test_sngan_cli_trees_match(sngan_trees):
     assert frame.size == (32, 32) and frame.mode == "L"
 
 
-def test_sngan_chunked_run_equals_unchunked(tmp_path, monkeypatch):
+def _tiny_generator(family):
+    """The small generator of ``family``'s chunk test."""
+    if family == "StyleGAN2_W":
+        from tests.test_torch_train_step import tiny_stylegan2_w
+
+        return tiny_stylegan2_w(seed=4)
+    if family == "ProgGAN":
+        from tests.test_torch_traverse import small_proggan_bundles
+
+        return small_proggan_bundles(seed=4)[1]
+    from tests.test_torch_sngan import small_sngan_bundles
+
+    return small_sngan_bundles(seed=4)[1]
+
+
+# Each family's flags of its experiment (``mnist.sh``, ``stylegan2.sh``,
+# ``proggan.sh`` at a tiny size) and its tree's name.
+CHUNK_FAMILIES = {
+    "SNGAN_MNIST": (SNGAN_BASE, SNGAN_EXP),
+    "StyleGAN2_W": (["--gan-type", "StyleGAN2", "--stylegan2-resolution", "256",
+                     "--z-truncation", "0.7", "--shift-in-w-space", "--reconstructor-type",
+                     "ResNet", "-K", str(SK), "-D", str(SD), "--learn-gammas",
+                     "--min-shift-magnitude", "0.1", "--max-shift-magnitude", "0.2",
+                     "--batch-size", "4", "--pair-layout", "s2d"],
+                    "StyleGAN2-256-W-ResNet-K3-D4-LearnGammas-eps0.1_0.2"),
+    "ProgGAN": (["--gan-type", "ProgGAN", "--reconstructor-type", "ResNet", "-K", str(SK),
+                 "-D", str(SD), "--learn-gammas", "--min-shift-magnitude", "0.1",
+                 "--max-shift-magnitude", "0.2", "--batch-size", "4", "--pair-layout", "s2d"],
+                "ProgGAN-ResNet-K3-D4-LearnGammas-eps0.1_0.2"),
+}
+
+
+@pytest.mark.parametrize("family", list(CHUNK_FAMILIES))
+def test_sngan_chunked_run_equals_unchunked(tmp_path, monkeypatch, family):
     """``--steps-per-call 3`` over 10 iterations with a resume: the first run
     stops at 4 (a chunk, then the lone iteration 4), the second resumes at the
     checkpoint of iteration 3 (re-run alone), then chunks 4-6 and 7-9, then
     the lone 10. On the CPU a chunk is three eager steps, so the sets, the
     statistics and the checkpoints equal those of the same runs with one step
-    a call, bit for bit."""
-    from tests.test_torch_sngan import small_sngan_bundles
+    a call, bit for bit. For SNGAN-MNIST and, at a tiny size, the families of
+    the 1024² experiments (StyleGAN2 in W space, ProgGAN; ResNet R)."""
     from warpedganspace_torch.cli import train as t_train
     from warpedganspace_torch.train.train_step import StepChunk
 
-    _, G = small_sngan_bundles(seed=4)
+    base, exp_name = CHUNK_FAMILIES[family]
+    G = _tiny_generator(family)
     monkeypatch.setattr(t_train, "build_gan", lambda **kw: G.to(kw["device"]))
     chunks = []
     real_call = StepChunk.__call__
@@ -716,7 +750,7 @@ def test_sngan_chunked_run_equals_unchunked(tmp_path, monkeypatch):
         return real_call(self, iteration)
 
     monkeypatch.setattr(StepChunk, "__call__", spy)
-    flags = SNGAN_BASE + ["--log-freq", "3", "--ckp-freq", "3", "--no-cuda"]
+    flags = base + ["--log-freq", "3", "--ckp-freq", "3", "--no-cuda"]
     trees = {}
     for k in (1, 3):
         root = tmp_path / f"k{k}"
@@ -724,7 +758,7 @@ def test_sngan_chunked_run_equals_unchunked(tmp_path, monkeypatch):
         monkeypatch.chdir(root)
         for max_iter in (4, 10):
             t_train.main(flags + ["--steps-per-call", str(k), "--max-iter", str(max_iter)])
-        trees[k] = osp.join(str(root), "experiments", "wip", SNGAN_EXP)
+        trees[k] = osp.join(str(root), "experiments", "wip", exp_name)
     assert chunks == [(3, 1), (3, 4), (3, 7)]
     for rel in ("stats.json", "models/support_sets.pt", "models/reconstructor.pt",
                 "models/checkpoint.pt", "models/optimizer_state.npz"):

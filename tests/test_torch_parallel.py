@@ -19,6 +19,10 @@ every multi-process case, and the tests below read what each rank saved:
   backward, the metric row, and nothing else;
 - BigGAN with two target classes: each rank conditions its rows on the
   classes the global batch draws, and the step equals the one-process step;
+- one step of the family of ``stylegan2.sh`` at a tiny size (StyleGAN2 in W
+  space with truncated codes, the ResNet reconstructor, whose BatchNorms
+  reduce their moments over the ranks) against the one-process step on the
+  global batch;
 - ``assert_identical_across_processes`` passing on equal trees and raising on
   both ranks when one rank's tree differs.
 
@@ -26,6 +30,7 @@ every multi-process case, and the tests below read what each rank saved:
 """
 import copy
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +40,8 @@ import torch
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from tests.test_torch_train_step import _batch, _jax_r_grads, _setup_pair
+from tests.test_torch_train_step import (DEEP_G_GATE, _batch, _jax_r_grads, _setup_pair,
+                                         tiny_stylegan2_w)
 from tests.torch_ranks import spawn
 from warpedganspace_tpu.convert import lenet_reconstructor_to_state_dict
 from warpedganspace_tpu.nn import core as jnn
@@ -87,6 +93,17 @@ def _biggan_inputs():
     return {"G": G, "S": S, "R": R, "cfg": STEP_CFG, "batches": [batch]}
 
 
+def _stylegan2_inputs():
+    init = torch.Generator().manual_seed(17)
+    S = SupportSets(K, 3, 512, learn_gammas=True, generator=init)
+    R = Reconstructor("ResNet", dim=K, channels=3, generator=init)
+    z, idx, mags = _batch(23, b=B, dim_z=512, truncation=0.7)
+    batch = (torch.from_numpy(z), torch.from_numpy(idx).long(), torch.from_numpy(mags))
+    return {"G": tiny_stylegan2_w(seed=19), "S": S, "R": R,
+            "cfg": dict(STEP_CFG, shift_in_w_space=True, z_truncation=0.7),
+            "batches": [batch]}
+
+
 @pytest.fixture(scope="module")
 def units(tmp_path_factory):
     """(inputs, each rank's results, the JAX side of the SNGAN steps)."""
@@ -102,6 +119,7 @@ def units(tmp_path_factory):
                   "batches": [(torch.from_numpy(z), torch.from_numpy(i).long(),
                                torch.from_numpy(m)) for z, i, m in batches]},
         "biggan": _biggan_inputs(),
+        "stylegan2": _stylegan2_inputs(),
     }
     workdir = tmp_path_factory.mktemp("units")
     torch.save(inputs, workdir / "units_in.pt")
@@ -320,6 +338,66 @@ def test_biggan_two_classes_draw_the_global_batchs_classes(units):
     assert float(diff.max()) <= 2 * LR + 1e-5
     np.testing.assert_allclose(got["S"]["loggamma"].numpy(), state.S.loggamma.detach().numpy(),
                                rtol=0, atol=1e-5)
+
+
+def test_stylegan2_w_resnet_step_equals_one_process(units):
+    """Two ranks of the 1024² experiments' family at a tiny size (StyleGAN2 in
+    W space, truncation 0.7, the ResNet reconstructor with SyncBN), 4 of the
+    global 8 rows each, one step, against the port's step in one process on
+    the whole batch. Both ranks hold the same S and R, the one-process
+    metrics within 1e-5 and loggamma within 1e-5.
+
+    The gradients are held in norm, not by element: the images of a random
+    StyleGAN2 are nearly constant, so the first BatchNorms of R see inputs
+    whose mean dwarfs their spread, and the variance E[x²] - E[x]² that both
+    routes take turns a sum in another order into a different normalisation
+    (measured: R's gradients of conv1, bn1 and layer1.0 1-2 % apart in norm,
+    every later layer 1e-5; the sets 0.5 %), the f32 conditioning the
+    multi-device phase of ``chip_smoke.py`` measures on BigGAN. So R's
+    gradient lies within 2 % of the one-process gradient in norm and the sets'
+    within 2 % of their largest entry (``DEEP_G_GATE``, the gate of a deep
+    generator's step against JAX); every trained element within 2 * lr +
+    1e-5 after Adam's first step (about sign(g) * lr), at most one in 10,000
+    of them farther than 1e-5; R's running statistics within 1e-3 of each
+    one's largest magnitude."""
+    inputs, results, _ = units
+    sg = inputs["stylegan2"]
+    steps = [res["stylegan2"]["steps"][0] for res in results]
+    for k in ("S", "R", "grads"):
+        for name, v in steps[0][k].items():
+            assert torch.equal(v, steps[1][k][name]), (k, name)
+    state = init_train_state(sg["G"], copy.deepcopy(sg["S"]), copy.deepcopy(sg["R"]),
+                             TrainStepConfig(**sg["cfg"]))
+    metrics = train_step(state, 1, batch=sg["batches"][0])
+    got = steps[0]
+    for k, v in metrics.items():
+        np.testing.assert_allclose(got["metrics"][k], float(v), rtol=0, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["S"]["loggamma"].numpy(), state.S.loggamma.detach().numpy(),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(got["S"]["alphas"], sg["S"].alphas.detach())
+
+    one = {n: p.grad for n, p in state.R.named_parameters()}
+    err = sum(float((got["grads"][n] - g).pow(2).sum()) for n, g in one.items())
+    assert math.sqrt(err / sum(float(g.pow(2).sum()) for g in one.values())) <= DEEP_G_GATE
+    g_sets = state.S.support_sets.grad
+    assert float((got["grads"]["support_sets"] - g_sets).abs().max()) \
+        <= DEEP_G_GATE * float(g_sets.abs().max())
+
+    want = dict(state.R.state_dict(), support_sets=state.S.support_sets.detach())
+    mine = dict(got["R"], support_sets=got["S"]["support_sets"])
+    n_far = n_all = 0
+    for name, ref in want.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        diff = (mine[name] - ref).abs()
+        if name in one or name == "support_sets":
+            assert float(diff.max()) <= 2 * LR + 1e-5, name
+            n_far += int((diff > 1e-5).sum())
+            n_all += diff.numel()
+        else:
+            assert float(diff.max()) <= 1e-3 * float(ref.abs().max()), name
+    assert n_far <= 1e-4 * n_all, (n_far, n_all)
+    assert float(got["R"]["features_extractor.bn1.running_mean"].abs().max()) > 0
 
 
 def test_identity_check_raises_on_every_rank(units):

@@ -6,7 +6,11 @@
 - One NCCL rank: a data-parallel state trained by graphed chunks of
   ``--steps-per-call`` (the all-reduces of the gradients, the BatchNorm
   moments and the metrics captured in the CUDA graph and replayed) against the
-  same state trained by eager steps, with the rule of
+  same state trained by eager steps, for SNGAN-MNIST, a small BigGAN and the
+  1024² experiments' families at the small sizes of
+  ``tests/test_torch_train_graph_cuda.py`` (a 256² StyleGAN2 in W space and
+  the tiny ProgGAN chain, their tail kernels launching in the graph), with
+  the rule of
   ``tests/test_torch_train_graph_cuda.py``: bit-equal when the eager step
   repeats its own bits, else as close as a second eager run.
 
@@ -85,7 +89,7 @@ def test_sync_bn_two_ranks_on_one_card(cuda, tmp_path):
                                        msg=lambda m: f"{name} {k}: {m}")
 
 
-@pytest.mark.parametrize("family", ["SNGAN_MNIST", "BigGAN"])
+@pytest.mark.parametrize("family", ["SNGAN_MNIST", "BigGAN", "StyleGAN2", "ProgGAN"])
 def test_nccl_graphed_chunks_match_eager_steps(cuda, tmp_path, family):
     k, iters = 3, 9
     torch.save((family, k, iters), tmp_path / "graph_nccl_in.pt")

@@ -278,6 +278,24 @@ def _stylegan2_w_pair():
     return (jG, G), "ResNet", 3, 512, dict(shift_in_w_space=True, z_truncation=0.7)
 
 
+def tiny_stylegan2_w(seed=0):
+    """The port's W-space StyleGAN2 at 32² with 128 channels up to 16² and 32
+    at 32², so that its last block is a tail section: a CPU training step in
+    the family of ``stylegan2.sh`` (truncation, shifts in W, the ResNet
+    reconstructor) at a tiny size."""
+    from warpedganspace_torch.models import stylegan2
+    from warpedganspace_torch.models.api import GeneratorBundle
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stylegan2, "channels_dict",
+                   lambda channel_multiplier=2: {4: 128, 8: 128, 16: 128, 32: 32})
+        gen = stylegan2.StyleGAN2Generator(resolution=32, n_mlp=2, shift_in_w_space=True,
+                                           generator=torch.Generator().manual_seed(seed))
+    assert gen.tail_start() == len(gen.to_rgbs) - 1
+    return GeneratorBundle("StyleGAN2", gen.requires_grad_(False).eval(), dim_z=512,
+                           resolution=32, shift_in_w_space=True)
+
+
 def _proggan_pair():
     from tests.test_torch_proggan import TINY_CH, small_proggans
     from warpedganspace_tpu.models.api import GeneratorBundle as JBundle

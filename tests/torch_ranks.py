@@ -127,6 +127,8 @@ def _step_case(inputs: dict, record: bool = False) -> dict:
         else:
             metrics = train_step(state, i + 1, batch=batch)
         steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                      "grads": {n: p.grad.clone() for m in (state.S, state.R)
+                                for n, p in m.named_parameters() if p.grad is not None},
                       "S": {k: v.clone() for k, v in state.S.state_dict().items()},
                       "R": {k: v.clone() for k, v in state.R.state_dict().items()},
                       "all_reduce": recorder.shapes})
@@ -136,7 +138,8 @@ def _step_case(inputs: dict, record: bool = False) -> dict:
 
 def scenario_units(workdir: str) -> dict:
     """SyncBN (synchronised and local), data-parallel steps with a recorder on
-    ``all_reduce``, BigGAN's two-class draw, and the identity check."""
+    ``all_reduce``, BigGAN's two-class draw, a step of StyleGAN2 in W space
+    with the ResNet reconstructor, and the identity check."""
     from warpedganspace_torch.models import biggan
     from warpedganspace_torch.parallel import mesh
 
@@ -161,6 +164,7 @@ def scenario_units(workdir: str) -> dict:
     finally:
         biggan.BigGANGenerator.apply = real_apply
     out["biggan"]["classes"] = seen
+    out["stylegan2"] = _step_case(inputs["stylegan2"])
 
     tree = {"a": torch.arange(6.0), "b": [torch.ones(2, 2, dtype=torch.bfloat16), 3]}
     mesh.assert_identical_across_processes(tree, "a tree")
