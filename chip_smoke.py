@@ -6,6 +6,9 @@
                                               # attribute; --steps N walks N steps each way)
     python3 chip_smoke.py --profile dp --cards 4   # data-parallel training, 1 card and 4
                                                    # (--dp-config biggan, stylegan2, proggan)
+    python3 chip_smoke.py --profile dp_eval --cards 4   # the evaluation chains of
+                                                        # stylegan2_full.sh and proggan_full.sh,
+                                                        # 1 card and 4 (--dp-eval-chain one)
     python3 chip_smoke.py --profile cuda_cores     # the kernels beside the CUDA-core designs
                                                    # they replaced
 
@@ -176,7 +179,8 @@ exit and no result line:
    gloo (worker processes of this script; NCCL refuses two ranks on one
    card): ``sample_gan``, ``train --multi-device`` in f32 (16 of the global
    32 rows a rank, 2 iterations) and ``traverse_latent_space --multi-device``
-   (one of two codes a rank), then the same pipeline in this process, a
+   (three codes, their 18 render batches split into two contiguous blocks: code
+   0 and half of code 1 on rank 0), then the same pipeline in this process, a
    control that trains with PyTorch's native convolutions, and the first
    step again in float64: one tree; the first step's metrics at the JAX
    package's gates and its gradients no farther from float64 than twice one
@@ -188,6 +192,10 @@ exit and no result line:
    ``--steps-per-call 5``: the all-reduces captured in the CUDA graph, the
    run the same bits as the run without a group; the workers print their
    launch counts for this process to sum;
+   (``--profile dp_eval --cards N`` runs the evaluation chains of
+   ``stylegan2_full.sh`` and ``proggan_full.sh`` on one card and on N: the
+   traversal and the attribute stage split inside each code over N ranks,
+   held to one card's tree; ``DP_EVAL``);
 10. ``discriminators``: StyleGAN2 config-f D at 1024² (B=4), the BigGAN-128 D
    (D_ch=96, attention at 64²; B=64) and BigGAN's G_D pair at class 239
    (B=16), f32 with seeded random weights: the attention kernel once per G and
@@ -204,8 +212,10 @@ last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
+import io
 import json
 import math
 import os
@@ -289,12 +299,13 @@ TRAIN_PATHS = {"train_sngan_mnist": SNGAN_TRAIN, "train_sngan_anime": ANIME_TRAI
                "train_stylegan2_w": SG2_TRAIN, "train_proggan_z": PROGGAN_TRAIN}
 # The multi-device path: the experiment of scripts/train/biggan.sh at full
 # width, data parallel. Part (a): two ranks that share the card over gloo, f32
-# (TF32 off), eager steps, then a traversal of one code a rank; held to the
-# same pipeline in one process. Part (b): one NCCL rank, bf16 as the script
+# (TF32 off), eager steps, then a traversal of three codes whose 18 render
+# batches the ranks split, 9 each (code 0 and half of code 1 on rank 0); held
+# to the same pipeline in one process. Part (b): one NCCL rank, bf16 as the script
 # runs it, graphed chunks of ``chunk`` steps; held to the same run without a
 # process group in the same process, both with the deterministic algorithms.
 MD = dict(gan="BigGAN", k=120, dipoles=256, d=120, batch=32, iters=2, log_freq=1, ckp_freq=2,
-          steps=1, eps=0.15, render_batch=64, codes=2, res=128, pool="smoke_md",
+          steps=1, eps=0.15, render_batch=64, codes=3, res=128, pool="smoke_md",
           graph_iters=15, graph_log_freq=5, graph_ckp_freq=30, chunk=5)
 # f32 computes this network's first-step gradients to about 1 % of their
 # norm: the phase's witness holds one process's first step, through the CLI's
@@ -3220,8 +3231,9 @@ def phase_multi_device(card: str, cfg: dict = MD) -> dict:
     (a) Two ranks share the card over gloo (NCCL refuses two ranks on one
     card): ``sample_gan`` (rank 0 samples, rank 1 waits), ``train
     --multi-device`` (f32, TF32 off; 16 of the 32 rows a rank; the attention
-    opened) and ``traverse_latent_space --multi-device`` (one code a rank,
-    bf16 frames). Then in this process: the same pipeline ("single"); its
+    opened) and ``traverse_latent_space --multi-device`` (each rank its
+    contiguous block of the three codes' render batches, bf16 frames). Then
+    in this process: the same pipeline ("single"); its
     training again with PyTorch's native convolutions, traversed as the
     others ("control"); one process's traversal of the two ranks' own sets
     and pool ("retraverse"); and the first step in float64 and in float32
@@ -3237,7 +3249,8 @@ def phase_multi_device(card: str, cfg: dict = MD) -> dict:
     over the ranks: codes within 1e-4 and frames within 2 grey levels of
     one process's traversal of the same sets. Each rank launches the
     attention forward twice and its backward once an iteration, the
-    attention once a render batch and the warp once a step.
+    attention once for each render batch of its block and the warp once a
+    step.
 
     (b) One NCCL rank (world size 1), bf16 G and R as the script runs them,
     ``--steps-per-call``: the all-reduces are captured in the CUDA graph and
@@ -3250,6 +3263,8 @@ def phase_multi_device(card: str, cfg: dict = MD) -> dict:
 
     import numpy as np
     import torch
+
+    from warpedganspace_torch.parallel import rank_block
 
     torch.cuda.empty_cache()                  # the workers share the card with this process
     cwd = os.getcwd()
@@ -3382,8 +3397,10 @@ def phase_multi_device(card: str, cfg: dict = MD) -> dict:
                             f"{frame_split} grey levels")
     iters, n_frames = cfg["iters"], cfg["k"] * (2 * cfg["steps"] + 1)
     renders = math.ceil(n_frames / cfg["render_batch"])
+    # Each rank renders its contiguous block of the codes' render batches.
+    blocks = [len(rank_block(range(cfg["codes"] * renders), 2, r)) for r in range(2)]
     for rep in ranks:
-        want = {"rbf_warp": cfg["steps"], "sa_attention": 2 * iters + renders
+        want = {"rbf_warp": cfg["steps"], "sa_attention": 2 * iters + blocks[rep["rank"]]
                 + (cfg["codes"] if rep["rank"] == 0 else 0), "sa_attention_bwd": iters,
                 "proggan_tail": 0, "sg2_tail": 0}
         check(rep["launches"] == want, f"rank {rep['rank']} of 2 launched {rep['launches']}, "
@@ -3405,8 +3422,9 @@ def phase_multi_device(card: str, cfg: dict = MD) -> dict:
     secs = [rep["seconds"] for rep in ranks]
     print(f"[multi_device] (a) 2 gloo ranks on one card, BigGAN-128 class 239, K={cfg['k']} "
           f"D={cfg['dipoles']} ResNet R, f32 (TF32 off), global batch {cfg['batch']} "
-          f"({cfg['batch'] // 2} a rank), {iters} iterations, then one code a rank traversed "
-          f"({n_frames} frames of bf16 render batches of {cfg['render_batch']}) on {card}: "
+          f"({cfg['batch'] // 2} a rank), {iters} iterations, then {cfg['codes']} codes "
+          f"traversed ({n_frames} frames a code in bf16 render batches of "
+          f"{cfg['render_batch']}, {'/'.join(map(str, blocks))} batches by rank) on {card}: "
           f"{t_a:.2f} s wall for both ranks (start-up and generator builds included; rank 0's "
           + ", ".join(f"{st} {sec:.2f} s" for st, sec in secs[0].items())
           + f"); eager steps {a_ms[0]:.1f} / {a_ms[1]:.1f} ms on ranks 0 / 1 against "
@@ -4454,6 +4472,365 @@ def profile_dp(card: str, cards: int, config: str = "biggan") -> None:
                   for it, row in one.items()))
 
 
+# ``--profile dp_eval --cards N``: the evaluation chains of
+# scripts/eval/stylegan2_full.sh and proggan_full.sh at full width (seeded
+# random G, the fabricated predictors of ``ATTR`` and ``PROGGAN_ATTR``), on
+# the scripts' pools of 6 and 8 codes sampled by ``sample_gan``, K cut to the
+# first 8 and 4 of K=200 seeded sets, without ``--gif``; the ranking of each
+# tree over the scripts' eight groups in their order (both scripts' order is
+# ``PROGGAN_ATTR``'s), without GIFs.
+DP_EVAL = {"stylegan2": dict(ATTR, k=8, sets=200, codes=6, pool="StyleGAN2_6",
+                             rank_groups=PROGGAN_ATTR["rank_groups"], per_forward=2,
+                             tail="sg2_tail"),
+           "proggan": dict(PROGGAN_ATTR, k=4, codes=8, pool="ProgGAN_8", per_forward=3,
+                           tail="proggan_tail")}
+# eval_np of N cards against one: the reference oracle's gates.
+DP_EVAL_RTOL, DP_EVAL_ATOL = 1e-2, 2e-3
+# Scores whose integer part is an argmax: (argmax + max probability) / n.
+ARGMAX_N = {"age": 9, "race": 7, "celeba_bangs": 6, "celeba_eyeglasses": 6,
+            "celeba_beard": 6, "celeba_smiling": 6, "celeba_age": 6}
+
+
+def dp_eval_argv(cfg: dict, stage: str) -> list:
+    """The script's arguments of ``stage`` (``traverse``; ``attribute``, whose
+    arguments the ranking takes too)."""
+    argv = ["--exp", osp.join("experiments", "complete", "smoke_exp"), "--pool", cfg["pool"],
+            "--shift-steps", str(cfg["steps"]), "--eps", str(cfg["eps"])]
+    if stage == "traverse":
+        argv += ["--batch-size", str(cfg["batch"]), "--dtype", "bfloat16"]
+    return argv
+
+
+def dp_eval_worker(root: str, stage: str, chain: str) -> None:
+    """One process of a ``--profile dp_eval`` stage, a plain process or a rank
+    under torch's launcher (then with ``--multi-device``): the stage's CLI in
+    ``root``, its render batches or paths counted, its own time (the CLI
+    from its start to its end; its work up to the last batch written or path
+    evaluated), the coordinator's gather and writes timed, and the kernels'
+    launches. Writes ``<stage>.<rank>.json`` in ``root``."""
+    import torch
+
+    from warpedganspace_torch.cli import traverse_attribute_space as attr_cli
+    from warpedganspace_torch.cli import traverse_latent_space as trav_cli
+    from warpedganspace_torch.parallel import mesh
+    from warpedganspace_torch.traverse import engine
+
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+    os.chdir(root)
+    cfg = DP_EVAL[chain]
+    grouped = mesh.initialize_distributed()
+    counts, spans = {"batches": 0, "paths": 0}, {"gather": 0.0, "write": 0.0, "barrier": 0.0}
+    done = [None]
+    real = {"render": engine._render_u8, "path": attr_cli.evaluate_path,
+            "codes": trav_cli._traverse_codes, "gather": mesh.gather_to_coordinator,
+            "write": attr_cli.write_hash_outputs, "barrier": mesh.sync_processes}
+
+    def render(*args, **kwargs):
+        counts["batches"] += 1
+        return real["render"](*args, **kwargs)
+
+    def path(*args, **kwargs):
+        counts["paths"] += 1
+        out = real["path"](*args, **kwargs)
+        done[0] = time.perf_counter()
+        return out
+
+    def traverse_codes(*args, **kwargs):
+        real["codes"](*args, **kwargs)                # the writer is closed when it returns
+        done[0] = time.perf_counter()
+
+    def timed(name):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spans[name] += time.perf_counter() - t
+        return run
+
+    engine._render_u8, attr_cli.evaluate_path = render, path
+    trav_cli._traverse_codes = traverse_codes
+    mesh.gather_to_coordinator, attr_cli.write_hash_outputs = timed("gather"), timed("write")
+    mesh.sync_processes = timed("barrier")
+    cli = trav_cli if stage == "traverse" else attr_cli
+    reset_launch_counts()
+    epoch0, t0 = time.time(), time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(dp_eval_argv(cfg, stage) + (["--multi-device"] if grouped else []))
+    torch.cuda.synchronize()
+    report = dict(counts, rank=mesh.rank(), world=mesh.world_size(),
+                  cli_s=time.perf_counter() - t0,
+                  work_s=(done[0] or time.perf_counter()) - t0, launches=launch_counts(),
+                  gather_s=spans["gather"], write_s=spans["write"], barrier_s=spans["barrier"],
+                  cli_epoch=(epoch0, time.time()),
+                  host_threads=mesh.host_threads(), torch_threads=torch.get_num_threads())
+    with open(osp.join(root, f"{stage}.{mesh.rank()}.json"), "w") as f:
+        json.dump(report, f)
+    if grouped:
+        torch.distributed.destroy_process_group()
+
+
+def dp_eval_launch(root: str, stage: str, chain: str, cards: int, launcher: bool) -> dict:
+    """One stage in ``root``: a plain process on the first card, or with
+    ``launcher`` ``cards`` ranks under ``python -m torch.distributed.run``
+    (NCCL, one card each). Each process's torch threads are the host's cores
+    over the processes. Returns the wall time and every process's report."""
+    import signal
+
+    worker = [osp.abspath(__file__), "--dp-eval-run", root, "--dp-eval-stage", stage,
+              "--dp-eval-chain", chain]
+    cmd = [sys.executable] + (["-m", "torch.distributed.run", "--nproc-per-node", str(cards),
+                               "--master-addr", "127.0.0.1", "--master-port",
+                               str(md_free_port())] if launcher else []) + worker
+    here = osp.dirname(osp.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // cards)))
+    epoch0, t0 = time.time(), time.perf_counter()
+    # A session of its own, so that a run cut by the timeout takes its ranks along.
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    wall, epoch1 = time.perf_counter() - t0, time.time()
+    check(proc.returncode == 0, f"--profile dp_eval, {chain} {stage} on {cards} card(s): exit "
+                                f"{proc.returncode}\n{stdout[-4000:]}\n{stderr[-8000:]}")
+    reports = []
+    for r in range(cards):
+        with open(osp.join(root, f"{stage}.{r}.json")) as f:
+            reports.append(json.load(f))
+        os.remove(osp.join(root, f"{stage}.{r}.json"))
+    # Outside the CLI: from the launch to the first process's entry into the
+    # CLI (Python, torch, the launcher, the group), and from the last one's
+    # exit from it to the end of the launch (the group's and processes' end).
+    return {"wall_s": wall, "ranks": reports,
+            "start_s": min(r["cli_epoch"][0] for r in reports) - epoch0,
+            "end_s": epoch1 - max(r["cli_epoch"][1] for r in reports)}
+
+
+def dp_eval_files(root: str) -> dict:
+    """{path relative to ``root``: full path} of every file under ``root``."""
+    out = {}
+    for dirpath, _, filenames in os.walk(root):
+        for f in filenames:
+            out[osp.relpath(osp.join(dirpath, f), root)] = osp.join(dirpath, f)
+    return out
+
+
+def dp_eval_compare(one: str, many: str) -> dict:
+    """Hold the results tree of N cards (``many``) to one card's (``one``):
+    the same files; frames byte-equal, else within 2 grey levels (which rule
+    held is returned); stored codes within 1e-4; every ``eval_np`` array at
+    the oracle's gates with the same argmaxes, and every ``eval_json`` file
+    byte-equal in a hash dir whose ``eval_np`` arrays are bit-equal; the
+    ranking CSVs byte-equal."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    a, b = dp_eval_files(one), dp_eval_files(many)
+    check(sorted(a) == sorted(b), f"dp_eval: the trees differ in their files: "
+                                  f"{sorted(set(a) ^ set(b))[:10]}")
+
+    def same_bytes(rel):
+        with open(a[rel], "rb") as fa, open(b[rel], "rb") as fb:
+            return fa.read() == fb.read()
+
+    frames = [rel for rel in a if rel.endswith(".jpg")]
+    differ = [rel for rel in frames if not same_bytes(rel)]
+    grey = 0
+    for rel in differ:
+        fa, fb = (np.asarray(Image.open(p[rel]), dtype=np.int16) for p in (a, b))
+        grey = max(grey, int(np.abs(fa - fb).max()))
+    check(grey <= 2, f"dp_eval: frames differ by {grey} grey levels")
+    code_err, code_bits = 0.0, True
+    for rel in (r for r in a if r.endswith("paths_latent_codes.pt")):
+        ca, cb = (torch.load(p[rel]).numpy() for p in (a, b))
+        code_err, code_bits = max(code_err, float(np.abs(ca - cb).max())), (
+            code_bits and np.array_equal(ca, cb))
+    check(code_err <= 1e-4, f"dp_eval: stored codes differ by {code_err:.3g}")
+    np_err, np_bits, json_checked = 0.0, 0, 0
+    hashes = sorted({osp.dirname(osp.dirname(rel)) for rel in a if "eval_np" in rel})
+    for h in hashes:
+        bits = True
+        for rel in (r for r in a if r.startswith(h + os.sep + "eval_np" + os.sep)):
+            xa, xb = np.load(a[rel]), np.load(b[rel])
+            name = osp.basename(rel)[:-4]
+            check(xa.shape == xb.shape and bool(np.isfinite(xb).all()),
+                  f"dp_eval: {rel} shape {xb.shape}")
+            check(bool(np.allclose(xb, xa, rtol=DP_EVAL_RTOL, atol=DP_EVAL_ATOL)),
+                  f"dp_eval: {rel} differs by {float(np.abs(xa - xb).max()):.3g}")
+            if name in ARGMAX_N:
+                check(np.array_equal(np.floor(xa * ARGMAX_N[name]),
+                                     np.floor(xb * ARGMAX_N[name])), f"dp_eval: {rel} argmaxes")
+            np_err = max(np_err, float(np.abs(xa - xb).max()))
+            bits = bits and np.array_equal(xa, xb)
+        np_bits += bits
+        if bits:
+            for rel in (r for r in a if r.startswith(h + os.sep + "eval_json" + os.sep)):
+                check(same_bytes(rel), f"dp_eval: {rel} differs where eval_np is bit-equal")
+                json_checked += 1
+    csvs = [rel for rel in a if rel.endswith(".csv")]
+    check(csvs and all(same_bytes(rel) for rel in csvs),
+          f"dp_eval: the ranking CSVs differ: {[r for r in csvs if not same_bytes(r)][:5]}")
+    return {"files": len(a), "frames": len(frames), "frames_differ": len(differ),
+            "grey": grey, "codes_err": code_err, "codes_bit_equal": code_bits,
+            "eval_np_err": np_err, "hashes": len(hashes), "hashes_bit_equal": np_bits,
+            "json_checked": json_checked, "csvs": len(csvs)}
+
+
+def dp_eval_chain(card: str, cards: int, chain: str) -> None:
+    """One chain of ``DP_EVAL``: the pool and the experiment once, then the
+    traversal and the attribute stage on one card (plain processes) and on
+    ``cards`` (ranks under torch's launcher, ``--multi-device``), the
+    ranking of each tree on the host, and the trees held to each other
+    (:func:`dp_eval_compare`); every rank's share of render batches and
+    paths within one of the others', and each process's kernel launches."""
+    import shutil
+
+    import torch
+
+    from warpedganspace_torch.cli import rank_interpretable_paths as rank
+    from warpedganspace_torch.cli import sample_gan
+    from warpedganspace_torch.cli import traverse_attribute_space as attr_cli
+    from warpedganspace_torch.evalzoo.fabricate import predictor_state_dicts, write_pretrained
+    from warpedganspace_torch.parallel import mesh
+
+    cfg = DP_EVAL[chain]
+    k, codes, steps, batch = cfg["k"], cfg["codes"], cfg["steps"], cfg["batch"]
+    T = 2 * steps + 1
+    per_code = math.ceil(k * T / batch)
+    os.environ["WGS_ALLOW_RANDOM_G"] = "1"
+    cwd = os.getcwd()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="wgs_dp_eval_") as tmp:
+        roots = {n: osp.join(tmp, f"cards{n}") for n in ("one", "many")}
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            os.makedirs(roots["one"])
+            os.chdir(roots["one"])
+            fabricated_experiment(cfg)
+            with contextlib.redirect_stdout(io.StringIO()):
+                sample_gan.main(["-g", cfg["gan"], "--num-samples", str(codes), "--pool",
+                                 cfg["pool"]])
+            torch.cuda.empty_cache()
+            os.chdir(tmp)
+            shutil.copytree(roots["one"], roots["many"])
+            t_setup = time.perf_counter() - t0
+            for stage in ("traverse", "attribute"):
+                for n, launcher in (("one", False), ("many", True)):
+                    runs[stage, n] = dp_eval_launch(roots[n], stage, chain,
+                                                    cards if launcher else 1, launcher)
+                if stage == "traverse":
+                    # The predictor files, the detector's heads fitted to the
+                    # first code's first path.
+                    res = osp.join(roots["one"], "experiments", "complete", "smoke_exp",
+                                   "results", cfg["pool"],
+                                   f"{2 * steps}_{cfg['eps']}_{round(2 * steps * cfg['eps'], 3)}")
+                    first = sorted(h for h in os.listdir(res) if h not in attr_cli.NOT_HASHES)[0]
+                    calib = attr_cli._prep_path(osp.join(res, first, "paths_images", "path_000"),
+                                                cfg["gan"])[0]
+                    sds = predictor_state_dicts(seed=0, calibration=calib, device="cuda")
+                    for root in roots.values():
+                        write_pretrained(root, sds)
+                    del sds
+                    torch.cuda.empty_cache()
+            rank_s = {}
+            for n, root in roots.items():
+                os.chdir(root)
+                argv = dp_eval_argv(cfg, "attribute") + RANK_FLAGS
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    for group in cfg["rank_groups"]:
+                        rank.main(argv + [f"--attr-group={group}", "--no-gif"])
+                rank_s[n] = time.perf_counter() - t1
+                os.chdir(tmp)
+            t2 = time.perf_counter()
+            cmp = dp_eval_compare(osp.join(roots["one"], "experiments"),
+                                  osp.join(roots["many"], "experiments"))
+            t_cmp = time.perf_counter() - t2
+        finally:
+            os.chdir(cwd)
+
+    # Shares and launches: every rank's block within one unit of the
+    # others', the blocks summing to the work; the warp once a step on every
+    # process, the tail ``per_forward`` times a render batch.
+    units = {"traverse": ("batches", codes * per_code), "attribute": ("paths", codes * k)}
+    for (stage, n), run in runs.items():
+        key, total = units[stage]
+        shares = [rep[key] for rep in run["ranks"]]
+        check(sum(shares) == total and max(shares) - min(shares) <= (1 if n == "many" else 0),
+              f"dp_eval {chain} {stage} on {len(shares)} card(s): {key} by rank {shares}, "
+              f"{total} in all")
+        check([rep["rank"] for rep in run["ranks"]] == list(range(len(shares))),
+              f"dp_eval {chain} {stage}: ranks {[rep['rank'] for rep in run['ranks']]}")
+        for rep in run["ranks"]:
+            want = dict.fromkeys(rep["launches"], 0)
+            if stage == "traverse":
+                want.update(rbf_warp=steps, **{cfg["tail"]: cfg["per_forward"] * rep["batches"]})
+            check(rep["launches"] == want, f"dp_eval {chain} {stage}, rank {rep['rank']} of "
+                                           f"{len(shares)}: launches {rep['launches']}, not "
+                                           f"{want}")
+
+    def stage_text(stage):
+        one, many = runs[stage, "one"], runs[stage, "many"]
+        key = units[stage][0]
+        ranks = many["ranks"]
+        coord = ranks[0]
+        cli_one, cli_many = one["ranks"][0]["cli_s"], max(r["cli_s"] for r in ranks)
+        return (f"{stage} {one['wall_s']:.2f} s on 1 card, {many['wall_s']:.2f} s on "
+                f"{len(ranks)} ({one['wall_s'] / many['wall_s']:.2f}x; outside the CLI, "
+                f"the processes' start and end: {one['wall_s'] - cli_one:.2f} s as a plain "
+                f"process ({one['start_s']:.2f} + {one['end_s']:.2f}), "
+                f"{many['wall_s'] - cli_many:.2f} s under the launcher ({many['start_s']:.2f} + "
+                f"{many['end_s']:.2f}); the ranks' barriers "
+                + ", ".join(f"{r['barrier_s']:.2f}" for r in ranks) + " s); the CLI "
+                f"{cli_one:.2f} s on 1 card against {cli_many:.2f} s on {len(ranks)} "
+                f"({cli_one / cli_many:.2f}x; 1 card's work {one['ranks'][0]['work_s']:.2f}"
+                f" s), by rank " + ", ".join(f"{r['cli_s']:.2f}" for r in ranks)
+                + " s (work " + ", ".join(f"{r['work_s']:.2f}" for r in ranks)
+                + f" s; {key} " + ", ".join(str(r[key]) for r in ranks)
+                + f"; host threads {coord['host_threads']}, torch threads "
+                f"{coord['torch_threads']} a rank)"
+                + (f"; the coordinator's gather {coord['gather_s']:.3f} s and writes "
+                   f"{coord['write_s']:.3f} s (1 card: writes {one['ranks'][0]['write_s']:.3f} s)"
+                   if stage == "attribute" else ""))
+
+    busiest = math.ceil(codes / cards)
+    print(f"[dp_eval] {chain} ({cfg['script']}: {cfg['gan']}-{cfg['res']}, pool {cfg['pool']} "
+          f"of {codes} codes, K={k} of {cfg['sets']} sets, {T} frames a path, bf16 render "
+          f"batch {batch}: {codes * k} paths, {codes * k * T} frames, {codes * per_code} render "
+          f"batches) on {cards} x {card}, os.cpu_count() {os.cpu_count()}: "
+          + "; ".join(stage_text(st) for st in ("traverse", "attribute"))
+          + f"; ranking over {len(cfg['rank_groups'])} groups without GIFs "
+          + " / ".join(f"{rank_s[n]:.2f}" for n in ("one", "many"))
+          + f" s; the old whole-code split's bound: {busiest} codes on the busiest rank "
+          f"against {codes / cards:.2f}, at most {codes / busiest:.2f}x; set-up "
+          f"{t_setup:.1f} s", flush=True)
+    print(f"[dp_eval] {chain}, {cards} cards against 1: {cmp['files']} files the same; "
+          f"frames {cmp['frames'] - cmp['frames_differ']} of {cmp['frames']} byte-equal"
+          + (f", the rest within {cmp['grey']} grey levels (rule: 2 grey levels)"
+             if cmp["frames_differ"] else " (rule: bytes)")
+          + f"; stored codes {'bit-equal' if cmp['codes_bit_equal'] else 'max abs '}"
+          + ("" if cmp["codes_bit_equal"] else f"{cmp['codes_err']:.3g}")
+          + f"; eval_np max abs {cmp['eval_np_err']:.3g} (gates rtol {DP_EVAL_RTOL}, atol "
+          f"{DP_EVAL_ATOL}, argmaxes equal), bit-equal in {cmp['hashes_bit_equal']} of "
+          f"{cmp['hashes']} hash dirs, {cmp['json_checked']} eval_json files byte-equal there; "
+          f"{cmp['csvs']} ranking CSVs byte-equal; compared in {t_cmp:.1f} s", flush=True)
+
+
+def profile_dp_eval(card: str, cards: int, chains) -> None:
+    """``--profile dp_eval``: the kernels built once (the workers load them),
+    then each chain of ``chains`` on one card and on ``cards``."""
+    build_kernels()
+    for chain in chains:
+        dp_eval_chain(card, cards, chain)
+
+
 def start_builds(pool, cuda_cores: bool = False) -> dict:
     """Start building every kernel source on ``pool``, one ``nvcc`` per source;
     with ``cuda_cores`` also the warp's and the f32 attention's CUDA-core
@@ -4504,19 +4881,25 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA card.")
     parser.add_argument("--profile", choices=tuple(PATHS) + ("train_biggan", "attribute", "dp",
-                                                              "cuda_cores"),
+                                                              "dp_eval", "cuda_cores"),
                         help="instead of the smoke test, say where that main path's time goes "
-                             "(dp: data-parallel training on 1 card and on --cards; cuda_cores: "
+                             "(dp: data-parallel training on 1 card and on --cards; dp_eval: "
+                             "the evaluation chains on 1 card and on --cards; cuda_cores: "
                              "the kernels beside the CUDA-core designs they replaced)")
     parser.add_argument("--steps", type=int, default=None,
                         help="with --profile of a traversal: steps each way (default: the "
                              "smoke test's)")
     parser.add_argument("--cards", type=int, default=None,
-                        help="with --profile dp: the cards of the data-parallel run "
+                        help="with --profile dp or dp_eval: the cards of the data-parallel run "
                              "(default: every card of the host)")
     parser.add_argument("--dp-config", choices=tuple(DP), default="biggan",
                         help="with --profile dp: the experiment (biggan: scripts/train/"
                              "biggan.sh; stylegan2, proggan: the 1024^2 experiments)")
+    parser.add_argument("--dp-eval-chain", choices=tuple(DP_EVAL), default=None,
+                        help="with --profile dp_eval: one chain only (default: both)")
+    parser.add_argument("--dp-eval-run", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-eval-stage", choices=("traverse", "attribute"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--dp-run-dir", help=argparse.SUPPRESS)
     parser.add_argument("--dp-steps-per-call", type=int, default=1, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -4524,6 +4907,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.dp_run_dir:                       # a rank of --profile dp, under torch's launcher
         dp_worker(args.dp_run_dir, args.dp_steps_per_call, args.dp_config)
+        return 0
+    if args.dp_eval_run:                      # a process of --profile dp_eval
+        dp_eval_worker(args.dp_eval_run, args.dp_eval_stage, args.dp_eval_chain)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4534,6 +4920,10 @@ def main(argv=None) -> int:
         if args.profile == "dp":
             print(f"{torch.cuda.device_count()} x {card}; torch {torch.__version__}")
             profile_dp(card, args.cards or torch.cuda.device_count(), args.dp_config)
+        elif args.profile == "dp_eval":
+            print(f"{torch.cuda.device_count()} x {card}; torch {torch.__version__}")
+            profile_dp_eval(card, args.cards or torch.cuda.device_count(),
+                            [args.dp_eval_chain] if args.dp_eval_chain else list(DP_EVAL))
         elif args.profile == "train_biggan":
             profile_train(card, TRAIN)
         elif args.profile == "attribute":

@@ -245,8 +245,9 @@ def test_port_cli_matches_jax_cli(gan_type, steps, eps, weights, tmp_path, monke
 def test_refused_before_anything_is_read_or_written(argv, grouped, error, tmp_path,
                                                      monkeypatch):
     """Invalid splits and launches. A ``grouped`` case runs as rank 0 of a
-    group of two, where the ranks split the hashes: manual shards would split
-    them twice, and without ``--multi-device`` each rank would evaluate all."""
+    group of two, where the ranks split the ``(hash, path)`` pairs: manual
+    shards would split them twice, and without ``--multi-device`` each rank
+    would evaluate all."""
     exp, h_dir = make_tree(str(tmp_path), "StyleGAN2")
     before = sorted(os.walk(exp))
     if grouped:

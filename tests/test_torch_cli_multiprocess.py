@@ -14,6 +14,15 @@ are collated once, by rank 0. Then ``traverse_attribute_space
 fabricated two-hash tree with seeded predictors. The refusals of
 ``--multi-device``, ``--num-shards`` and ``--shard-index`` come before any
 file is written.
+
+The ranks split the work inside a latent code: on a one-code SNGAN-MNIST
+pool each of two ranks renders its contiguous block of the code's render
+batches, and the tree is one process's, JPEG bytes and all, and the JAX
+package's ``--multi-device`` tree on the virtual 8-device mesh within its
+gates (codes 1e-4, frames within 2 grey levels); on a one-hash tree of three
+paths rank 0 evaluates paths 0 and 1 and rank 1 path 2, and the eval tree is
+one process's, bytes and bits, and the JAX attribute CLI's ``--multi-device``
+tree within the gates of its own multi-device test (rtol 1e-4, atol 1e-5).
 """
 import json
 import os
@@ -115,14 +124,15 @@ def test_two_ranks_write_the_single_process_tree(trees):
 
 def test_each_rank_did_its_share(trees):
     """Each rank trained on 4 of the 8 rows (two generator calls a step),
-    traversed one of the two codes, and only rank 0 sampled and made the
-    GIFs."""
+    rendered its block of the code-major render batches (2 codes x 2 batches
+    of 5 frames: both of code 0 on rank 0, both of code 1 on rank 1), and
+    only rank 0 sampled and made the GIFs."""
     _, multi, ranks = trees
     assert [r["rank"] for r in ranks] == [0, 1] and {r["world"] for r in ranks} == {2}
     assert [r["sampled"] for r in ranks] == [2, 0]
     for r in ranks:
         assert r["train_rows"] == [4] * 8
-        assert r["traversed"] > 0
+    assert [r["traversed"] for r in ranks] == [2, 2]
     assert [r["gif_collations"] for r in ranks] == [1, 0]
     assert len(os.listdir(osp.join(multi, RES, "paths_gifs"))) == 2
 
@@ -228,7 +238,7 @@ def test_attribute_cli_two_ranks_write_the_single_process_tree(tmp_path, monkeyp
     torch.save({"state_dicts": sds, "argv": argv + ["--multi-device"]},
                workdir / "attribute_in.pt")
     ranks = [res for _, res in spawn("attribute", str(workdir), world=2, timeout=300)]
-    assert [r["evaluated"] for r in ranks] == [[HASHES[0]], [HASHES[1]]]
+    assert [r["evaluated"] for r in ranks] == [[(HASHES[0], 0)], [(HASHES[1], 0)]]
 
     single = str(tmp_path / "single")
     _attribute_tree(single)
@@ -243,3 +253,166 @@ def test_attribute_cli_two_ranks_write_the_single_process_tree(tmp_path, monkeyp
             assert got[key] == v, key
         else:
             np.testing.assert_array_equal(got[key], v, err_msg=str(key))
+
+
+# ------------------------------------------- one code's work split over the ranks
+A_K, A_STEPS, A_EPS, A_BATCH = 3, 2, 0.2, 4
+A_ARGS = ["--exp", "exp", "--pool", "one", "--shift-steps", str(A_STEPS), "--eps", str(A_EPS),
+          "--batch-size", str(A_BATCH)]
+A_RES = osp.join("exp", "results", "one", f"{2 * A_STEPS}_{A_EPS}_{round(2 * A_STEPS * A_EPS, 3)}")
+
+
+def _files(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for dirpath, _, filenames in os.walk(root):
+        for f in filenames:
+            with open(osp.join(dirpath, f), "rb") as fh:
+                out[osp.relpath(osp.join(dirpath, f), root)] = fh.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_code_trees(tmp_path_factory):
+    """A one-code SNGAN-MNIST pool (the JAX ``sample_gan``) and a K=3
+    experiment of seeded sets, traversed 2 steps each way at a render batch
+    of 4 (15 frames: 4 batches, the last padded) by the JAX CLI with
+    ``--multi-device`` on the virtual mesh, by the port in one process and by
+    the port on two gloo ranks, each ``build_gan`` patched to one small
+    SNGAN of the same weights. Returns the three results dirs and the ranks'
+    records."""
+    import jax
+
+    from tests.test_torch_sngan import small_sngan_bundles
+    from warpedganspace_tpu.cli import sample_gan as j_sample_gan
+    from warpedganspace_tpu.cli import traverse_latent_space as j_traverse
+    from warpedganspace_tpu.models.support_sets import SupportSets as JSupportSets
+
+    jG, G = small_sngan_bundles(seed=2)
+    root = tmp_path_factory.mktemp("one_code")
+    base = root / "base"
+    base.mkdir()
+    mp = pytest.MonkeyPatch()
+    cwd = os.getcwd()
+    try:
+        os.chdir(base)
+        mp.setattr(j_sample_gan, "build_gan", lambda **kw: jG)
+        j_sample_gan.main(["-g", "SNGAN_MNIST", "--num-samples", "1", "--pool", "one"])
+        os.makedirs(osp.join("exp", "models"))
+        S = JSupportSets(num_support_sets=A_K, num_support_dipoles=8, support_vectors_dim=128,
+                         learn_gammas=True)
+        save_pt(S.to_torch_state_dict(S.init(jax.random.key(7))),
+                osp.join("exp", "models", "support_sets.pt"))
+        with open(osp.join("exp", "args.json"), "w") as f:
+            json.dump({"gan_type": "SNGAN_MNIST", "num_support_sets": A_K,
+                       "num_support_dipoles": 8, "learn_alphas": False, "learn_gammas": True,
+                       "gamma": None}, f)
+        for name in ("jax", "single", "multi"):
+            shutil.copytree(base, root / name)
+        os.chdir(root / "jax")
+        mp.setattr(j_traverse, "build_gan", lambda **kw: jG)
+        j_traverse.main(A_ARGS + ["--multi-device"])
+        os.chdir(root / "single")
+        mp.setattr(traverse_latent_space, "build_gan", lambda **kw: G.to(kw["device"]))
+        traverse_latent_space.main(A_ARGS + ["--no-cuda"])
+    finally:
+        os.chdir(cwd)
+        mp.undo()
+    torch.save({"G": G, "argv": A_ARGS + ["--no-cuda", "--multi-device"]},
+               root / "traverse_in.pt")
+    ranks = [res for _, res in spawn("traverse", str(root), world=2, timeout=300)]
+    return {name: str(root / name / A_RES) for name in ("jax", "single", "multi")}, ranks
+
+
+def test_two_ranks_split_one_code_into_the_single_process_tree(one_code_trees):
+    """One code, two ranks: each renders its contiguous block of the code's
+    four render batches, and the tree is one process's, byte for byte."""
+    res, ranks = one_code_trees
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert [[b for b in r["rendered"] if b[1] > b[0]] for r in ranks] == [[(0, 2)], [(2, 4)]]
+    assert [r["calls"] for r in ranks] == [[A_BATCH] * 2, [A_BATCH] * 2]
+    single, multi = _files(res["single"]), _files(res["multi"])
+    assert sorted(multi) == sorted(single)
+    assert sum(f.endswith(".jpg") for f in single) == A_K * (2 * A_STEPS + 1) + 1
+    for rel, data in single.items():
+        assert multi[rel] == data, rel
+
+
+def test_two_ranks_split_one_code_as_the_jax_mesh_does(one_code_trees):
+    """The two ranks' tree against the JAX package's ``--multi-device`` tree
+    on the virtual 8-device mesh: the same files, codes within 1e-4 and
+    frames within 2 grey levels."""
+    res, _ = one_code_trees
+    ours, ref = _files(res["multi"]), _files(res["jax"])
+    assert sorted(ours) == sorted(ref)
+    (h,) = {rel.split(os.sep)[0] for rel in ref}
+    a = np.asarray(load_pt(osp.join(res["multi"], h, "paths_latent_codes.pt")))
+    b = np.asarray(load_pt(osp.join(res["jax"], h, "paths_latent_codes.pt")))
+    assert a.shape == b.shape == (A_K, 2 * A_STEPS + 1, 128)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    worst = 0
+    for rel in ref:
+        if rel.endswith(".jpg"):
+            fa, fb = (np.asarray(Image.open(osp.join(r, rel)), dtype=np.int16)
+                      for r in (res["multi"], res["jax"]))
+            assert fa.shape == fb.shape == (32, 32), rel
+            worst = max(worst, int(np.abs(fa - fb).max()))
+    assert worst <= 2, worst
+
+
+A_PATHS, A_HASH = 3, "0123abcd"
+
+
+def test_two_ranks_split_one_hash_by_paths(tmp_path, monkeypatch):
+    """A one-hash tree of three paths: rank 0 evaluates paths 0 and 1, rank 1
+    path 2, and the eval tree is one process's, ``eval_json`` byte for byte
+    and ``eval_np`` bit for bit; and against the JAX attribute CLI's
+    ``--multi-device`` run on the virtual 8-device mesh it holds the gates of
+    that run against the JAX CLI's single-device one
+    (``tests/test_attribute_e2e.py``: rtol 1e-4, atol 1e-5) and the same
+    argmaxes."""
+    from tests.test_torch_attribute_cli import (ARGMAX_N, _frames, _jax_predictors,
+                                                _path_frames256, make_tree)
+    from warpedganspace_tpu.cli import traverse_attribute_space as jcli
+
+    frames = _frames(3, k=A_PATHS, t=3)
+    roots = {name: str(tmp_path / name) for name in ("single", "jax")}
+    roots["multi"] = str(tmp_path / "ranks" / "multi")
+    h_dirs = {name: make_tree(r, "StyleGAN2", steps=1, frames=frames)[1]
+              for name, r in roots.items()}
+    sds = predictor_state_dicts(seed=0, calibration=_path_frames256(h_dirs["single"]))
+    argv = ["--exp", "exp", "--pool", "pool", "--shift-steps", "1", "--eps", "0.2"]
+    torch.save({"state_dicts": sds, "argv": argv + ["--no-cuda", "--multi-device"]},
+               tmp_path / "ranks" / "attribute_in.pt")
+    ranks = [res for _, res in spawn("attribute", str(tmp_path / "ranks"), world=2,
+                                     timeout=300)]
+    assert [r["evaluated"] for r in ranks] == [[(A_HASH, 0), (A_HASH, 1)], [(A_HASH, 2)]]
+
+    monkeypatch.chdir(roots["single"])
+    monkeypatch.setattr(traverse_attribute_space, "load_predictors",
+                        lambda device: predictors(sds))
+    traverse_attribute_space.main(argv + ["--no-cuda"])
+    monkeypatch.chdir(roots["jax"])
+    jax_preds = _jax_predictors(sds)
+    monkeypatch.setattr(jcli, "load_predictors", lambda: jax_preds)
+    jcli.main(argv + ["--multi-device"])
+
+    trees = {name: _files(osp.join(h, "eval_np")) | _files(osp.join(h, "eval_json"))
+             for name, h in h_dirs.items()}
+    assert sorted(trees["multi"]) == sorted(trees["single"]) == sorted(trees["jax"])
+    assert len(trees["single"]) == 26 + 12
+    for rel, data in trees["single"].items():
+        assert trees["multi"][rel] == data, rel
+    worst = 0.0
+    for rel in trees["jax"]:
+        if not rel.endswith(".npy"):
+            continue
+        got, want = (np.load(osp.join(h_dirs[n], "eval_np", rel)) for n in ("multi", "jax"))
+        assert got.shape == want.shape == (A_PATHS, 3), rel
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=rel)
+        name = rel[:-4]
+        if name in ARGMAX_N:
+            assert np.array_equal(np.floor(got * ARGMAX_N[name]),
+                                  np.floor(want * ARGMAX_N[name])), name
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"two ranks against the JAX --multi-device eval tree: worst abs {worst:.3g}")

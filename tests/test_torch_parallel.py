@@ -26,7 +26,10 @@ every multi-process case, and the tests below read what each rank saved:
 - ``assert_identical_across_processes`` passing on equal trees and raising on
   both ranks when one rank's tree differs.
 
-``partition_work`` is held to the JAX package's in this process.
+``partition_work`` is held to the JAX package's in this process, and
+``rank_block`` (the ranks' split of one code's work) to its contract: for
+0-20 items over 1-5 shards the blocks are contiguous, differ in size by at
+most one, and joined in shard order are the list.
 """
 import copy
 import functools
@@ -52,7 +55,7 @@ from warpedganspace_torch.models.api import GeneratorBundle
 from warpedganspace_torch.models.biggan import BigGANGenerator
 from warpedganspace_torch.models.reconstructor import BatchNorm, Reconstructor
 from warpedganspace_torch.models.support_sets import SupportSets
-from warpedganspace_torch.parallel import partition_work
+from warpedganspace_torch.parallel import partition_work, rank_block
 from warpedganspace_torch.train.train_step import TrainStepConfig, init_train_state, train_step
 
 torch.set_num_threads(1)
@@ -415,3 +418,21 @@ def test_partition_work_equals_jax(n, shards):
     for bad in (-1, shards):
         with pytest.raises(ValueError):
             partition_work(items, shards, bad)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 5])
+def test_rank_block_is_contiguous_balanced_and_whole(shards):
+    for n in range(21):
+        items = [f"w{i}" for i in range(n)]
+        blocks = [rank_block(items, shards, r) for r in range(shards)]
+        assert sum(blocks, []) == items
+        sizes = [len(b) for b in blocks]
+        assert max(sizes) - min(sizes) <= 1
+        assert sizes == sorted(sizes, reverse=True)
+        start = 0
+        for b in blocks:
+            assert b == items[start:start + len(b)]
+            start += len(b)
+    assert rank_block(range(7)) == list(range(7))
+    with pytest.raises(ValueError, match="out of range"):
+        rank_block(range(3), shards, shards)

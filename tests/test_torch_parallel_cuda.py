@@ -13,6 +13,11 @@
   the rule of
   ``tests/test_torch_train_graph_cuda.py``: bit-equal when the eager step
   repeats its own bits, else as close as a second eager run.
+- ``traverse_latent_space --multi-device`` on two gloo ranks that share the
+  card: one StyleGAN2-W code (the 256² generator of
+  ``tests/test_torch_train_graph_cuda.py``, bf16, through the warp and tail
+  kernels) whose render batches the ranks split, each its contiguous block;
+  the tree is the one one process writes on the card, byte for byte.
 
 These cases need an NVIDIA card (and ``nvcc`` for BigGAN's attention
 kernels); elsewhere they skip. The file imports no JAX, so on a machine
@@ -20,13 +25,18 @@ without it run it past the suite's JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_parallel_cuda.py
 """
+import json
+import os
+import os.path as osp
+import shutil
+
 import pytest
 import torch
 
 # The test directory is on the path (pytest's rootdir insertion, and the
 # script's own directory in the ranks): named plainly, these resolve there
 # even where another installed package is called ``tests``.
-from test_torch_train_graph_cuda import SPREAD, _bit_equal, _close_as_eager
+from test_torch_train_graph_cuda import SPREAD, _bit_equal, _close_as_eager, _generator
 from torch_ranks import spawn
 from warpedganspace_torch.models.reconstructor import BatchNorm
 
@@ -111,3 +121,61 @@ def test_nccl_graphed_chunks_match_eager_steps(cuda, tmp_path, family):
         else:
             assert _close_as_eager(got[name], w, again[name]), (name, SPREAD)
     assert _close_as_eager(rows, want_rows, again_rows)
+
+
+def _files(root):
+    out = {}
+    for dirpath, _, filenames in os.walk(root):
+        for f in filenames:
+            with open(osp.join(dirpath, f), "rb") as fh:
+                out[osp.relpath(osp.join(dirpath, f), root)] = fh.read()
+    return out
+
+
+def test_two_gloo_ranks_split_one_stylegan2_code(cuda, tmp_path, monkeypatch):
+    from warpedganspace_torch.cli import sample_gan, traverse_latent_space
+    from warpedganspace_torch.models.support_sets import SupportSets
+    from warpedganspace_torch.ops import rbf_cuda, sg2_tail_cuda
+
+    k, steps, batch = 3, 2, 4                   # 15 frames: 4 batches, the last padded
+    G = _generator("StyleGAN2", torch.device("cpu"))[0]
+    base = tmp_path / "base"
+    base.mkdir()
+    monkeypatch.chdir(base)
+    monkeypatch.setattr(sample_gan, "build_gan", lambda **kw: G.to(kw["device"]))
+    sample_gan.main(["-g", "StyleGAN2", "--num-samples", "1", "--pool", "one",
+                     "--stylegan2-resolution", "256", "--shift-in-w-space"])
+    os.makedirs(osp.join("exp", "models"))
+    S = SupportSets(k, 8, 512, learn_gammas=True, generator=torch.Generator().manual_seed(3))
+    torch.save(S.to_torch_state_dict(), osp.join("exp", "models", "support_sets.pt"))
+    with open(osp.join("exp", "args.json"), "w") as f:
+        json.dump({"gan_type": "StyleGAN2", "num_support_sets": k, "num_support_dipoles": 8,
+                   "learn_alphas": False, "learn_gammas": True, "gamma": None,
+                   "shift_in_w_space": True, "stylegan2_resolution": 256}, f)
+    for name in ("single", "ranks/multi"):
+        shutil.copytree(base, tmp_path / name)
+    argv = ["--exp", "exp", "--pool", "one", "--shift-steps", str(steps), "--eps", "0.2",
+            "--batch-size", str(batch), "--dtype", "bfloat16"]
+
+    monkeypatch.chdir(tmp_path / "single")
+    monkeypatch.setattr(traverse_latent_space, "build_gan", lambda **kw: G.to(kw["device"]))
+    rbf_cuda.launches = sg2_tail_cuda.launches = 0
+    traverse_latent_space.main(argv)
+    torch.cuda.synchronize()
+    single_launches = {"rbf_warp": rbf_cuda.launches, "sg2_tail": sg2_tail_cuda.launches}
+    G.cpu()
+    torch.save({"G": G, "argv": argv + ["--multi-device"], "backend": "gloo"},
+               tmp_path / "ranks" / "traverse_in.pt")
+    ranks = [res for _, res in spawn("traverse", str(tmp_path / "ranks"), world=2, timeout=600)]
+
+    assert [[b for b in r["rendered"] if b[1] > b[0]] for r in ranks] == [[(0, 2)], [(2, 4)]]
+    assert single_launches["rbf_warp"] == steps and single_launches["sg2_tail"] > 0
+    per_batch = single_launches["sg2_tail"] // 4
+    for r in ranks:
+        assert r["launches"] == {"rbf_warp": steps, "sg2_tail": 2 * per_batch}, r["launches"]
+    res = osp.join("exp", "results", "one", "4_0.2_0.8")
+    single, multi = (_files(tmp_path / d / res) for d in ("single", "ranks/multi"))
+    assert sorted(multi) == sorted(single)
+    assert sum(f.endswith(".jpg") for f in single) == k * (2 * steps + 1) + 1
+    for rel, data in single.items():
+        assert multi[rel] == data, rel

@@ -244,24 +244,62 @@ def predictors(sds: dict) -> dict:
 
 def scenario_attribute(workdir: str) -> dict:
     """``traverse_attribute_space --multi-device`` on the tree in
-    ``workdir/multi``, its predictors built from ``attribute_in.pt``."""
+    ``workdir/multi``, its predictors built from ``attribute_in.pt``; every
+    rank lists the ``(hash, path)`` pairs it evaluated."""
     from warpedganspace_torch.cli import traverse_attribute_space as cli
     from warpedganspace_torch.parallel import mesh
 
     torch.set_num_threads(1)
     inputs = torch.load(osp.join(workdir, "attribute_in.pt"), weights_only=False)
     evaluated = []
-    real_eval = cli.evaluate_hash_dir
+    real_paths = cli.evaluate_paths
 
-    def evaluate(h_dir, *args, **kwargs):
-        evaluated.append(osp.basename(h_dir))
-        return real_eval(h_dir, *args, **kwargs)
+    def evaluate_paths(pairs, *args, **kwargs):
+        pairs = list(pairs)
+        evaluated.extend((osp.basename(h_dir), d) for h_dir, d in pairs)
+        return real_paths(pairs, *args, **kwargs)
 
     cli.load_predictors = lambda device: predictors(inputs["state_dicts"])
-    cli.evaluate_hash_dir = evaluate
+    cli.evaluate_paths = evaluate_paths
     os.chdir(osp.join(workdir, "multi"))
     cli.main(inputs["argv"])
     return {"rank": mesh.rank(), "evaluated": evaluated}
+
+
+def scenario_traverse(workdir: str) -> dict:
+    """``traverse_latent_space --multi-device`` in ``workdir/multi`` with the
+    generator, arguments and (optionally) backend of ``traverse_in.pt``;
+    every rank lists the render batches it rendered, by code, the
+    generator's calls and the warp's and StyleGAN2 tail's kernel launches."""
+    from warpedganspace_torch.cli import traverse_latent_space as cli
+    from warpedganspace_torch.ops import rbf_cuda, sg2_tail_cuda
+    from warpedganspace_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    inputs = torch.load(osp.join(workdir, "traverse_in.pt"), weights_only=False)
+    if inputs.get("backend"):          # gloo: two ranks that share one card
+        mesh.initialize_distributed(backend=inputs["backend"])
+    G, rendered, calls = inputs["G"], [], []
+    real_iter, real_forward = cli.iter_rendered_u8, type(G).forward
+
+    def iter_rendered_u8(*args, batches=None, **kwargs):
+        rendered.append((batches.start, batches.stop))
+        return real_iter(*args, batches=batches, **kwargs)
+
+    def forward(self, z, *args, **kwargs):
+        calls.append(z.shape[0])
+        return real_forward(self, z, *args, **kwargs)
+
+    cli.build_gan = lambda **kw: G.to(kw["device"])
+    cli.iter_rendered_u8 = iter_rendered_u8
+    type(G).forward = forward
+    os.chdir(osp.join(workdir, "multi"))
+    try:
+        cli.main(inputs["argv"])
+    finally:
+        type(G).forward = real_forward
+    return {"rank": mesh.rank(), "rendered": rendered, "calls": calls,
+            "launches": {"rbf_warp": rbf_cuda.launches, "sg2_tail": sg2_tail_cuda.launches}}
 
 
 def scenario_bn_cuda(workdir: str) -> dict:
@@ -317,7 +355,8 @@ def scenario_graph_nccl(workdir: str) -> dict:
 
 
 SCENARIOS = {"units": scenario_units, "pipeline": scenario_pipeline,
-             "attribute": scenario_attribute, "bn_cuda": scenario_bn_cuda,
+             "attribute": scenario_attribute, "traverse": scenario_traverse,
+             "bn_cuda": scenario_bn_cuda,
              "graph_nccl": scenario_graph_nccl}
 
 

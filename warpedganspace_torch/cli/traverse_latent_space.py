@@ -13,13 +13,18 @@ The path integration runs one warp call per step for all codes and paths
 (the CUDA kernel on a CUDA device, see traverse/engine.py); the frames are
 rendered in device batches and JPEG-encoded on a host thread pool.
 
-Several processes split the sorted latent codes, ``codes[i::n]``, and each
-writes the hash dirs of its own codes (no collective): under a process group
-(``torchrun`` with ``--multi-device``, which a group requires: one card per
-rank) the split is over the ranks, and after a barrier the coordinator alone
-collates the GIFs; with
-``--num-shards``/``--shard-index`` it is over unconnected processes, which
-cannot collate (``--gif`` is refused there).
+Under a process group (``torchrun`` with ``--multi-device``, which a group
+requires: one card per rank) the ranks split the work inside a latent code, as
+the JAX package splits it over the cards of its local mesh: every rank
+integrates every code's paths, as one process does, and renders its
+contiguous block of the code-major list of render batches (each code's flat
+stream cut into ``ceil(K * T / batch)`` batches as one process cuts it), and
+writes those frames; the coordinator writes every code's
+``paths_latent_codes.pt`` and, after a barrier, collates the GIFs. The tree is
+the one that one process writes. With ``--num-shards``/``--shard-index``
+unconnected processes split the sorted latent codes, ``codes[i::n]``, each
+writing the hash dirs of its own codes; they cannot collate (``--gif`` is
+refused there).
 
     python -m warpedganspace_torch.cli.traverse_latent_space --exp <EXP_DIR> --pool <POOL>
     torchrun --nproc-per-node 4 -m warpedganspace_torch.cli.traverse_latent_space \
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import os.path as osp
 
@@ -75,9 +81,9 @@ def build_parser():
     parser.add_argument("--dtype", type=str, default="float32", choices=("float32", "bfloat16"),
                         help="generator render dtype (the warp integration always runs in float32)")
     parser.add_argument("--multi-device", action="store_true",
-                        help="split the codes over the ranks of a process group, one card "
-                             "each (launch with torchrun --nproc-per-node N); required "
-                             "under a group")
+                        help="split every code's render batches over the ranks of a process "
+                             "group, one card each (launch with torchrun --nproc-per-node N); "
+                             "required under a group")
     parser.add_argument("--num-shards", type=int, default=1,
                         help="unconnected processes splitting the latent codes (each "
                              "traverses codes shard-index::num-shards)")
@@ -128,8 +134,7 @@ def main(argv=None):
     if grouped:
         if args.num_shards != 1:
             parser.error("--num-shards is for unconnected processes; under a process "
-                         "group the codes are split over the ranks")
-        args.num_shards, args.shard_index = mesh.world_size(), mesh.rank()
+                         "group the render batches are split over the ranks")
     elif args.num_shards > 1 and args.gif:
         raise ValueError("--gif needs every code's frames on disk: collate the GIFs in "
                          "an unsplit pass after all shards have finished")
@@ -193,13 +198,11 @@ def main(argv=None):
         raise ValueError(f"latent-code pool {pool} contains no latent codes")
     latent_codes_dirs = mesh.partition_work(latent_codes_dirs, args.num_shards,
                                             args.shard_index)
-    if latent_codes_dirs:
-        _traverse_codes(args, G, S, pool, latent_codes_dirs, out_dir, shift_in_w_space,
-                        device)
-    elif not grouped:
+    if not latent_codes_dirs:
         print("#. Shard {}/{} has no latent codes; nothing to do.".format(
             args.shard_index, args.num_shards))
         return
+    _traverse_codes(args, G, S, pool, latent_codes_dirs, out_dir, shift_in_w_space, device)
 
     # The tree is whole once every rank's writer is done; the GIFs read it all.
     mesh.sync_processes("traversal-frames-done")
@@ -209,7 +212,8 @@ def main(argv=None):
 
 
 def _traverse_codes(args, G, S, pool, latent_codes_dirs, out_dir, shift_in_w_space, device):
-    """Integrate the paths of these codes and write their hash dirs."""
+    """Integrate the paths of these codes and write this process's share of
+    their hash dirs."""
     num_gen_paths = S.num_support_sets
     zs = np.concatenate([np.asarray(load_pt(osp.join(pool, d, "latent_code.pt")))
                          for d in latent_codes_dirs]).astype(np.float32)
@@ -237,11 +241,27 @@ def _traverse_codes(args, G, S, pool, latent_codes_dirs, out_dir, shift_in_w_spa
                       num_gen_paths, out_dir, shift_in_w_space, writer)
 
 
+def _render_batches(args, num_codes: int, num_frames: int, num_gen_paths: int) -> dict:
+    """{code index: range of its render batches} that this process renders:
+    its contiguous block of the code-major list of every code's
+    ``ceil(K * T / batch)`` batches (all of them in one process)."""
+    per_code = math.ceil(num_gen_paths * num_frames / args.batch_size)
+    work = [(i, b) for i in range(num_codes) for b in range(per_code)]
+    mine = {}
+    for i, b in mesh.rank_block(work, mesh.world_size(), mesh.rank()):
+        mine.setdefault(i, []).append(b)
+    return {i: range(bs[0], bs[-1] + 1) for i, bs in mine.items()}
+
+
 def _traverse_all(args, G, render_dtype, codes, shifts, codes_np, latent_codes_dirs,
                   num_gen_paths, out_dir, shift_in_w_space, writer):
     num_codes = len(latent_codes_dirs)
     num_frames = codes.shape[2]
+    mine = _render_batches(args, num_codes, num_frames, num_gen_paths)
+    coordinator = mesh.is_coordinator()
     for i, latent_code_hash in enumerate(latent_codes_dirs):
+        if i not in mine and not coordinator:
+            continue
         if args.verbose:
             update_progress("  \\__.Latent code hash: {} [{:03d}/{:03d}] ".format(
                 latent_code_hash, i + 1, num_codes), num_codes, i)
@@ -252,14 +272,17 @@ def _traverse_all(args, G, render_dtype, codes, shifts, codes_np, latent_codes_d
             os.makedirs(d, exist_ok=True)
             path_dirs.append(d)
 
-        # All of this code's frames (every path x every step) as one render
-        # stream: frames of different paths share device batches and come
-        # back as uint8; JPEG encodes overlap on the writer's threads.
+        # This process's batches of the code's frames (every path x every
+        # step) as one render stream: frames of different paths share device
+        # batches and come back as uint8; JPEG encodes overlap on the
+        # writer's threads.
         flat_codes = codes[i].reshape(num_gen_paths * num_frames, -1)
         flat_shifts = shifts[i].reshape(num_gen_paths * num_frames, -1)
-        done_paths = 0
+        batches = mine.get(i, range(0))
+        done_paths = batches.start * args.batch_size // num_frames
         for start, imgs in iter_rendered_u8(G, flat_codes, flat_shifts, args.batch_size,
-                                            latent_is_w=shift_in_w_space, dtype=render_dtype):
+                                            latent_is_w=shift_in_w_space, dtype=render_dtype,
+                                            batches=batches):
             for j in range(imgs.shape[0]):
                 dim, t = divmod(start + j, num_frames)
                 writer.submit(imgs[j], osp.join(path_dirs[dim], "{:06d}.jpg".format(t)),
@@ -277,7 +300,8 @@ def _traverse_all(args, G, render_dtype, codes, shifts, codes_np, latent_codes_d
                     update_stdout(1)
 
         # (K, T, dim) latent codes of all paths for this sample (reference :488-490).
-        save_pt(codes_np[i], osp.join(latent_code_dir, "paths_latent_codes.pt"))
+        if coordinator:
+            save_pt(codes_np[i], osp.join(latent_code_dir, "paths_latent_codes.pt"))
         if args.verbose:
             update_stdout(1)
             print()

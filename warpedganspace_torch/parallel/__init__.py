@@ -6,16 +6,20 @@ from warpedganspace_torch.parallel.mesh import (
     active,
     all_reduce_sum,
     assert_identical_across_processes,
+    gather_to_coordinator,
+    host_threads,
     initialize_distributed,
     is_coordinator,
     launch_error,
     local_device,
     partition_work,
     rank,
+    rank_block,
     sync_processes,
     world_size,
 )
 
 __all__ = ["active", "all_reduce_sum", "assert_identical_across_processes",
-           "initialize_distributed", "is_coordinator", "launch_error", "local_device",
-           "partition_work", "rank", "sync_processes", "world_size"]
+           "gather_to_coordinator", "host_threads", "initialize_distributed",
+           "is_coordinator", "launch_error", "local_device", "partition_work", "rank",
+           "rank_block", "sync_processes", "world_size"]

@@ -12,10 +12,16 @@ explicit device of its own.
   same from a GSPMD mesh (``make_mesh``, ``shard_batch``,
   ``replicate_to_global``); those place arrays on a mesh and have no
   counterpart here, where each rank owns its slice.
-- **Traversal and attribute evaluation** split their sorted work lists over
-  the ranks with :func:`partition_work` and use no collective; a barrier
-  stands where the coordinator reads what the others wrote.
-- Every file of a tree has one writer, the coordinator (rank 0).
+- **Traversal and attribute evaluation** split the work inside a latent code
+  over the ranks, as the JAX package splits it over the cards of its local
+  mesh: :func:`rank_block` gives each rank its contiguous block of the
+  code-major list of render batches, or of ``(hash, path)`` pairs. A rank
+  writes the frames it renders; a file that holds several ranks' work (the
+  stored codes, the attribute arrays) has one writer, the coordinator (rank
+  0), which gathers the per-path records (:func:`gather_to_coordinator`). A
+  barrier stands where the coordinator reads what the others wrote.
+- Unconnected processes (``--num-shards``) split whole codes or hash dirs
+  with :func:`partition_work` and use no collective.
 
 Without a launcher environment and without arguments, nothing is initialised
 and every helper answers for one process: rank 0 of 1, barriers are no-ops.
@@ -203,6 +209,36 @@ def assert_identical_across_processes(tree, name: str) -> None:
         raise RuntimeError(f"{name} differs from the coordinator's on rank(s) {ranks} "
                            "(a torn checkpoint or sidecar read?): refusing to train "
                            "divergent replicas")
+
+
+def host_threads(cap: int = 8) -> int:
+    """Host threads for one process's pools (JPEG encodes, frame decodes): the
+    host's cores shared by the ranks of the group, at most ``cap``."""
+    return max(1, min(cap, (os.cpu_count() or 1) // world_size()))
+
+
+def gather_to_coordinator(obj):
+    """Every rank's ``obj`` (picklable), in rank order, on the coordinator;
+    None on the others. One process gets ``[obj]``. The objects travel on the
+    group's backend (NCCL moves them through the current card)."""
+    if world_size() <= 1:
+        return [obj]
+    out = [None] * world_size() if is_coordinator() else None
+    dist.gather_object(obj, out, dst=0)
+    return out
+
+
+def rank_block(items, num_shards: int = 1, shard_index: int = 0) -> list:
+    """Shard ``shard_index``'s contiguous block of the ordered work list
+    ``items``: the blocks of the ``num_shards`` shards differ in size by at
+    most one (the first ``len % num_shards`` are the longer), and joined in
+    shard order they are the list. With one shard it is the whole list."""
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index {shard_index} out of range for {num_shards} shards")
+    items = list(items)
+    size, extra = divmod(len(items), num_shards)
+    start = shard_index * size + min(shard_index, extra)
+    return items[start:start + size + (shard_index < extra)]
 
 
 def partition_work(items, num_shards: int = 1, shard_index: int = 0) -> list:

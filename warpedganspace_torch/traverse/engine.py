@@ -85,12 +85,16 @@ def _render_u8(G, codes, shifts, latent_is_w: bool):
 
 @torch.no_grad()
 def iter_rendered_u8(G, codes: torch.Tensor, shifts: torch.Tensor, batch_size: int,
-                     latent_is_w: bool = False, dtype: torch.dtype | None = None):
+                     latent_is_w: bool = False, dtype: torch.dtype | None = None,
+                     batches: range | None = None):
     """Yield (start, uint8 numpy chunk (b, H, W, C)) over a flat (T, d) sequence
     of (code, shift) rows: the traversal CLI's render stream.
 
     Rows of different paths share batches; the last batch is padded to a full
-    one. The per-image min/max conversion (``images.tensor2image``'s adaptive
+    one. ``batches`` (a range of batch indices, by default all
+    ``ceil(T / batch_size)``) renders only those batches of the stream, cut
+    where the whole stream cuts them: a rank of a group renders its block. The
+    per-image min/max conversion (``images.tensor2image``'s adaptive
     mode) runs on the device, so the host receives 1 byte per pixel. On a CUDA
     device each batch is copied to pinned host memory right after its render
     is queued, and yielded only after the next batch's render is queued, so
@@ -98,9 +102,11 @@ def iter_rendered_u8(G, codes: torch.Tensor, shifts: torch.Tensor, batch_size: i
     """
     if dtype is not None:
         codes, shifts = codes.to(dtype), shifts.to(dtype)
-    t = codes.shape[0]
+    starts = range(0, codes.shape[0], batch_size)
+    if batches is not None:
+        starts = starts[batches.start:batches.stop]
     prev = None
-    for start in range(0, t, batch_size):
+    for start in starts:
         c, s = codes[start:start + batch_size], shifts[start:start + batch_size]
         pad = batch_size - c.shape[0]
         if pad:

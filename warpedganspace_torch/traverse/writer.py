@@ -7,20 +7,22 @@ device never waits on the filesystem. Bounded queue => bounded host RAM.
 """
 from __future__ import annotations
 
-import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from warpedganspace_torch.parallel.mesh import host_threads
 from warpedganspace_torch.traverse.images import tensor2image
 
 
 class AsyncImageWriter:
-    """Thread-pooled tensor2image + JPEG save with a bounded in-flight window."""
+    """Thread-pooled tensor2image + JPEG save with a bounded in-flight window;
+    by default a thread per core of the host's share of this process
+    (``host_threads``: the cores over the ranks of a group, at most 8)."""
 
     def __init__(self, workers: int | None = None, max_inflight: int = 256):
         if workers is None:
-            workers = min(8, os.cpu_count() or 4)
+            workers = host_threads()
         self._pool = ThreadPoolExecutor(max_workers=workers)
         self._max_inflight = max_inflight
         self._futures = []
