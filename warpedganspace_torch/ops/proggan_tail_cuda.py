@@ -18,8 +18,10 @@ products). This wrapper prepares the weights each design reads
 for bf16 K-contiguous (:func:`tc_weights`), a few small elementwise passes on
 the card on every call; for float32 split into 16-byte records of B fragments
 (:func:`f32_records`), made once for a weight pair and kept while the weights
-do not change (:func:`cached_f32_records`). The float32 design on the CUDA
-cores that the split-precision one replaced is bound for comparison only, by
+do not change (:func:`cached_f32_records`); both in the span
+``wgs.proggan_tail.weights`` (:mod:`~warpedganspace_torch.utils.spans`). The
+float32 design on the CUDA cores that the split-precision one replaced is
+bound for comparison only, by
 :mod:`warpedganspace_torch.ops.proggan_tail_cuda_cores`.
 
 - :func:`fused_section` is one section, :func:`proggan_tail` the chain of
@@ -44,6 +46,7 @@ import torch
 from warpedganspace_torch.ops.proggan_tail import (TAIL_CHANNELS, fused_section_plain,
                                                    merge_up_taps)
 from warpedganspace_torch.ops.sg2_tail_cuda import split_records
+from warpedganspace_torch.utils.spans import span
 
 SOURCE = "proggan_tail.cu"
 launches = 0
@@ -183,7 +186,8 @@ def _launch(x, w_up, b_up, s_up, w_same, b_same, s_same, head):
         return out
     lib = build()
     head_ptrs = [t.data_ptr() for t in head] if head is not None else [None] * 3
-    w_up, w_same = kernel_weights(w_up, w_same, x.dtype)
+    with span("wgs.proggan_tail.weights"):
+        w_up, w_same = kernel_weights(w_up, w_same, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.proggan_tail_section_launch(

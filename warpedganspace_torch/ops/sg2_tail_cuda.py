@@ -19,7 +19,8 @@ once and laid out K-contiguous); float32 in split precision (``mma.sync``
 m16n8k8, each operand as TF32 hi + lo, three products), the transposed conv's
 raw taps and then the blur, with the weights split here into 16-byte records
 of B fragments (:func:`split_records`). Both layouts are prepared here on
-every call, a few small elementwise passes; the products are the kernel's.
+every call, a few small elementwise passes (the span ``wgs.sg2_tail.weights``,
+:mod:`~warpedganspace_torch.utils.spans`); the products are the kernel's.
 The float32 design on the CUDA cores that the split-precision one replaced is
 bound for comparison only, by :mod:`warpedganspace_torch.ops.sg2_tail_cuda_cores`.
 
@@ -44,6 +45,7 @@ import torch
 
 from warpedganspace_torch.ops.sg2_tail import (TAIL_CHANNELS, compose_up_weight,
                                                fused_section_plain)
+from warpedganspace_torch.utils.spans import span
 
 SOURCE = "sg2_tail.cu"
 launches = 0
@@ -166,7 +168,8 @@ def _launch(want_x2: bool, *operands):
     if rgb.numel() == 0:
         return rgb, x2
     lib = build()
-    wu, ws, wr = kernel_weights(w_up, w_same, w_rgb, x.dtype)
+    with span("wgs.sg2_tail.weights"):
+        wu, ws, wr = kernel_weights(w_up, w_same, w_rgb, x.dtype)
     vectors = [t.data_ptr() for t in operands[4:]]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

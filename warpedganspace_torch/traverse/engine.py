@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from warpedganspace_torch.ops.rbf_cuda import prepare_warp_sets, warp_grad_all_sets_kn
+from warpedganspace_torch.utils.spans import span
 
 
 @torch.no_grad()
@@ -43,44 +44,56 @@ def traverse_paths(S, latents: torch.Tensor, eps: float, shift_steps: int,
     Returns:
         codes, shifts: (N, K, T, d) stored codes and the shifts that produced
         them (zero at the center).
+
+    The call is the span ``wgs.traverse``; the sets' packing, the step loop
+    and the assembly of the outputs are ``wgs.traverse.prepare_sets``,
+    ``.integrate`` and ``.assemble`` (:mod:`~warpedganspace_torch.utils.spans`).
     """
-    k = S.num_support_sets
-    n, d = latents.shape
-    latents = latents.float()
-    ws = prepare_warp_sets(S.support_sets, S.alphas, S.gammas())
+    with span("wgs.traverse"):
+        k = S.num_support_sets
+        n, d = latents.shape
+        latents = latents.float()
+        with span("wgs.traverse.prepare_sets"):
+            ws = prepare_warp_sets(S.support_sets, S.alphas, S.gammas())
 
-    # Rows [0, n) advance by +eps and rows [n, 2n) by -eps in the same call.
-    z = latents[None].expand(k, n, d)
-    z = torch.cat([z, z], dim=1).contiguous()                         # (K, 2N, d)
-    signed_eps = torch.cat([torch.full((n,), eps), torch.full((n,), -eps)])
-    signed_eps = signed_eps.to(latents)[None, :, None]                # (1, 2N, 1)
+        # Rows [0, n) advance by +eps and rows [n, 2n) by -eps in the same call.
+        z = latents[None].expand(k, n, d)
+        z = torch.cat([z, z], dim=1).contiguous()                         # (K, 2N, d)
+        signed_eps = torch.cat([torch.full((n,), eps), torch.full((n,), -eps)])
+        signed_eps = signed_eps.to(latents)[None, :, None]                # (1, 2N, 1)
 
-    codes_t = torch.empty((shift_steps, k, 2 * n, d), dtype=torch.float32,
-                          device=latents.device)
-    shifts_t = torch.empty_like(codes_t)
-    for t in range(shift_steps):
-        shift = signed_eps * warp_grad_all_sets_kn(ws, z, backend)
-        z = z + shift
-        codes_t[t] = z
-        shifts_t[t] = shift
+        codes_t = torch.empty((shift_steps, k, 2 * n, d), dtype=torch.float32,
+                              device=latents.device)
+        shifts_t = torch.empty_like(codes_t)
+        with span("wgs.traverse.integrate"):
+            for t in range(shift_steps):
+                shift = signed_eps * warp_grad_all_sets_kn(ws, z, backend)
+                z = z + shift
+                codes_t[t] = z
+                shifts_t[t] = shift
 
-    sel = torch.arange(shift_leap - 1, shift_steps, shift_leap, device=latents.device)
-    codes_t = codes_t.index_select(0, sel).permute(0, 2, 1, 3)       # (T', 2N, K, d)
-    shifts_t = shifts_t.index_select(0, sel).permute(0, 2, 1, 3)
-    center = latents[None, :, None, :].expand(1, n, k, d)
-    codes = torch.cat([codes_t[:, n:].flip(0), center, codes_t[:, :n]], dim=0)
-    shifts = torch.cat([shifts_t[:, n:].flip(0), torch.zeros_like(center), shifts_t[:, :n]],
-                       dim=0)
-    return codes.permute(1, 2, 0, 3).contiguous(), shifts.permute(1, 2, 0, 3).contiguous()
+        with span("wgs.traverse.assemble"):
+            sel = torch.arange(shift_leap - 1, shift_steps, shift_leap, device=latents.device)
+            codes_t = codes_t.index_select(0, sel).permute(0, 2, 1, 3)   # (T', 2N, K, d)
+            shifts_t = shifts_t.index_select(0, sel).permute(0, 2, 1, 3)
+            center = latents[None, :, None, :].expand(1, n, k, d)
+            codes = torch.cat([codes_t[:, n:].flip(0), center, codes_t[:, :n]], dim=0)
+            shifts = torch.cat([shifts_t[:, n:].flip(0), torch.zeros_like(center),
+                                shifts_t[:, :n]], dim=0)
+            return (codes.permute(1, 2, 0, 3).contiguous(),
+                    shifts.permute(1, 2, 0, 3).contiguous())
 
 
 def _render_u8(G, codes, shifts, latent_is_w: bool):
     """Render one batch and convert each image to uint8 NHWC by its own min/max."""
-    img = G(codes, shifts, latent_is_w=latent_is_w).float()
-    lo = img.amin(dim=(1, 2, 3), keepdim=True)
-    hi = img.amax(dim=(1, 2, 3), keepdim=True)
-    x = (img - lo) / torch.clamp(hi - lo, min=1e-12)
-    return (255.0 * x).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    with span("wgs.render.generator"):
+        img = G(codes, shifts, latent_is_w=latent_is_w)
+    with span("wgs.render.to_u8"):
+        img = img.float()
+        lo = img.amin(dim=(1, 2, 3), keepdim=True)
+        hi = img.amax(dim=(1, 2, 3), keepdim=True)
+        x = (img - lo) / torch.clamp(hi - lo, min=1e-12)
+        return (255.0 * x).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
 
 
 @torch.no_grad()
@@ -99,6 +112,12 @@ def iter_rendered_u8(G, codes: torch.Tensor, shifts: torch.Tensor, batch_size: i
     device each batch is copied to pinned host memory right after its render
     is queued, and yielded only after the next batch's render is queued, so
     one batch of device->host latency hides behind the next render.
+
+    A batch's issue (``wgs.render.issue``: the generator, the uint8
+    conversion, the pinned allocation and the copy) and its delivery
+    (``wgs.render.deliver``: the wait for its copy and the numpy view) are
+    spans (:mod:`~warpedganspace_torch.utils.spans`). No span is open across
+    a ``yield``: it would time the consumer.
     """
     if dtype is not None:
         codes, shifts = codes.to(dtype), shifts.to(dtype)
@@ -107,19 +126,25 @@ def iter_rendered_u8(G, codes: torch.Tensor, shifts: torch.Tensor, batch_size: i
         starts = starts[batches.start:batches.stop]
     prev = None
     for start in starts:
-        c, s = codes[start:start + batch_size], shifts[start:start + batch_size]
-        pad = batch_size - c.shape[0]
-        if pad:
-            c = torch.cat([c, c.new_zeros((pad, c.shape[1]))])
-            s = torch.cat([s, s.new_zeros((pad, s.shape[1]))])
-        out = _render_u8(G, c, s, latent_is_w)
-        done = None
-        if out.is_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            out = host
+        with span("wgs.render.issue"):
+            c, s = codes[start:start + batch_size], shifts[start:start + batch_size]
+            pad = batch_size - c.shape[0]
+            if pad:
+                c = torch.cat([c, c.new_zeros((pad, c.shape[1]))])
+                s = torch.cat([s, s.new_zeros((pad, s.shape[1]))])
+            out = _render_u8(G, c, s, latent_is_w)
+            # Both spans open on every device, so a trace shows the stream's
+            # phases alike; off a card they hold nothing.
+            host = done = None
+            with span("wgs.render.pin_alloc"):
+                if out.is_cuda:
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            with span("wgs.render.d2h"):
+                if host is not None:
+                    host.copy_(out, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                    out = host
         if prev is not None:
             yield _finish(*prev)
         prev = (start, out, done, pad)
@@ -128,7 +153,9 @@ def iter_rendered_u8(G, codes: torch.Tensor, shifts: torch.Tensor, batch_size: i
 
 
 def _finish(start, out, done, pad):
-    if done is not None:
-        done.synchronize()
-    img = out.numpy()
-    return start, (img[:-pad] if pad else img)
+    with span("wgs.render.deliver"):
+        with span("wgs.render.wait"):
+            if done is not None:
+                done.synchronize()
+        img = out.numpy()
+        return start, (img[:-pad] if pad else img)
