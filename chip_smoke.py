@@ -1253,14 +1253,18 @@ def phase_sg2_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
     from warpedganspace_torch.ops import sg2_tail_cuda
     from warpedganspace_torch.ops.sg2_tail import fused_section_plain
     from warpedganspace_torch.ops.sg2_tail_cuda_cores import cc_section
+    from warpedganspace_torch.ops.sg2_tail_polyphase import polyphase_section
 
     def run(ops, want_x2, name):
         """Kernel against the plain version in f32 on the same (rounded) operands."""
         before = sg2_tail_cuda.launches
+        key = sg2_tail_cuda.DESIGN_KEYS[ops[0].dtype]
+        before_design = sg2_tail_cuda.launches_by_design[key]
         got = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
         torch.cuda.synchronize()
-        check(sg2_tail_cuda.launches == before + 1,
-              "the sg2 tail kernel's launch count did not move")
+        check(sg2_tail_cuda.launches == before + 1
+              and sg2_tail_cuda.launches_by_design[key] == before_design + 1,
+              "the sg2 tail kernel's launch count (or its design's) did not move")
         ref = fused_section_plain(*[t.float() for t in ops], want_x2=want_x2)
         got, ref = (got, ref) if want_x2 else ((got,), (ref,))
         e = 0.0
@@ -1272,12 +1276,12 @@ def phase_sg2_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
         # another order, sums of up to 4 * 128 and 9 * 64 of them, the blur
         # after * d1 (the CPU emulation,
         # tests/test_torch_sg2_tail_f32_split_numerics.py: 2.4e-6 at worst).
-        # bf16, the tensor-core design: the products see x * s1, the composed
-        # up-conv weights and the mid tile (after * s2) rounded to bf16, x2
-        # stays f32 for ToRGB,
+        # bf16, the wgmma design: the products see x * s1 and the mid tile
+        # (after * s2) rounded to bf16 and the raw bf16 weights, x2 stays f32
+        # for ToRGB,
         # then the outputs are rounded: half an ulp of values below 8, 2^-6,
-        # plus at most about as much again from the three roundings (the CPU
-        # emulation, tests/test_torch_tail_tc_numerics.py: 0.0220 at worst).
+        # plus at most about as much again from the roundings (the CPU
+        # emulation, tests/test_torch_tail_tc_numerics.py: 0.0219 at worst).
         tol = 1e-4 if ops[0].dtype == torch.float32 else 3e-2
         check(e <= tol, f"sg2 tail kernel vs plain at {name}: max abs {e:.3g} > {tol}")
         return e
@@ -1340,9 +1344,19 @@ def phase_sg2_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
             ops = sg2_problem(6, TAIL_B, c, h, h, torch.bfloat16)
             kern = lambda: sg2_tail_cuda.fused_section(*ops, want_x2=x2)  # noqa: E731
             plain = lambda: fused_section_plain(*ops, want_x2=x2)  # noqa: E731
-            p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, kern, kern, plain))
+            poly = lambda: polyphase_section(*ops, want_x2=x2)  # noqa: E731
+            # The polyphase mma.sync design that the wgmma design replaced,
+            # through its own C entry, against the same plain version.
+            got, ref = poly(), fused_section_plain(*[t.float() for t in ops], want_x2=x2)
+            got, ref = (got, ref) if x2 else ((got,), (ref,))
+            row["polyphase_err"] = max(float((g.float() - r).abs().max()) for g, r in zip(got, ref))
+            check(row["polyphase_err"] <= 3e-2, f"the polyphase design vs plain at C={c}: "
+                                                f"{row['polyphase_err']:.3g}")
+            p1, k1, q1, q2, k2, p2 = (cuda_ms(f, iters=5, warmup=1)
+                                      for f in (plain, kern, poly, poly, kern, plain))
             row["ms_bf16"], row["plain_ms_bf16"] = (k1 + k2) / 2, (p1 + p2) / 2
-            row["runs_bf16"] = (k1, k2, p1, p2)
+            row["polyphase_ms_bf16"] = (q1 + q2) / 2
+            row["runs_bf16"] = (k1, k2, p1, p2, q1, q2)
             row["bound_ms_bf16"], row["bound_by_bf16"] = sg2_bound(TAIL_B, c, h, h, x2, 2)
             # How far the plain bf16 version, which rounds every intermediate,
             # is from the f32 one on the same operands; and the bf16 design's
@@ -1355,14 +1369,16 @@ def phase_sg2_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
                                         for g, r in zip(got, ref))
             ref64 = fused_section_plain(*[t.double() for t in ops], want_x2=x2)
             ref64 = ref64 if x2 else (ref64,)
-            for name, fn in (("bf16", kern), ("plain_bf16", plain)):
+            for name, fn in (("bf16", kern), ("polyphase", poly), ("plain_bf16", plain)):
                 out = fn()
                 row["audit_" + name] = error_stats([(out if x2 else (out,), ref64)])
             del ref, ref64, got, out
             # The render batch's own shape (bf16, the CLI's batch size).
             ops = sg2_problem(6, SG2["batch"], c, h, h, torch.bfloat16)
-            p1, k1, k2, p2 = (cuda_ms(f, iters=3, warmup=1) for f in (plain, kern, kern, plain))
+            p1, k1, q1, q2, k2, p2 = (cuda_ms(f, iters=3, warmup=1)
+                                      for f in (plain, kern, poly, poly, kern, plain))
             row["ms_render_bf16"], row["plain_ms_render_bf16"] = (k1 + k2) / 2, (p1 + p2) / 2
+            row["polyphase_ms_render_bf16"] = (q1 + q2) / 2
             row["bound_ms_render_bf16"], row["bound_by_render_bf16"] = sg2_bound(
                 SG2["batch"], c, h, h, x2, 2)
             sections.append(row)
@@ -1385,18 +1401,22 @@ def phase_sg2_tail_kernel(card: str, cuda_cores: bool = False) -> dict:
     sum_sections(res, sections)
     for r in sections:
         f32 = f32_section_text(r)
-        k1, k2, p1, p2 = r["runs_bf16"]
+        k1, k2, p1, p2, q1, q2 = r["runs_bf16"]
         print(f"[kernel] sg2_tail C={r['c']} {r['in']}^2 -> {2 * r['in']}^2"
               f"{' + x2' if r['want_x2'] else ''} on {card}: {f32}; bf16 B={TAIL_B}: kernel "
-              f"{r['ms_bf16']:.4f} ms ({k1:.4f}, {k2:.4f}) plain {r['plain_ms_bf16']:.4f} ms "
-              f"({p1:.4f}, {p2:.4f}), bound {r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} "
-              f"at the bf16 tensor-core peak; plain bf16 vs f32 max abs "
-              f"{r['plain_bf16_err']:.3g}; against float64 (max abs, signed mean error +- its "
-              f"standard error): bf16 kernel {stats_text(r['audit_bf16'])}, plain bf16 "
+              f"{r['ms_bf16']:.4f} ms ({k1:.4f}, {k2:.4f}) polyphase design "
+              f"{r['polyphase_ms_bf16']:.4f} ms ({q1:.4f}, {q2:.4f}) plain "
+              f"{r['plain_ms_bf16']:.4f} ms ({p1:.4f}, {p2:.4f}), bound "
+              f"{r['bound_ms_bf16']:.4f} ms by {r['bound_by_bf16']} at the bf16 tensor-core "
+              f"peak; plain bf16 vs f32 max abs {r['plain_bf16_err']:.3g}, polyphase design "
+              f"{r['polyphase_err']:.3g}; against float64 (max abs, signed mean error +- its "
+              f"standard error): bf16 kernel {stats_text(r['audit_bf16'])}, polyphase design "
+              f"{stats_text(r['audit_polyphase'])}, plain bf16 "
               f"{stats_text(r['audit_plain_bf16'])}; bf16 at the render batch "
               f"B={SG2['batch']}: kernel "
-              f"{r['ms_render_bf16']:.4f} ms plain {r['plain_ms_render_bf16']:.4f} ms bound "
-              f"{r['bound_ms_render_bf16']:.4f} ms; no library call")
+              f"{r['ms_render_bf16']:.4f} ms polyphase design "
+              f"{r['polyphase_ms_render_bf16']:.4f} ms plain {r['plain_ms_render_bf16']:.4f} ms "
+              f"bound {r['bound_ms_render_bf16']:.4f} ms; no library call")
     print(f"[kernel] sg2_tail, the two sections summed; design f32: {res['design']['float32']}, "
           f"bf16: {res['design']['bfloat16']}: f32 B={TAIL_B} kernel {res['ms']:.4f} ms, "
           f"CUDA-core design {ms_text(res['cc_ms'])}, plain {res['plain_ms']:.4f} ms, bound "
@@ -1480,6 +1500,7 @@ def phase_generator_stylegan2(card: str) -> None:
         shift = 0.2 * torch.nn.functional.normalize(torch.randn_like(w), dim=-1)
         w16, shift16 = w.bfloat16(), shift.bfloat16()
         before = sg2_tail_cuda.launches
+        by_design = dict(sg2_tail_cuda.launches_by_design)
         img = G(w, shift, latent_is_w=True)
         torch.cuda.synchronize()
         check(sg2_tail_cuda.launches == before + 2,
@@ -1487,6 +1508,10 @@ def phase_generator_stylegan2(card: str) -> None:
         img16 = G16(w16, shift16, latent_is_w=True).float()
         torch.cuda.synchronize()
         check(sg2_tail_cuda.launches == before + 4, "the bf16 forward's two tail launches")
+        check(sg2_tail_cuda.launches_by_design == {"wgmma": by_design["wgmma"] + 2,
+                                                   "split_tf32": by_design["split_tf32"] + 2},
+              "the bf16 forward's tail launches went through the wgmma design, the f32 "
+              "forward's through the split TF32 one")
         check_images(img, (4, 3, 1024, 1024), "f32")
         check_images(img16, (4, 3, 1024, 1024), "bf16")
         p16 = psnr(img16, img)

@@ -2,27 +2,38 @@
 
 Card counterpart of ``scripts/measure_sg2_megakernel_bound.py::_kernel``, the
 TPU rig that asked what rate the MXU sustains in the inner loop of
-StyleGAN2's 1024^2 same-conv. Here that loop runs on the tensor cores
-(``mma.sync`` m16n8k16, bf16 operands, f32 accumulation) in the bf16 design of
-``warpedganspace_torch/csrc/sg2_tail.cu``, so the question is asked of it.
+StyleGAN2's 1024^2 same-conv. Here that loop runs on the tensor cores in the
+bf16 designs of ``warpedganspace_torch/csrc/sg2_tail.cu`` and
+``csrc/proggan_tail.cu``, so the question is asked of them.
 
-Builds variants of the port's ``csrc/sg2_tail.cu`` and ``csrc/proggan_tail.cu``,
-each with one part of the bf16 design taken out or changed by a textual edit
-of the source (every edit must apply exactly once), and times each with CUDA
-events in turns with the shipped design (shipped first and last). The
-variants mirror the TPU rig's four:
+Builds variants of the two sources, each with one part of a bf16 design taken
+out or changed by a textual edit of the source (every edit must apply exactly
+once), and times each with CUDA events in turns with the unedited design
+(first and last). StyleGAN2 has two bf16 designs in its source: the shipped
+one on warpgroup MMA (``wgmma`` m64nCk16, the transposed conv's raw taps into
+a pre-blur window, the blur in f32, persistent blocks), launched through
+``sg2_tail_section_launch``, and the ``mma.sync`` m16n8k16 design of the
+polyphase up-conv that it replaced, kept for comparison behind
+``sg2_tail_section_tc_launch``; both are timed. The ``wgmma`` design's
+variants (``sg2_wg``): ``wg no products`` (the ``wgmma`` instructions taken
+out, their operand loads and the weight ring kept), ``wg no input staging``
+(the input rows' copies and the channel-last pass), ``wg no T writes``,
+``wg no blur`` (both passes), ``wg no final epilogue`` (ToRGB and x2) and
+``wg only the products`` (all four of those parts out). The polyphase design's
+(``sg2_tail``) and ProgGAN's bf16 design's (``proggan_tail``) mirror the TPU
+rig's four:
 
 - ``dots``: the products alone, the staging of activations and the weight
   chunks' copies taken out: the loop's tensor-core ceiling;
 - ``build``: the staging and the mid tile's epilogue and bf16 pack, no
   products;
-- ``full``: the shipped kernel;
+- ``full``: the unedited kernel;
 - ``inter``: each weight chunk's ``cp.async`` issued and waited on just before
   its products, instead of two chunks ahead of them;
 
 and, beside them, ``full`` without its epilogues, without the mid tile's
 writes, without the weight copies or without the input's staging, with other
-register bounds (``__launch_bounds__``: the shipped design asks for two blocks
+register bounds (``__launch_bounds__``: the design asks for two blocks
 an SM at C = 64, three at C = 32 and four at C = 16; the variants ask for one,
 and for one block fewer at C = 32 and 16), and the CUDA-core design
 of the same source run on bf16 operands (the design bf16 took before the
@@ -54,12 +65,14 @@ StyleGAN2 is timed at its 1024^2 section (C=32, 512^2 -> 1024^2) and its 512^2
 section (C=64, writing x2), ProgGAN at its three sections (C=64, 128^2 ->
 256^2; C=32, 256^2 -> 512^2; C=16, 512^2 -> 1024^2 with the RGB head, hi + lo
 products), all at the render batch B=16 in bf16. For each variant it prints the time and the
-sustained rate: the FLOP of the ``mma.sync`` instructions the shipped design
-issues for the section (4,096 a m16n8k16; the up-conv's 81 positions a parity
-padded to 96, the mid tile's halo recomputed), over the time, over the
-data-sheet dense bf16 peak of 989 TFLOP/s, beside the card's name and power
-limit. Nothing is calibrated against ``bench.py``: that calibration is the
-TPU's.
+sustained rate: the FLOP of the tensor-core instructions the design issues
+for the section (4,096 a m16n8k16; the polyphase up-conv's 81 positions a
+parity padded to 96, the mid tile's halo recomputed; 2 x 64 x C x 16 a
+``wgmma`` m64nCk16, the transposed conv's parity groups padded to two m64
+tiles each), over the time, over the data-sheet dense bf16 peak of 989
+TFLOP/s, with the registers and spills ``ptxas`` reports and the dynamic
+shared memory a block asks for, beside the card's name and power limit.
+Nothing is calibrated against ``bench.py``: that calibration is the TPU's.
 
     PYTHONPATH=. python scripts/measure_sg2_tail_tc_rate.py [--only f32|bf16]
 
@@ -80,13 +93,14 @@ import torch
 
 from warpedganspace_torch.ops import _build, proggan_tail_cuda, sg2_tail_cuda
 from warpedganspace_torch.ops.sg2_tail_cuda_cores import cc_weights
+from warpedganspace_torch.ops.sg2_tail_polyphase import polyphase_weights
 
 B = 16                                      # the render batch
 B_F32 = 4                                   # the f32 design's timed batch
 PEAK_BF16_FLOPS = 989e12                    # H100 SXM data sheet, dense bf16
 PEAK_TF32_FLOPS = 495e12                    # H100 SXM data sheet, dense TF32
 OUT_DIR = osp.join(osp.dirname(_build.BUILD_DIR), "tail_tc_rate")
-HEADERS = ("tc_bf16.cuh", "tc_conv.cuh", "tc_tf32.cuh")
+HEADERS = ("tc_bf16.cuh", "tc_conv.cuh", "tc_tf32.cuh", "tc_wgmma.cuh")
 
 # Textual edits of the tensor-core designs: (old, new), each applied once.
 SG2_NO_FETCH = [("  if (j >= K::NCHUNK) return;\n  if (j < K::NUP) {\n    const int t = j / K::UP_KB",
@@ -122,8 +136,29 @@ SG2_NO_MID_WRITES = [("          row[4 * n + tq] = tc::pack_bf16x2(v[0], v[1]);\
 MIN_BLOCKS = "template <int C>\nconstexpr int kMinBlocks = C == 64 ? 2 : (C == 32 ? 3 : 4);"
 FREE_REGISTERS = [(MIN_BLOCKS, "template <int C>\nconstexpr int kMinBlocks = 1;")]
 ONE_FEWER = [(MIN_BLOCKS, "template <int C>\nconstexpr int kMinBlocks = C == 16 ? 3 : 2;")]
-SG2_CUDA_CORES = [("is_bf16 ? tc::launch(in, rgb, x2, b, c, hi, wi, s)",
-                   "is_bf16 ? cc::launch<__nv_bfloat16>(in, rgb, x2, b, c, hi, wi, s)")]
+SG2_CUDA_CORES = [("  return (int)tc::launch(in, rgb, x2, b, c, hi, wi, static_cast<cudaStream_t>(stream));",
+                   "  return (int)cc::launch<__nv_bfloat16>(in, rgb, x2, b, c, hi, wi,\n"
+                   "                                        static_cast<cudaStream_t>(stream));")]
+
+# Textual edits of the wgmma design (namespace wg of sg2_tail.cu).
+WG_NO_PRODUCTS = [
+    ("          wgm::mma<C>(acc, a[j & 1][ks], wgm::desc_b(slot + 32 * C * ks));   // up-conv products\n", ""),
+    ("            wgm::mma<C>(acc[i], a[tap & 1][i][ks],\n                        wgm::desc_b(slot + 32 * C * ks));   // same-conv products\n", "")]
+WG_NO_STAGING = [
+    ("    for (int i = tid; i < CI * kInWin * 3; i += kConsumerThreads) {",
+     "    for (int i = tid; i < (hi > 0 ? 0 : CI * kInWin * 3); i += kConsumerThreads) {"),
+    ("      for (int i = tid; i < kInPix * (CI / 8); i += kConsumerThreads) {",
+     "      for (int i = tid; i < (hi > 0 ? 0 : kInPix * (CI / 8)); i += kConsumerThreads) {")]
+WG_NO_T_WRITES = [("            if (q >= npos) continue;\n", "            if (q >= npos || hi > 0) continue;\n")]
+WG_NO_BLUR = [
+    ("    for (int item = tid; item < kT * CP; item += kConsumerThreads) {   // the columns' pass",
+     "    for (int item = tid; item < (hi > 0 ? 0 : kT * CP); item += kConsumerThreads) {"),
+    ("    for (int item = tid; item < kMid * 2 * CP; item += kConsumerThreads) {   // the rows' pass",
+     "    for (int item = tid; item < (hi > 0 ? 0 : kMid * 2 * CP); item += kConsumerThreads) {")]
+WG_NO_EPILOGUE = [
+    ("          for (int hh = 0; hh < 2; ++hh) {\n            const float nz = vnw[1]",
+     "          for (int hh = 0; hh < (hi > 0 ? 0 : 2); ++hh) {\n            const float nz = vnw[1]"),
+    ("    if (x2 == nullptr) continue;\n", "    if (x2 == nullptr || hi > 0) continue;\n")]
 
 # Textual edits of the float32 design (namespace tf of sg2_tail.cu); an edit
 # of the form (header, old, new) applies to the header's copy.
@@ -205,6 +240,15 @@ SG2_VARIANTS = {
     "full, registers left to the compiler": FREE_REGISTERS,
     "full, one block fewer an SM at C = 32 and 16": ONE_FEWER,
     "CUDA-core design on bf16": SG2_CUDA_CORES,
+}
+WG_VARIANTS = {
+    "wg full": [],
+    "wg no products": WG_NO_PRODUCTS,
+    "wg no input staging": WG_NO_STAGING,
+    "wg no T writes": WG_NO_T_WRITES,
+    "wg no blur": WG_NO_BLUR,
+    "wg no final epilogue": WG_NO_EPILOGUE,
+    "wg only the products": WG_NO_STAGING + WG_NO_T_WRITES + WG_NO_BLUR + WG_NO_EPILOGUE,
 }
 F32_VARIANTS = {
     "f32 full": [],
@@ -300,6 +344,8 @@ def _registers(report: str, kind: str, name: str, c: int, extra: bool) -> str:
         tmpl = f"tf14section_kernelILi{c}E"
     elif kind == "proggan_f32":
         tmpl = f"tf14section_kernelILi{c}ELb{int(extra)}E"
+    elif kind == "sg2_wg":
+        tmpl = f"wg14section_kernelILi{c}E"
     elif kind == "sg2_tail":
         tmpl = f"tc14section_kernelILi{c}E"
     else:
@@ -329,13 +375,40 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
 
 
 def sg2_mma_flop(c: int, h: int) -> float:
-    """FLOP of the mma.sync instructions the bf16 StyleGAN2 design issues for
+    """FLOP of the mma.sync instructions the polyphase bf16 StyleGAN2 design issues for
     one section at B: 8 warps, each 3 m16 tiles x C/8 n8 tiles over 9 taps x
     2C/16 k steps (up-conv) and 2 m16 tiles x C/8 n8 tiles over 9 taps x C/16
     k steps (same-conv), per 16 x 16 output tile."""
     tiles = B * (2 * h // 16) ** 2
     per_tile = 8 * (c // 8) * (3 * 9 * 2 * c // 16 + 2 * 9 * c // 16)
     return 4096.0 * per_tile * tiles
+
+
+def wg_mma_flop(c: int, h: int) -> float:
+    """FLOP of the wgmma instructions the shipped bf16 StyleGAN2 design
+    issues for one section at B: per 16 x 16 output tile, the transposed
+    conv's 18 m64 tiles x taps (two a parity group: 2 x (4 + 2 + 2 + 1)) over
+    2C/16 k steps and the same-conv's 4 m64 tiles x 9 taps over C/16, each 2 x
+    64 x C x 16."""
+    tiles = B * (2 * h // 16) ** 2
+    per_tile = 18 * 2 * c // 16 + 36 * c // 16
+    return 2.0 * 64 * c * 16 * per_tile * tiles
+
+
+def smem_kb(kind: str, c: int) -> float:
+    """The dynamic shared memory a block of the StyleGAN2 bf16 design asks
+    for, in KiB, as ``Cfg<C>::SMEM`` of its namespace computes it."""
+    vec = (4 * (11 * c + 5) + 15) // 16 * 16
+    if kind == "sg2_tail":                     # namespace tc
+        in_row, mid_row = 2 * (2 * c + 8), 2 * (c + 8)
+        slot = max(4 * c * 80, (3 if c == 64 else 9) * c * 48)
+        return (vec + max(144 * in_row, 324 * mid_row) + 3 * slot) / 1024
+    stages = {64: 3, 32: 4, 16: 6}[c]          # namespace wg
+    ring, bars = stages * 4 * c * c, (16 * stages + 15) // 16 * 16
+    tt = 441 * (c + 4) * 4
+    act = max(144 * 2 * (2 * c + 8), 324 * 2 * (c + 8))
+    const = (4 * (5 * c + 5) + 15) // 16 * 16
+    return (ring + bars + tt + act + const + 2 * (12 * c + 2 * 18 * 32 + 2 * 256)) / 1024
 
 
 def f32_mma_flop(c: int, h: int) -> float:
@@ -371,7 +444,11 @@ def pg_mma_flop(c: int, h: int, head: bool) -> float:
     return 4096.0 * per_tile * tiles
 
 
-def _sg2_call(fn, c, h, want_x2, cuda_cores, dtype=torch.bfloat16, bsz=B):
+def _sg2_call(fn, c, h, want_x2, cuda_cores, dtype=torch.bfloat16, bsz=B, polyphase=False):
+    """A launch of one section through ``fn``: the entry of the shipped
+    designs (``sg2_tail_section_launch``, which takes the operands' type), or
+    with ``polyphase`` the polyphase design's (``sg2_tail_section_tc_launch``,
+    bf16 only), each with the weights its design reads."""
     gen = torch.Generator(device="cuda").manual_seed(6)
 
     def rnd(*shape, std=1.0, mean=0.0):
@@ -385,23 +462,30 @@ def _sg2_call(fn, c, h, want_x2, cuda_cores, dtype=torch.bfloat16, bsz=B):
     n1, n2 = rnd(1, 1, 2 * h, 2 * h), rnd(1, 1, 2 * h, 2 * h)
     nw1, nw2 = (torch.tensor([v], device="cuda", dtype=dtype) for v in (0.7, -0.4))
     b1, b2, rgb_b = rnd(c, std=0.3), rnd(c, std=0.3), rnd(3, std=0.3)
-    wu, ws, wr = (cc_weights(w_up, w_same, w_rgb) if cuda_cores
-                  else sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, dtype))
+    if cuda_cores:
+        wu, ws, wr = cc_weights(w_up, w_same, w_rgb)
+    elif polyphase:
+        wu, ws, wr = polyphase_weights(w_up, w_same, w_rgb)
+    else:
+        wu, ws, wr = sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, dtype)
     rgb = torch.empty((bsz, 3, 2 * h, 2 * h), device="cuda", dtype=dtype)
     x2 = torch.empty((bsz, c, 2 * h, 2 * h), device="cuda", dtype=dtype) if want_x2 else None
     keep = [x, wu, ws, wr, *vecs, n1, nw1, b1, n2, nw2, b2, rgb_b, rgb, x2]
     ptrs = [t.data_ptr() for t in (x, wu, ws, wr, *vecs, n1, nw1, b1, n2, nw2, b2, rgb_b, rgb)]
     stream = torch.cuda.current_stream().cuda_stream
-
-    is_bf16 = int(dtype == torch.bfloat16)
+    dtype_arg = [] if polyphase else [int(dtype == torch.bfloat16)]
 
     def call():
-        err = fn(*ptrs, None if x2 is None else x2.data_ptr(), is_bf16, bsz, c, h, h, int(want_x2),
-                 stream)
+        err = fn(*ptrs, None if x2 is None else x2.data_ptr(), *dtype_arg, bsz, c, h, h,
+                 int(want_x2), stream)
         if err != 0:
             raise RuntimeError(f"sg2_tail variant failed to launch: cudaError {err}")
         return keep
     return call
+
+
+def _sg2_tc_call(fn, c, h, want_x2, cuda_cores):
+    return _sg2_call(fn, c, h, want_x2, cuda_cores, polyphase=True)
 
 
 def _pg_call(fn, c, h, head, cuda_cores, dtype=torch.bfloat16, bsz=B):
@@ -445,7 +529,7 @@ def _time(kind, variants, libs, sections, make_call, flop, card):
     for sec in sections:
         c, h, extra = sec
         f32 = kind.endswith("f32")
-        full = "f32 full" if f32 else "full"
+        full = "f32 full" if f32 else ("wg full" if kind == "sg2_wg" else "full")
         names = list(variants) + [full]              # the shipped design first and last
         times = {}
         for name in names:
@@ -463,13 +547,15 @@ def _time(kind, variants, libs, sections, make_call, flop, card):
             ms = sum(ts) / len(ts)
             rate = f / (ms * 1e-3)
             pg = kind.startswith("proggan")
+            smem = (f"; {smem_kb(kind, c):.1f} KiB of shared memory a block"
+                    if kind in ("sg2_wg", "sg2_tail") and not name.startswith("CUDA-core") else "")
             print(f"[{kind} C={c} {h}^2 -> {2 * h}^2{' +x2' if extra and not pg else ''}"
                   f"{' +head' if extra and pg else ''} "
                   f"B={B_F32 if f32 else B} {'f32' if f32 else 'bf16'}] {name}: "
-                  f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}); shipped design's mma.sync "
+                  f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in ts)}); the design's tensor-core "
                   f"work {f / 1e9:.1f} GFLOP at {rate / 1e12:.1f} TFLOP/s = "
                   f"{100 * rate / peak:.1f} % of the {tag} peak; "
-                  f"{_registers(libs[(kind, name)][1], kind, name, c, extra)}; on {card}")
+                  f"{_registers(libs[(kind, name)][1], kind, name, c, extra)}{smem}; on {card}")
 
 
 def main(argv=None) -> int:
@@ -489,6 +575,7 @@ def main(argv=None) -> int:
         jobs += [("sg2_f32", "sg2_tail.cu", k, v) for k, v in F32_VARIANTS.items()]
         jobs += [("proggan_f32", "proggan_tail.cu", k, v) for k, v in PG_F32_VARIANTS.items()]
     if args.only != "f32":
+        jobs += [("sg2_wg", "sg2_tail.cu", k, v) for k, v in WG_VARIANTS.items()]
         jobs += [("sg2_tail", "sg2_tail.cu", k, v) for k, v in SG2_VARIANTS.items()]
         jobs += [("proggan_tail", "proggan_tail.cu", k, v) for k, v in PG_VARIANTS.items()]
     with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
@@ -496,7 +583,10 @@ def main(argv=None) -> int:
     libs = {}
     for (kind, _, name, _), (path, report) in zip(jobs, built):
         lib = ctypes.CDLL(path)
-        if kind in ("sg2_tail", "sg2_f32"):
+        if kind == "sg2_tail":
+            fn = lib.sg2_tail_section_tc_launch
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        elif kind in ("sg2_wg", "sg2_f32"):
             fn = lib.sg2_tail_section_launch
             fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         else:
@@ -511,7 +601,9 @@ def main(argv=None) -> int:
             _time("proggan_f32", PG_F32_VARIANTS, libs, PG_SECTIONS, _pg_f32_call,
                   pg_f32_mma_flop, card)
         if args.only != "f32":
-            _time("sg2_tail", SG2_VARIANTS, libs, SG2_SECTIONS, _sg2_call,
+            _time("sg2_wg", WG_VARIANTS, libs, SG2_SECTIONS, _sg2_call,
+                  lambda c, h, _: wg_mma_flop(c, h), card)
+            _time("sg2_tail", SG2_VARIANTS, libs, SG2_SECTIONS, _sg2_tc_call,
                   lambda c, h, _: sg2_mma_flop(c, h), card)
             _time("proggan_tail", PG_VARIANTS, libs, PG_SECTIONS, _pg_call, pg_mma_flop, card)
     return 0

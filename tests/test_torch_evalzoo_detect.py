@@ -20,6 +20,7 @@ import torch
 from warpedganspace_tpu.evalzoo import arcface as jarc
 from warpedganspace_tpu.evalzoo import fanau as jfan
 from warpedganspace_tpu.evalzoo import sfd as jsfd
+from warpedganspace_torch.evalzoo import fabricate
 from warpedganspace_torch.evalzoo.arcface import IDComparator
 from warpedganspace_torch.evalzoo.fabricate import predictor_state_dicts
 from warpedganspace_torch.evalzoo.fanau import AUdetector
@@ -116,6 +117,45 @@ def test_sfd_maps_with_drawn_heads():
     with torch.no_grad():
         bg = port.net.conv3_3_norm_mbox_conf(port.net.head_inputs(nchw(x))[0])[:, :3]
     assert set(bg.argmax(dim=1).unique().tolist()) == {0, 1, 2}
+
+
+def test_sfd_face_head_is_held_below_saturation(monkeypatch):
+    """The fitted stride-4 face head puts the lowest calibration frame's best
+    anchor at ``TOP_LOGIT``. Where the frames' best anchors spread further
+    than ``TOP_SPREAD`` (set small here), the head is fitted again against
+    two drawn background channels and the third is a knee: it leaves every
+    logit under ``TOP_LOGIT + TOP_SPREAD / 2`` as that fit has it and bends
+    the ones above until the highest frame's best reads ``TOP_LOGIT +
+    TOP_SPREAD``; no float32 score reads 1."""
+    x = fabricate.calibration_frames(torch.Generator().manual_seed(1), n=6, size=128)
+
+    def fit(spread):
+        monkeypatch.setattr(fabricate, "TOP_SPREAD", spread)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            net = S3FD().eval()
+        fabricate.set_sfd_heads(net, x, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            cls = net.conv3_3_norm_mbox_conf(net.head_inputs(x)[0]).double().flatten(2)
+            scores = net(x)[0][:, 1]
+        return cls, scores
+
+    spread = 1.0
+    first, _ = fit(float("inf"))
+    cls, scores = fit(spread)
+    first_best = (first[:, 3] - first[:, :3].amax(dim=1)).amax(dim=1)
+    unbent = cls[:, 3] - cls[:, :2].amax(dim=1)
+    bent = cls[:, 3] - cls[:, :3].amax(dim=1)
+    knee = fabricate.TOP_LOGIT + spread / 2
+    assert float(first_best.max() - first_best.min()) > spread, first_best
+    assert float(unbent.amax(dim=1).max()) > fabricate.TOP_LOGIT + spread + 0.5, unbent
+    for logits in (first_best, unbent.amax(dim=1), bent.amax(dim=1)):
+        assert abs(float(logits.min()) - fabricate.TOP_LOGIT) < 1e-4, logits
+    assert abs(float(bent.amax(dim=1).max()) - fabricate.TOP_LOGIT - spread) < 1e-4
+    under = unbent < knee
+    torch.testing.assert_close(bent[under], unbent[under], rtol=0, atol=1e-5)
+    assert bool((bent <= unbent + 1e-5).all())
+    assert float(scores.max()) < 1.0
 
 
 def test_sfd_single_image_path(sfd_pair):

@@ -11,6 +11,7 @@ import torch
 
 from warpedganspace_torch.ops import sg2_tail_cuda
 from warpedganspace_torch.ops.sg2_tail import TAIL_CHANNELS, fused_section_plain
+from warpedganspace_torch.ops.sg2_tail_polyphase import polyphase_section
 
 torch.set_num_threads(1)
 
@@ -53,17 +54,23 @@ def _problem(seed, b, c, h, w, device, dtype=torch.float32):
 # another order, sums of up to 4 * 128 and 9 * 64 of them, and the blur after
 # * d1 where the plain version blurs before it
 # (tests/test_torch_sg2_tail_f32_split_numerics.py emulates it: 2.4e-6 at
-# worst). bf16: the tensor-core design
-# rounds x * s1, the composed up-conv weights and the mid tile to bf16 where
-# the plain version rounds every intermediate, so it is held to the plain
-# version in f32 on the same rounded operands within 3e-2: the outputs' half
-# ulp below 8, 2^-6, plus about as much from the intermediates
+# worst). bf16: the wgmma design rounds x * s1 and the mid tile to bf16 (the
+# polyphase design kept for comparison the composed up-conv weights too)
+# where the plain version rounds every intermediate, so it is held to the
+# plain version in f32 on the same rounded operands within 3e-2: the outputs'
+# half ulp below 8, 2^-6, plus about as much from the intermediates
 # (tests/test_torch_tail_tc_numerics.py emulates those roundings).
-def _check(ops, want_x2):
+def _check(ops, want_x2, section=None):
+    """``section``: a design kept for comparison, which counts no launch;
+    by default the kernel, which counts one under its design."""
     before = sg2_tail_cuda.launches
-    got = sg2_tail_cuda.fused_section(*ops, want_x2=want_x2)
+    by_design = dict(sg2_tail_cuda.launches_by_design)
+    got = (section or sg2_tail_cuda.fused_section)(*ops, want_x2=want_x2)
     torch.cuda.synchronize()
-    assert sg2_tail_cuda.launches == before + 1
+    counted = section is None
+    assert sg2_tail_cuda.launches == before + counted
+    key = sg2_tail_cuda.DESIGN_KEYS[ops[0].dtype]
+    assert sg2_tail_cuda.launches_by_design == {**by_design, key: by_design[key] + counted}
     ref = fused_section_plain(*[t.float() for t in ops], want_x2=want_x2)
     got, ref = (got, ref) if want_x2 else ((got,), (ref,))
     b, c2, h, w = ops[0].shape
@@ -278,3 +285,104 @@ def test_generator_reaches_the_kernel(cuda):
     assert sg2_tail_cuda.launches == before + 2
     assert tuple(got.shape) == (2, 3, 512, 512)
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+@pytest.mark.parametrize("b", [1, 12, 16])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+def test_bf16_batches_at_ragged_shapes(cuda, c, b, want_x2):
+    """The wgmma design at the sampled code's B = 1, the training step's 12
+    and the render batch's 16, on a ragged 26 x 22 output."""
+    _check(_problem(15, b, c, 13, 11, cuda, torch.bfloat16), want_x2)
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+def test_bf16_ragged_width_over_several_tiles_a_block(cuda, c, want_x2):
+    """An input width that is not a multiple of 8 (the noise copied element by
+    element into the double buffer) with more tiles than the grid's resident
+    blocks: 16 x 8 x 8 = 1024 tiles of a 122 x 118 output, so each persistent
+    block hands its buffers from one tile to the next."""
+    _check(_problem(22, 16, c, 61, 59, cuda, torch.bfloat16), want_x2)
+
+
+@pytest.mark.parametrize("c,r,want_x2", [(64, 256, True), (32, 512, False)])
+def test_bf16_training_batch_sections(cuda, c, r, want_x2):
+    """StyleGAN2-1024's two sections at the training step's batch of 12."""
+    _check(_problem(16, 12, c, r, r, cuda, torch.bfloat16), want_x2)
+
+
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+def test_bf16_repeats_are_bit_equal_at_each_width(cuda, c):
+    """Each width's products in a fixed order: one call's bits again, x2 too."""
+    ops = _problem(17, 3, c, 9, 14, cuda, torch.bfloat16)
+    first = sg2_tail_cuda.fused_section(*ops)
+    again = sg2_tail_cuda.fused_section(*ops)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_bf16_section_replays_in_a_cuda_graph(cuda, c):
+    """One section captured in a CUDA graph (the training path's
+    --steps-per-call captures it) and replayed: the eager call's bits, and
+    again after the input changed in place."""
+    ops = _problem(18, 4, c, 24, 20, cuda, torch.bfloat16)
+    eager = sg2_tail_cuda.fused_section(*ops)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sg2_tail_cuda.fused_section(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    before = sg2_tail_cuda.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sg2_tail_cuda.fused_section(*ops)
+    assert sg2_tail_cuda.launches == before + 1     # the capture, not its replays
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    ops[0].copy_(_problem(19, 4, c, 24, 20, cuda, torch.bfloat16)[0])
+    graph.replay()
+    eager = sg2_tail_cuda.fused_section(*ops)
+    torch.cuda.synchronize()
+    assert sg2_tail_cuda.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_bf16_generator_launches_the_wgmma_design(cuda):
+    """The small StyleGAN2 of ``test_generator_reaches_the_kernel`` in bf16:
+    both tail launches of a forward go through the wgmma design, and the
+    frames stay within bf16's reach of the float32 forward on the card."""
+    from warpedganspace_torch.models.api import cast_params_bf16
+    from warpedganspace_torch.models.stylegan2 import StyleGAN2Generator
+
+    gen = StyleGAN2Generator(resolution=512, n_mlp=2, channel_multiplier=1,
+                             generator=torch.Generator().manual_seed(5)).eval().to(cuda)
+    z = torch.randn((2, 512), generator=torch.Generator().manual_seed(6)).to(cuda)
+    with torch.no_grad():
+        ref = gen.apply(z)
+        by_design = dict(sg2_tail_cuda.launches_by_design)
+        got = cast_params_bf16(gen).apply(z.bfloat16())
+        torch.cuda.synchronize()
+    assert sg2_tail_cuda.launches_by_design["wgmma"] == by_design["wgmma"] + 2
+    assert sg2_tail_cuda.launches_by_design["split_tf32"] == by_design["split_tf32"]
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    rel = float((got.float() - ref).norm() / ref.norm())
+    assert rel <= 0.05, rel
+
+
+@pytest.mark.parametrize("want_x2", [True, False])
+@pytest.mark.parametrize("c", TAIL_CHANNELS)
+@pytest.mark.parametrize("h,w", [(13, 11), (8, 8)])
+def test_bf16_polyphase_comparison_design(cuda, c, h, w, want_x2):
+    """The mma.sync design that the wgmma design replaced, through its own C
+    entry: within the same bound of the plain section, counting no launch."""
+    _check(_problem(20, 2, c, h, w, cuda, torch.bfloat16), want_x2, section=polyphase_section)
+
+
+@pytest.mark.parametrize("c,r,want_x2", [(64, 256, True), (32, 512, False)])
+def test_bf16_polyphase_full_width_sections(cuda, c, r, want_x2):
+    """Both bf16 designs at StyleGAN2-1024's two sections, B = 4."""
+    ops = _problem(21, 4, c, r, r, cuda, torch.bfloat16)
+    _check(ops, want_x2)
+    _check(ops, want_x2, section=polyphase_section)

@@ -14,11 +14,15 @@ accumulation, and round in their own places:
   are carried as bf16 hi + lo pairs instead (hi x hi + hi x lo + lo x hi in
   the up-conv, hi x W + lo x W in the same-conv), since the head's PixelNorm
   magnifies their rounding past the bound.
-- StyleGAN2: the staged input x * s1 to bf16; the polyphase up-conv weights,
-  composed in float32 (``compose_up_weight``), to bf16; the mid tile after
-  * d1, noise, bias, leaky * sqrt 2 and * s2 (float32) to bf16; x2 in
-  float32 for ToRGB (x2 * s3 against the bf16 ToRGB weights, float32) and
-  rounded to bf16 only where it is stored; the outputs to bf16.
+- StyleGAN2 (the wgmma design): the staged input x * s1 to bf16; the
+  transposed conv's raw taps as the bf16 operands are (not rounded again)
+  into a float32 pre-blur window, the blur in float32; the mid tile after
+  * d1, noise, bias, leaky * sqrt 2 and * s2 (float32) to bf16; x2 in float32
+  for ToRGB (x2 * s3 against the bf16 ToRGB weights, float32) and rounded to
+  bf16 only where it is stored; the outputs to bf16. The mma.sync design
+  kept for comparison (``ops/sg2_tail_polyphase.py``) takes the polyphase
+  up-conv weights, composed in float32 (``compose_up_weight``), rounded to
+  bf16, in place of the raw taps and the window; the rest alike.
 
 The emulation below follows those rounding points in float32 arithmetic on
 bf16-rounded values (float32 convolutions on the CPU stand for the tensor
@@ -34,8 +38,8 @@ one bf16 ulp of outputs below 8: those round elsewhere, and are themselves up
 to ~0.05 from the f32 section at these operands. Two alternatives the
 designs did not take are emulated beside them: ProgGAN's nine raw taps of the
 nearest-upsampled tile (exact weights, 2.25x the up-conv's products) and plain
-bf16 roundings in the head's section, and StyleGAN2's composite weights
-carried as a bf16 hi + lo pair (two products a tap). The operands follow ``chip_smoke.py``'s recipes (``tail_problem``,
+bf16 roundings in the head's section, and StyleGAN2's polyphase composite
+weights carried as a bf16 hi + lo pair (two products a tap). The operands follow ``chip_smoke.py``'s recipes (``tail_problem``,
 ``sg2_problem``) and the card tests' (``_problem``), made with numpy from
 fixed seeds at small batches and sizes, border-only and ragged shapes among
 them.
@@ -53,7 +57,8 @@ from warpedganspace_tpu.ops import proggan_tail_pallas as ptp
 from warpedganspace_tpu.ops import s2d as s2d_ops
 from warpedganspace_tpu.ops import sg2_tail_pallas as stp
 from warpedganspace_torch.ops import proggan_tail as pt
-from warpedganspace_torch.ops import proggan_tail_cuda, sg2_tail_cuda, sg2_tail_cuda_cores
+from warpedganspace_torch.ops import (proggan_tail_cuda, sg2_tail_cuda, sg2_tail_cuda_cores,
+                                      sg2_tail_polyphase)
 from warpedganspace_torch.ops import sg2_tail as st
 
 torch.set_num_threads(1)
@@ -259,22 +264,31 @@ def test_proggan_head_needs_the_split():
 # --------------------------------------------------------------------------- StyleGAN2
 
 def emulate_sg2(x, w_up, w_same, w_rgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2, b2, rgb_b,
-                want_x2=True, weights="bf16"):
-    """The bf16 StyleGAN2 section kernel's arithmetic; ``weights="hilo"`` is
-    the alternative that carries each composite weight as bf16 hi + lo."""
+                want_x2=True, design="wgmma", weights="bf16"):
+    """The bf16 StyleGAN2 section kernel's arithmetic. ``design``: "wgmma"
+    (shipped: the raw taps' transposed conv into a float32 window, then the
+    blur) or "polyphase" (the mma.sync design kept for comparison: four
+    polyphase 3x3 convs of the composite weights); for the polyphase design
+    ``weights="hilo"`` is the alternative that carries each composite weight
+    as bf16 hi + lo."""
     f = [t.float() for t in (x, w_up, w_same, w_rgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2,
                              b2, rgb_b)]
     x, w_up, w_same, w_rgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2, b2, rgb_b = f
     bsz, _, h, w = x.shape
     c = w_up.shape[0]
     xs = _bf(x * s1[:, :, None, None])
-    comp = st.compose_up_weight(w_up)                                 # (2C, 4, 9, C)
-    wq = _bf(comp) if weights == "bf16" else _bf(comp) + _bf(comp - _bf(comp))
-    m = x.new_zeros((bsz, c, 2 * h, 2 * w))
-    for ph in range(4):
-        k = wq[:, ph].reshape(2 * c, 3, 3, c).permute(3, 0, 1, 2)     # (C, 2C, oy, ox)
-        m[:, :, ph // 2::2, ph % 2::2] = F.conv2d(xs, k, padding=1)
-    m = m * d1[:, :, None, None] + nw1.reshape(()) * n1 + b1[None, :, None, None]
+    if design == "wgmma":
+        m = st.modulated_conv(xs, _bf(w_up), torch.ones_like(s1), upsample=True)
+        m = m * d1[:, :, None, None]
+    else:
+        comp = st.compose_up_weight(w_up)                             # (2C, 4, 9, C)
+        wq = _bf(comp) if weights == "bf16" else _bf(comp) + _bf(comp - _bf(comp))
+        m = x.new_zeros((bsz, c, 2 * h, 2 * w))
+        for ph in range(4):
+            k = wq[:, ph].reshape(2 * c, 3, 3, c).permute(3, 0, 1, 2)  # (C, 2C, oy, ox)
+            m[:, :, ph // 2::2, ph % 2::2] = F.conv2d(xs, k, padding=1)
+        m = m * d1[:, :, None, None]
+    m = m + nw1.reshape(()) * n1 + b1[None, :, None, None]
     m = _bf(SQRT2 * F.leaky_relu(m, 0.2) * s2[:, :, None, None])
     y = F.conv2d(m, w_same, padding=1) * d2[:, :, None, None]
     x2 = SQRT2 * F.leaky_relu(y + nw2.reshape(()) * n2 + b2[None, :, None, None], 0.2)
@@ -324,9 +338,9 @@ def _jax_sg2_bf16(ops, want_x2):
     return [torch.from_numpy(a.transpose(0, 3, 1, 2).copy()) for a in out]
 
 
-def sg2_errors(ops, want_x2, weights="bf16", jax_twin=False):
+def sg2_errors(ops, want_x2, design="wgmma", weights="bf16", jax_twin=False):
     """As ``proggan_errors``, the worst of rgb and x2."""
-    got = emulate_sg2(*ops, want_x2=want_x2, weights=weights)
+    got = emulate_sg2(*ops, want_x2=want_x2, design=design, weights=weights)
     ref = st.fused_section_plain(*[t.float() for t in ops], want_x2=want_x2)
     plain16 = st.fused_section_plain(*ops, want_x2=want_x2)
     got, ref, plain16 = ((got, ref, plain16) if want_x2 else ((got,), (ref,), (plain16,)))
@@ -355,7 +369,18 @@ SG2_JAX_CASES = [(6, 1, 64, 8, 8, True), (6, 1, 32, 16, 16, False), (6, 1, 16, 3
 
 @pytest.mark.parametrize("seed,b,c,h,w,want_x2", SG2_CASES)
 def test_sg2_emulation_within_bound(seed, b, c, h, w, want_x2):
+    """The shipped wgmma design's roundings."""
     errs = sg2_errors(sg2_chip_problem(seed, b, c, h, w), want_x2)
+    assert errs["f32"] <= BOUND, errs
+    assert errs["f32"] <= errs["plain_bf16_vs_f32"] + 1e-6, errs
+    assert errs["plain_bf16"] <= PAIR_BOUND, errs
+
+
+@pytest.mark.parametrize("seed,b,c,h,w,want_x2", SG2_CASES)
+def test_sg2_polyphase_emulation_within_bound(seed, b, c, h, w, want_x2):
+    """The polyphase mma.sync design's roundings, kept for comparison: the
+    same bounds at the same cases."""
+    errs = sg2_errors(sg2_chip_problem(seed, b, c, h, w), want_x2, design="polyphase")
     assert errs["f32"] <= BOUND, errs
     assert errs["f32"] <= errs["plain_bf16_vs_f32"] + 1e-6, errs
     assert errs["plain_bf16"] <= PAIR_BOUND, errs
@@ -370,30 +395,44 @@ def test_sg2_emulation_against_jax_bf16(seed, b, c, h, w, want_x2):
 @pytest.mark.parametrize("c", [16, 32])
 def test_sg2_kernel_weight_layout(c):
     """What the wrapper hands each design, read as the kernel reads it: for
-    bf16 the polyphase up-conv [tap (oy, ox)][phase (py, px)][co][ci], each
-    composite rounded once, which as four 3x3 convs is the transposed conv and
-    blur; the same-conv [tap][co][ci]. For f32 the split-precision design's
-    records of the transposed conv's raw taps, in its order, and of the
-    same-conv's taps (tests/test_torch_sg2_tail_f32_split_numerics.py reads
-    them at the kernel's indices); for the CUDA-core design kept for
-    comparison, [ci][phase][tap][co] and [ci][ky][kx][co]."""
+    bf16 the transposed conv's raw taps in ``UP_TAP_ORDER`` and the
+    same-conv's taps, [tap][co][ci], as the wgmma core matrices ([tap][k16
+    step][n8 group][k half][n][k]) hold them, the operands' own values, whose
+    transposed conv over the taps' parity groups is the plain one. For f32 the
+    split-precision design's records of the same taps
+    (tests/test_torch_sg2_tail_f32_split_numerics.py reads them at the
+    kernel's indices). For the designs kept for comparison: the polyphase
+    up-conv [tap (oy, ox)][phase (py, px)][co][ci], each composite rounded
+    once, which as four 3x3 convs is the transposed conv and blur, and the
+    same-conv [tap][co][ci] (``sg2_tail_polyphase.polyphase_weights``); the
+    CUDA-core design's [ci][phase][tap][co] and [ci][ky][kx][co]."""
     ops = sg2_chip_problem(12, 1, c, 6, 5)
     w_up, w_same, w_rgb = ops[1:4]
     wu, ws, wr = sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, torch.bfloat16)
     assert wu.dtype == ws.dtype == torch.bfloat16 and wr.dtype == torch.float32
-    assert tuple(wu.shape) == (9, 4, c, 2 * c) and tuple(ws.shape) == (9, c, c)
-    comp = st.compose_up_weight(w_up)
-    assert torch.equal(wu.float().permute(3, 1, 0, 2), comp.bfloat16().float())
-    x = ops[0].float()
-    got = x.new_zeros((1, c, 12, 10))
-    for ph in range(4):
-        k = wu.float()[:, ph].reshape(3, 3, c, 2 * c).permute(2, 3, 0, 1)
-        got[:, :, ph // 2::2, ph % 2::2] = F.conv2d(x, k, padding=1)
-    want = st.modulated_conv(x, w_up.float(), torch.ones(1, 2 * c), upsample=True)
-    scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= 2 ** -7 * scale
-    assert torch.equal(ws.reshape(3, 3, c, c).permute(2, 3, 0, 1), w_same)
+    assert tuple(wu.shape) == (9, 2 * c // 16, c // 8, 2, 8, 8)
+    assert tuple(ws.shape) == (9, c // 16, c // 8, 2, 8, 8)
+    # The byte offset of (n, k) in a chunk: 32 N (k // 16) + 256 (n // 8) + 128
+    # (k % 16 // 8) + 16 (n % 8) + 2 (k % 8), what the descriptor reads.
+    n, k = torch.meshgrid(torch.arange(c), torch.arange(2 * c), indexing="ij")
+    offset = 32 * c * (k // 16) + 256 * (n // 8) + 128 * (k % 16 // 8) + 16 * (n % 8) + 2 * (k % 8)
+    up = wu.reshape(9, -1)[:, offset // 2]                            # (9, C, 2C) [tap][co][ci]
+    for t, (ky, kx) in enumerate(sg2_tail_cuda.UP_TAP_ORDER):
+        assert torch.equal(up[t], w_up[:, :, ky, kx])
+    n, k = n[:, :c], k[:, :c]
+    offset = 32 * c * (k // 16) + 256 * (n // 8) + 128 * (k % 16 // 8) + 16 * (n % 8) + 2 * (k % 8)
+    same = ws.reshape(9, -1)[:, offset // 2]
+    assert torch.equal(same.reshape(3, 3, c, c).permute(2, 3, 0, 1), w_same)
     assert torch.equal(wr, w_rgb.float().reshape(3, c))
+    # The taps' parity groups of the 21 x 21 window (all of them here) are the
+    # plain transposed conv.
+    x = ops[0].float()
+    got = x.new_zeros((1, c, 13, 11))
+    for t, (ky, kx) in enumerate(sg2_tail_cuda.UP_TAP_ORDER):
+        tap = up[t].float()                                           # (C, 2C)
+        got[:, :, ky:ky + 11:2, kx:kx + 9:2] += torch.einsum("oi,bihw->bohw", tap, x)
+    want = F.conv_transpose2d(x, w_up.float().transpose(0, 1), stride=2)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     wu32, ws32, wr32 = sg2_tail_cuda.kernel_weights(w_up, w_same, w_rgb, torch.float32)
     w_up, w_same = w_up.float(), w_same.float()
     up = torch.stack([w_up[:, :, ky, kx] for ky, kx in sg2_tail_cuda.UP_TAP_ORDER])
@@ -401,6 +440,20 @@ def test_sg2_kernel_weight_layout(c):
     assert torch.equal(ws32, sg2_tail_cuda.split_records(
         w_same.permute(2, 3, 0, 1).reshape(9, c, c)))
     assert torch.equal(wr32, wr)
+    wup, wsp, wrp = sg2_tail_polyphase.polyphase_weights(*ops[1:4])
+    assert wup.dtype == wsp.dtype == torch.bfloat16 and wrp.dtype == torch.float32
+    assert tuple(wup.shape) == (9, 4, c, 2 * c) and tuple(wsp.shape) == (9, c, c)
+    comp = st.compose_up_weight(w_up)
+    assert torch.equal(wup.float().permute(3, 1, 0, 2), comp.bfloat16().float())
+    got = x.new_zeros((1, c, 12, 10))
+    for ph in range(4):
+        k = wup.float()[:, ph].reshape(3, 3, c, 2 * c).permute(2, 3, 0, 1)
+        got[:, :, ph // 2::2, ph % 2::2] = F.conv2d(x, k, padding=1)
+    want = st.modulated_conv(x, w_up, torch.ones(1, 2 * c), upsample=True)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2 ** -7 * scale
+    assert torch.equal(wsp.float().reshape(3, 3, c, c).permute(2, 3, 0, 1), w_same)
+    assert torch.equal(wrp, wr)
     wucc, wscc, _ = sg2_tail_cuda_cores.cc_weights(w_up, w_same, w_rgb)
     assert torch.equal(wucc, st.compose_up_weight(w_up))
     assert torch.equal(wscc, w_same.permute(1, 2, 3, 0))
@@ -408,20 +461,24 @@ def test_sg2_kernel_weight_layout(c):
 
 @pytest.mark.parametrize("weights", ["bf16", "hilo"])
 def test_sg2_weight_options(weights):
-    """Both ways to carry the composite weights hold the bound at C = 64."""
-    errs = sg2_errors(sg2_chip_problem(7, 2, 64, 8, 8), True, weights=weights)
+    """Both ways to carry the polyphase design's composite weights hold the
+    bound at C = 64."""
+    errs = sg2_errors(sg2_chip_problem(7, 2, 64, 8, 8), True, design="polyphase",
+                      weights=weights)
     assert errs["f32"] <= BOUND, errs
 
 
 def test_sg2_composite_rounding_is_the_new_one():
     """The emulation is not the plain bf16 section under another name: it
-    rounds other values (the composite weights, x * s1, the mid tile after
-    * s2), so its bits differ, by about one bf16 ulp of the outputs."""
+    rounds other values (x * s1, the mid tile after * s2; the polyphase
+    design also the composite weights), so its bits differ, by about one
+    bf16 ulp of the outputs."""
     ops = sg2_chip_problem(8, 2, 16, 8, 8)
-    got = emulate_sg2(*ops, want_x2=False)
     plain16 = st.fused_section_plain(*ops, want_x2=False)
-    assert not torch.equal(got, plain16)
-    assert float((got.float() - plain16.float()).abs().max()) <= PAIR_BOUND
+    for design in ("wgmma", "polyphase"):
+        got = emulate_sg2(*ops, want_x2=False, design=design)
+        assert not torch.equal(got, plain16)
+        assert float((got.float() - plain16.float()).abs().max()) <= PAIR_BOUND
 
 
 def _report():
@@ -437,7 +494,8 @@ def _report():
         seed, b, c, h, w, x2 = case
         ops = sg2_chip_problem(seed, b, c, h, w)
         e = sg2_errors(ops, x2)
-        e["hilo_f32"] = sg2_errors(ops, x2, weights="hilo")["f32"]
+        e["polyphase_f32"] = sg2_errors(ops, x2, design="polyphase")["f32"]
+        e["polyphase_hilo_f32"] = sg2_errors(ops, x2, design="polyphase", weights="hilo")["f32"]
         rows.append(("sg2", case, e))
     for case in SG2_JAX_CASES:
         seed, b, c, h, w, x2 = case

@@ -33,7 +33,18 @@ detector will see, or smooth random images):
   frame's best anchor away from the border and furthest ahead of that
   frame's second per unit of weight (``_face_taps``): the first box moves
   with the content, and its lead is as large as the search finds. Its bias
-  puts the lowest frame's best anchor at ``TOP_LOGIT``;
+  puts the lowest frame's best anchor at ``TOP_LOGIT``. A feature that the
+  kept direction reads at a rare spike can put a few frames' best many stds
+  above the rest, where a float32 softmax reads exactly 1 (from a logit of
+  about 17) and two candidates tie. Where the frames' best logits spread
+  over more than ``TOP_SPREAD``, the stride-4 head is drawn again from the
+  same state with two background channels, and its third is a knee
+  (``_knee``): below the other two wherever the face logit stays under
+  ``TOP_LOGIT + TOP_SPREAD / 2``, and above it bending the face logit down
+  so that the highest frame's best anchor reads ``TOP_LOGIT + TOP_SPREAD``.
+  The logits under the knee, and so the decoder's candidates and the lower
+  frames' leads, are those of that fit; a head whose frames spread less is
+  the first fit, unchanged;
 - the other five face logits (the stride-8 and stride-16 heads with an L2Norm,
   the stride-32 to 128 heads without) are centred at ``OTHER_MEAN`` with a
   std of ``OTHER_STD``: a few per cent of their anchors pass the decoder's
@@ -62,7 +73,8 @@ from warpedganspace_torch.evalzoo.load import CONFIGS_DIR, PATHS
 from warpedganspace_torch.evalzoo.sfd import _HEADS, S3FD, _head_names
 from warpedganspace_torch.evalzoo.transforms import normalize_imagenet
 
-FACE_STD, TOP_LOGIT, TRIES, CLIMB, INNER, DIRECTIONS = 2.0, 1.0, 64, 100, 3, 32
+FACE_STD, TOP_LOGIT, TOP_SPREAD = 2.0, 1.0, 7.0
+TRIES, CLIMB, INNER, DIRECTIONS = 64, 100, 3, 32
 BG_STD, OTHER_STD, OTHER_MEAN, LOC_STD = 0.5, 1.0, -5.5, 0.3
 
 
@@ -177,7 +189,7 @@ def _inner_taps(f, n, std, generator):
 
 def _face_taps(f, background, generator):
     """The stride-4 face head over ``f`` (B, C, H, W) against ``background``
-    (B, 1, H, W): (its (C, 3, 3) weights, the lowest frame's best logit).
+    (B, 1, H, W): (its (C, 3, 3) weights, each frame's best logit (B,)).
 
     The head is a direction ``v`` times one random 3x3 stencil, scaled so that
     its logits have a std of ``FACE_STD`` inside. Of ``TRIES`` directions the
@@ -226,7 +238,42 @@ def _face_taps(f, background, generator):
             step *= 0.5
     _, _, scale, top2, _ = best
     logits = scale[0] * torch.einsum("bcp,c->bp", h, v[0]) - bg
-    return float(scale[0]) * v[0][:, None, None] * stencil, float(logits.amax(dim=1).min())
+    return float(scale[0]) * v[0][:, None, None] * stencil, logits.amax(dim=1)
+
+
+def _knee(face: torch.Tensor, drawn: torch.Tensor, knee: float) -> float:
+    """``alpha`` of the stride-4 head's knee channel, ``alpha * (face - knee)
+    + (1 - alpha) * drawn[:, 0]``, over its face logits ``face`` (B, 1, H, W)
+    and its drawn background channels ``drawn`` (B, 2, H, W), biases
+    included. Where the face logit ``face - max(drawn)`` is under ``knee`` the
+    channel lies below ``max(drawn)`` whatever ``alpha``; above it the max-out
+    takes the channel, and where ``drawn[:, 0]`` was the max the face logit
+    rises as ``knee + (1 - alpha) * (logit - knee)``. The least ``alpha``
+    that brings the highest frame's best anchor to ``TOP_LOGIT +
+    TOP_SPREAD``, or 0 (the channel repeats ``drawn[:, 0]``) where no frame's
+    best reads more."""
+    top = TOP_LOGIT + TOP_SPREAD
+    background = drawn.amax(dim=1, keepdim=True)
+
+    def highest(alpha):
+        bent = alpha * (face - knee) + (1 - alpha) * drawn[:, :1]
+        return float((face - torch.maximum(background, bent)).max())
+
+    if highest(0.0) <= top:
+        return 0.0
+    lo, hi = 0.0, 1.0
+    for _ in range(40):                  # the highest best falls as alpha rises
+        mid = (lo + hi) / 2
+        lo, hi = (lo, mid) if highest(mid) <= top else (mid, hi)
+    return hi
+
+
+def _drawn_background(f, n, stride4, generator):
+    """``n`` drawn background channels over ``f``: (weights, biases, their
+    outputs (B, n, H, W))."""
+    bg = (_inner_taps if stride4 else _content_taps)(f, n, BG_STD, generator)
+    bg_bias = (BG_STD * torch.randn(n, generator=generator, dtype=torch.float64)).to(f.device)
+    return bg, bg_bias, F.conv2d(f, bg, bg_bias, padding=1)
 
 
 @torch.no_grad()
@@ -238,13 +285,22 @@ def set_sfd_heads(net: S3FD, frames: torch.Tensor, generator: torch.Generator) -
     for (src, _, norm, n_conf), f in zip(_HEADS, maps):
         conf, loc = (getattr(net, n) for n in _head_names(src, norm))
         stride4 = src == "conv3_3"
-        bg = (_inner_taps if stride4 else _content_taps)(f, n_conf - 1, BG_STD, generator)
-        bg_bias = (BG_STD * torch.randn(n_conf - 1, generator=generator,
-                                        dtype=torch.float64)).to(dev)
-        background = (F.conv2d(f, bg, bg_bias, padding=1)).amax(dim=1, keepdim=True)
+        start = generator.get_state()
+        bg, bg_bias, drawn = _drawn_background(f, n_conf - 1, stride4, generator)
+        background = drawn.amax(dim=1, keepdim=True)
         if stride4:
-            face, lowest = _face_taps(f, background, generator)
-            bias = TOP_LOGIT - lowest
+            face, best = _face_taps(f, background, generator)
+            kneed = float(best.max() - best.min()) > TOP_SPREAD
+            if kneed:                    # drawn again with two, the third the knee
+                generator.set_state(start)
+                bg, bg_bias, drawn = _drawn_background(f, n_conf - 2, True, generator)
+                face, best = _face_taps(f, drawn.amax(dim=1, keepdim=True), generator)
+            bias = TOP_LOGIT - float(best.min())
+            if kneed:
+                knee = TOP_LOGIT + TOP_SPREAD / 2
+                a = _knee(F.conv2d(f, face[None], padding=1) + bias, drawn, knee)
+                bg = torch.cat([bg, (a * face + (1 - a) * bg[0])[None]])
+                bg_bias = torch.cat([bg_bias, a * (bias - knee) + (1 - a) * bg_bias[:1]])
         else:
             face = _content_taps(f, 1, OTHER_STD, generator)[0]
             bias = OTHER_MEAN - float((F.conv2d(f, face[None], padding=1) - background).mean())

@@ -12,17 +12,20 @@ launch:
 with no intermediate in device memory but x2, which it writes only when
 asked (the last block's is never read). Activations are NCHW, weights OIHW.
 The kernel has two designs, chosen in its C launch function by the operands'
-type (:func:`design` says which), both on the tensor cores: bfloat16 as bf16
-products (``mma.sync`` m16n8k16, float32 accumulation) of the up-conv as four
-polyphase 3x3 convs (:func:`compose_up_weight`, composed in float32, rounded
-once and laid out K-contiguous); float32 in split precision (``mma.sync``
-m16n8k8, each operand as TF32 hi + lo, three products), the transposed conv's
-raw taps and then the blur, with the weights split here into 16-byte records
-of B fragments (:func:`split_records`). Both layouts are prepared here on
-every call, a few small elementwise passes (the span ``wgs.sg2_tail.weights``,
-:mod:`~warpedganspace_torch.utils.spans`); the products are the kernel's.
-The float32 design on the CUDA cores that the split-precision one replaced is
-bound for comparison only, by :mod:`warpedganspace_torch.ops.sg2_tail_cuda_cores`.
+type (:func:`design` says which), both on the tensor cores and both computing
+the transposed conv's raw taps into a pre-blur window, then the blur:
+bfloat16 on warpgroup MMA (``wgmma`` m64nCk16, float32 accumulation), its
+weights laid out here in the descriptor's core matrices (:func:`wgmma_layout`)
+and streamed through a ring of shared slots by the TMA unit; float32 in split
+precision (``mma.sync`` m16n8k8, each operand as TF32 hi + lo, three
+products), with the weights split here into 16-byte records of B fragments
+(:func:`split_records`). Both layouts are prepared here on every call, a few
+small elementwise passes (the span ``wgs.sg2_tail.weights``,
+:mod:`~warpedganspace_torch.utils.spans`); the products are the kernel's. The
+designs they replaced stay in the source for comparison only, each behind
+its own C entry: the bfloat16 ``mma.sync`` design of the polyphase up-conv
+(:mod:`warpedganspace_torch.ops.sg2_tail_polyphase`) and the float32 design on
+the CUDA cores (:mod:`warpedganspace_torch.ops.sg2_tail_cuda_cores`).
 
 - :func:`fused_section` is one section. On CPU tensors it runs
   :func:`~warpedganspace_torch.ops.sg2_tail.fused_section_plain`; on CUDA
@@ -36,6 +39,7 @@ bound for comparison only, by :mod:`warpedganspace_torch.ops.sg2_tail_cuda_cores
   differentiate the generator.
 
 ``launches`` counts kernel launches; it is a plain int the caller may reset.
+``launches_by_design`` counts them by the design that ran (``DESIGN_KEYS``).
 """
 from __future__ import annotations
 
@@ -43,12 +47,14 @@ import ctypes
 
 import torch
 
-from warpedganspace_torch.ops.sg2_tail import (TAIL_CHANNELS, compose_up_weight,
-                                               fused_section_plain)
+from warpedganspace_torch.ops.sg2_tail import TAIL_CHANNELS, fused_section_plain
 from warpedganspace_torch.utils.spans import span
 
 SOURCE = "sg2_tail.cu"
 launches = 0
+# The design each operand type launches: bf16 on wgmma, float32 in split TF32.
+DESIGN_KEYS = {torch.bfloat16: "wgmma", torch.float32: "split_tf32"}
+launches_by_design = {key: 0 for key in DESIGN_KEYS.values()}
 _NAMES = ("x", "w_up", "w_same", "w_rgb", "s1", "d1", "s2", "d2", "s3",
           "n1", "nw1", "b1", "n2", "nw2", "b2", "rgb_b")
 
@@ -71,8 +77,8 @@ def design(dtype: torch.dtype) -> str:
     return build().sg2_tail_design(int(dtype == torch.bfloat16)).decode()
 
 
-# The transposed conv's raw taps (ky, kx) in the order the float32 design
-# takes them: its parity groups (ky, kx mod 2) = (0, 0), (0, 1), (1, 0), (1, 1).
+# The transposed conv's raw taps (ky, kx) in the order both designs take
+# them: their parity groups (ky, kx mod 2) = (0, 0), (0, 1), (1, 0), (1, 1).
 UP_TAP_ORDER = ((0, 0), (0, 2), (2, 0), (2, 2), (0, 1), (2, 1), (1, 0), (1, 2), (1, 1))
 
 
@@ -99,22 +105,30 @@ def split_records(w: torch.Tensor) -> torch.Tensor:
     return rec.reshape(taps * (ci // 16), 2, co // 8, 32, 4).contiguous()
 
 
+def wgmma_layout(w: torch.Tensor) -> torch.Tensor:
+    """(taps, N, K) weights -> the chunks the bfloat16 design's ``wgmma``
+    reads as its B operand, (taps, K / 16, N / 8, 2, 8, 8): [tap][k16
+    step][n8 group][k half][n][k], each 8 n x 8 k a core matrix of 128
+    contiguous bytes (``csrc/tc_wgmma.cuh``)."""
+    taps, n, k = w.shape
+    w = w.reshape(taps, n // 8, 8, k // 16, 2, 8)                # t, ng, nr, ks, kh, ke
+    return w.permute(0, 3, 1, 4, 2, 5).contiguous()
+
+
 def kernel_weights(w_up: torch.Tensor, w_same: torch.Tensor, w_rgb: torch.Tensor,
                    dtype: torch.dtype):
-    """The weights as the kernel's design for ``dtype`` reads them. float32:
-    the transposed conv's raw taps in ``UP_TAP_ORDER`` and the same-conv's nine
-    taps (ky, kx) in row-major order, as :func:`split_records`. bfloat16: the
-    polyphase up-conv composed in float32 and rounded once, (9, 4, C, 2C) as
-    [tap][phase][co][ci], and the same-conv (9, C, C) as [tap][co][ci]. ToRGB
-    (3, C) in float32 for both."""
+    """The weights as the kernel's design for ``dtype`` reads them: the
+    transposed conv's raw taps in ``UP_TAP_ORDER`` (9, C, 2C) and the
+    same-conv's nine taps (ky, kx) in row-major order (9, C, C), both
+    [tap][co][ci]; bfloat16 as :func:`wgmma_layout` lays them out, the
+    operands' own values; float32 as :func:`split_records`. ToRGB (3, C) in
+    float32 for both."""
     c = w_up.shape[0]
     wr = w_rgb.float().reshape(3, c).contiguous()
-    if dtype == torch.bfloat16:
-        wu = compose_up_weight(w_up)                                # (2C, 4, 9, C) f32
-        return (wu.permute(2, 1, 3, 0).to(torch.bfloat16).contiguous(),
-                w_same.permute(2, 3, 0, 1).reshape(9, c, c).to(torch.bfloat16).contiguous(), wr)
     up = torch.stack([w_up[:, :, ky, kx] for ky, kx in UP_TAP_ORDER])   # (9, C, 2C)
     same = w_same.permute(2, 3, 0, 1).reshape(9, c, c)                  # (9, C, C)
+    if dtype == torch.bfloat16:
+        return wgmma_layout(up.to(dtype)), wgmma_layout(same.to(dtype)), wr
     return split_records(up), split_records(same), wr
 
 
@@ -180,7 +194,34 @@ def _launch(want_x2: bool, *operands):
     if err != 0:
         raise RuntimeError(f"sg2_tail kernel launch failed: cudaError {err}")
     launches += 1
+    launches_by_design[DESIGN_KEYS[x.dtype]] += 1
     return rgb, x2
+
+
+def launch_comparison(entry: str, weights, dtype: torch.dtype, operands, want_x2: bool):
+    """One section through a design kept for comparison, behind its C entry
+    ``entry`` of the same library: the operands of :func:`fused_section`,
+    ``dtype`` CUDA tensors only, with ``weights`` (wu, wsame, wrgb) as that
+    design reads them. Launches on the current stream and counts nothing;
+    ``(rgb, x2)`` or rgb."""
+    c = _check_operands(*operands)
+    x = operands[0]
+    if x.dtype != dtype or not x.is_cuda:
+        raise TypeError(f"{entry} takes {dtype} CUDA tensors")
+    fn = getattr(build(), entry)
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, _, h, w = x.shape
+    rgb = torch.empty((b, 3, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    x2 = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device) if want_x2 else None
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in weights),
+                 *(t.data_ptr() for t in operands[4:]), rgb.data_ptr(),
+                 None if x2 is None else x2.data_ptr(), b, c, h, w, int(want_x2),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+    return (rgb, x2) if want_x2 else rgb
 
 
 class _FusedSection(torch.autograd.Function):

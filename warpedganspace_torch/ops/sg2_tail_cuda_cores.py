@@ -11,12 +11,10 @@ only, launches on the current stream and counts nothing.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from warpedganspace_torch.ops.sg2_tail import compose_up_weight
-from warpedganspace_torch.ops.sg2_tail_cuda import SOURCE, _check_operands
+from warpedganspace_torch.ops.sg2_tail_cuda import launch_comparison
 
 
 def cc_weights(w_up: torch.Tensor, w_same: torch.Tensor, w_rgb: torch.Tensor):
@@ -33,24 +31,6 @@ def cc_section(x, w_up, w_same, w_rgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2,
     """One tail section through the CUDA-core design: the operands of
     :func:`~warpedganspace_torch.ops.sg2_tail_cuda.fused_section`, float32 on
     the card; ``(rgb, x2)`` or rgb."""
-    from warpedganspace_torch.ops._build import load_library
-
     operands = (x, w_up, w_same, w_rgb, s1, d1, s2, d2, s3, n1, nw1, b1, n2, nw2, b2, rgb_b)
-    c = _check_operands(*operands)
-    if x.dtype != torch.float32 or not x.is_cuda:
-        raise TypeError("the CUDA-core design takes float32 CUDA tensors")
-    fn = load_library(SOURCE).sg2_tail_section_cc_launch
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    b, _, h, w = x.shape
-    rgb = torch.empty((b, 3, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
-    x2 = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device) if want_x2 else None
-    wu, ws, wr = cc_weights(w_up, w_same, w_rgb)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wu.data_ptr(), ws.data_ptr(), wr.data_ptr(),
-                 *(t.data_ptr() for t in operands[4:]), rgb.data_ptr(),
-                 None if x2 is None else x2.data_ptr(), b, c, h, w, int(want_x2),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sg2_tail_section_cc_launch failed: cudaError {err}")
-    return (rgb, x2) if want_x2 else rgb
+    return launch_comparison("sg2_tail_section_cc_launch", cc_weights(w_up, w_same, w_rgb),
+                             torch.float32, operands, want_x2)
