@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import math
 
+from benchmark.families import module
+
 
 def sg2_channels(cfg: dict) -> dict[int, int]:
     return {int(k): v for k, v in cfg["channels"].items()}
@@ -94,9 +96,5 @@ def proggan_tail_sections(cfg: dict, batch: int) -> list[tuple]:
 
 def frame_flops(cfg: dict) -> float:
     """One rendered frame (the render stream's forward, in the latent space of
-    the configuration: StyleGAN2 renders from W, without its mapping)."""
-    if cfg["family"] == "stylegan2":
-        return sg2_synthesis_flops(cfg)
-    if cfg["family"] == "proggan":
-        return proggan_frame_flops(cfg)
-    raise ValueError(f"no operation count for the family {cfg['family']!r}")
+    the configuration), as the configuration's family counts it."""
+    return module(cfg["family"]).frame_flops(cfg)

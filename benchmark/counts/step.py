@@ -10,8 +10,7 @@ recomputation are not counted.
 """
 from __future__ import annotations
 
-from benchmark.counts.generators import (proggan_frame_flops, sg2_mapping_flops,
-                                         sg2_synthesis_flops)
+from benchmark.families import module
 
 _RESNET18 = ((64, 1), (128, 2), (256, 2), (512, 2))
 
@@ -39,19 +38,16 @@ def resnet18_flops(cfg: dict) -> dict:
 
 
 def generator_flops(cfg: dict) -> float:
-    """One generator forward of the training step (StyleGAN2 from Z: the
-    mapping and the synthesis)."""
-    if cfg["family"] == "stylegan2":
-        return sg2_mapping_flops(cfg) + sg2_synthesis_flops(cfg)
-    if cfg["family"] == "proggan":
-        return proggan_frame_flops(cfg)
-    raise ValueError(f"no operation count for the family {cfg['family']!r}")
+    """One generator forward of the training step, from Z, as the
+    configuration's family counts it."""
+    return module(cfg["family"]).forward_flops(cfg)
 
 
 def step_flops_per_sample(cfg: dict) -> dict:
     """The step's parts for one sample, and their sum under ``total``."""
-    g = generator_flops(cfg)
-    mapping = sg2_mapping_flops(cfg) if cfg["family"] == "stylegan2" else 0.0
+    family = module(cfg["family"])
+    g = family.forward_flops(cfg)
+    mapping = g - family.frame_flops(cfg)   # what lies before the paths' latent space
     r = resnet18_flops(cfg)
     warp = 2 * 2 * (2 * cfg["num_support_dipoles"]) * cfg["support_vectors_dim"]
     parts = {

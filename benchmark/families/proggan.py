@@ -1,14 +1,18 @@
 """ProgGAN (the reference ``features.N`` / ``output`` layout): weights, the
-port's generator, the plain reference."""
+port's generator, the plain reference, the operation counts."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from benchmark.counts.generators import proggan_specs
+from benchmark.counts.generators import proggan_frame_flops, proggan_specs
 from benchmark.inputs import randn_views
 from benchmark.reference.proggan import ProgGAN
+
+# A 64x64 chain of 8 to 32 channels with 3 sets of 4 dipoles.
+TINY = {"num_support_sets": 3, "num_support_dipoles": 4, "resolution": 64,
+        "channels": [512, 32, 32, 16, 16, 16, 16, 8, 8, 8, 8]}
 
 
 def make_weights(cfg: dict, gen: torch.Generator, device) -> dict:
@@ -51,3 +55,12 @@ def build_program(cfg: dict, sd: dict, device):
 def build_reference(cfg: dict, sd: dict, q):
     return ProgGAN(sd, cfg, q)
 
+
+def frame_flops(cfg: dict) -> float:
+    """One frame: the chain and the RGB head, from Z."""
+    return proggan_frame_flops(cfg)
+
+
+def forward_flops(cfg: dict) -> float:
+    """One forward from Z: the frame's."""
+    return proggan_frame_flops(cfg)

@@ -1,13 +1,17 @@
 """StyleGAN2 (rosinality's ``g_ema`` layout): weights, the port's generator,
-the plain reference."""
+the plain reference, the operation counts."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from benchmark.counts.generators import sg2_mapping_flops, sg2_synthesis_flops
 from benchmark.inputs import randn_views
 from benchmark.reference.stylegan2 import StyleGAN2
+
+# 8x8 (the 512-channel 4x4 and 8x8 blocks) with 3 sets of 4 dipoles.
+TINY = {"num_support_sets": 3, "num_support_dipoles": 4, "resolution": 8}
 
 
 def _layers(cfg: dict):
@@ -79,3 +83,14 @@ def build_program(cfg: dict, sd: dict, device):
 def build_reference(cfg: dict, sd: dict, q):
     return StyleGAN2(sd, cfg, q)
 
+
+def frame_flops(cfg: dict) -> float:
+    """One frame in the configuration's latent space: the synthesis from W,
+    and the mapping too where the paths live in Z."""
+    mapping = sg2_mapping_flops(cfg) if cfg["latent_space"] == "z" else 0
+    return mapping + sg2_synthesis_flops(cfg)
+
+
+def forward_flops(cfg: dict) -> float:
+    """One forward from Z: the mapping and the synthesis."""
+    return sg2_mapping_flops(cfg) + sg2_synthesis_flops(cfg)

@@ -35,6 +35,8 @@ import os  # noqa: E402
 import os.path as osp  # noqa: E402
 import sys  # noqa: E402
 
+from benchmark import families  # noqa: E402
+
 BENCH_DIR = osp.dirname(osp.abspath(__file__))
 ROOT = osp.dirname(BENCH_DIR)
 FOREIGN = ("jax", "jaxlib", "flax", "warpedganspace_tpu")
@@ -88,7 +90,7 @@ def make_run(workload: str, seed: int, seconds: float, trace: bool, device,
     params = dict(cell["params"], **(param_overrides or {}))
     return Run(workload=workload, seed=int(seed), seconds=float(seconds), trace=bool(trace),
                cell=cell, config=config, params=params,
-               family=importlib.import_module("benchmark.families." + config["family"]),
+               family=families.module(config["family"]),
                traffic=importlib.import_module("benchmark.traffic." + cell["traffic"]),
                device=device, chips=int(cell["chips"]))
 

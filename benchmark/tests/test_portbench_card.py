@@ -4,9 +4,7 @@ import pytest
 import torch
 
 from benchmark import run as bench_run
-from benchmark.tests.test_portbench_harness import bench
-
-CELLS = [w["name"] for w in bench()["workloads"] if w["chips"] == 1]
+from benchmark.tests.portbench_tiny import render_cells
 
 
 @pytest.fixture
@@ -17,7 +15,7 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", render_cells())
 def test_a_short_run_is_correct_and_its_control_is_not(cell, card):
     run = bench_run.make_run(cell, 2 ** 33 + 101, 2.0, False, card)
     st = run.traffic.setup(run)

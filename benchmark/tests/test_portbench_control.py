@@ -4,11 +4,10 @@ cell's own limits (at a tiny size on the CPU; on the card at the cells' own
 sizes by ``python3 -m benchmark.calibrate``)."""
 import pytest
 
-from benchmark.tests.portbench_tiny import make_run
-from benchmark.tests.test_portbench_harness import bench
+from benchmark.tests.portbench_tiny import make_run, render_cells
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in bench()["workloads"]])
+@pytest.mark.parametrize("cell", render_cells())
 def test_the_control_is_not_correct(cell):
     run = make_run(cell)
     st = run.traffic.setup(run)

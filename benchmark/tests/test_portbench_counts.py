@@ -3,8 +3,11 @@ import math
 
 import pytest
 
+from benchmark import families
 from benchmark.counts import generators, step, tails
-from benchmark.tests.portbench_tiny import config
+from benchmark.tests.portbench_tiny import bench, config
+
+CONFIGS = [c["name"] for c in bench()["configs"]]
 
 
 @pytest.mark.parametrize("shape, want", [
@@ -67,7 +70,29 @@ def test_proggan_tail_sections_of_the_1024_chain():
     assert total < generators.frame_flops(cfg)
 
 
-@pytest.mark.parametrize("name", ["stylegan2-ffhq1024-w", "proggan-celebahq1024-z"])
+@pytest.mark.parametrize("name, frame, forward, total", [
+    ("stylegan2-ffhq1024-w", 149_653_140_480, 149_657_334_784, 686_242_301_952),
+    ("proggan-celebahq1024-z", 54_978_936_832, 54_978_936_832, 402_207_108_096)])
+def test_the_counts_of_the_configurations_are_pinned(name, frame, forward, total):
+    """A frame, a generator forward from Z and a training step's sample, to
+    the last digit, as the counts read before the families held them."""
+    cfg = config(name)
+    assert generators.frame_flops(cfg) == frame
+    assert step.generator_flops(cfg) == forward
+    assert step.step_flops_per_sample(cfg)["total"] == total
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_the_family_counts_the_configuration(name):
+    """The counts are the family module's, found by the configuration's
+    ``family``: a forward from Z holds the frame's operations."""
+    cfg = config(name)
+    family = families.module(cfg["family"])
+    assert generators.frame_flops(cfg) == family.frame_flops(cfg) > 0
+    assert step.generator_flops(cfg) == family.forward_flops(cfg) >= family.frame_flops(cfg)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_step_count_adds_up_its_parts(name):
     cfg = config(name)
     parts = step.step_flops_per_sample(cfg)

@@ -6,9 +6,7 @@ import pytest
 import torch
 
 from benchmark import run as bench_run
-from benchmark.tests.portbench_tiny import make_run
-
-RENDER = ["sg2w1024-render-bf16", "proggan1024-render-bf16"]
+from benchmark.tests.portbench_tiny import make_run, render_cells
 
 
 def _frames_without_shift(monkeypatch):
@@ -47,7 +45,7 @@ def _stale_frames(monkeypatch):
     monkeypatch.setattr(engine, "_finish", stale)
 
 
-@pytest.mark.parametrize("cell", RENDER)
+@pytest.mark.parametrize("cell", render_cells())
 @pytest.mark.parametrize("fault", [_frames_without_shift, _directions_altered, _stale_frames])
 def test_a_render_fault_is_not_correct(cell, fault, monkeypatch):
     # Paths long enough at this size that a frame off its path shows.

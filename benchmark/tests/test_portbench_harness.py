@@ -13,17 +13,11 @@ import pytest
 import torch
 
 from benchmark import run as bench_run
-from benchmark.tests.portbench_tiny import BENCH_DIR, make_run
+from benchmark.tests.portbench_tiny import BENCH_DIR, ROOT, bench, make_run, render_cells
 
-ROOT = osp.dirname(BENCH_DIR)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FOREIGN = ("jax", "jaxlib", "flax", "warpedganspace_tpu")
-
-
-def bench() -> dict:
-    with open(osp.join(ROOT, "BENCHMARK.json")) as f:
-        return json.load(f)
 
 
 def test_benchmark_json_keeps_the_contract():
@@ -51,8 +45,11 @@ def test_benchmark_json_keeps_the_contract():
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in b["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
+    cells = {w["name"] for w in b["workloads"]}
     for m in b["per_layer"]:
         assert m["moves"] in e2e and "\n" not in m["layer"] and len(m["layer"]) <= 200
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+        assert set(m.get("workloads", ())) <= cells
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in bench()["workloads"]])
@@ -69,8 +66,10 @@ def test_every_cell_resolves_by_name(cell):
     assert run.config["name"] == w["config"]
     for fn in ("setup", "window", "outputs", "check", "control", "gaps"):
         assert callable(getattr(run.traffic, fn))
-    for fn in ("make_weights", "build_program", "build_reference"):
+    for fn in ("make_weights", "build_program", "build_reference", "frame_flops",
+               "forward_flops"):
         assert callable(getattr(run.family, fn))
+    assert isinstance(run.family.TINY, dict)
     e2e, per_layer = bench_run.cell_metrics(b, cell)
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2 and per_layer
@@ -108,20 +107,20 @@ def test_a_new_cell_and_metric_are_files_and_entries(tmp_path, monkeypatch):
     assert "device_idle_pct.render" in {m["name"] for m in per_layer}
 
 
-@pytest.mark.parametrize("cell, family", [("sg2w1024-render-bf16", None),
-                                          ("proggan1024-render-bf16", None)])
+@pytest.mark.parametrize("cell", render_cells())
 @pytest.mark.parametrize("trace", [False, True])
-def test_a_whole_run_at_a_tiny_size(cell, family, trace):
+def test_a_whole_run_at_a_tiny_size(cell, trace):
     """Set-up, window, check and the result object, on the CPU: correct, the
-    end-to-end metrics untraced; traced, the window and breakdown read (the
-    device metrics find nothing to read on the CPU and are left out)."""
-    run = make_run(cell, trace=trace, family=family)
+    end-to-end metrics untraced; traced, the window and breakdown read, and
+    the per-layer metrics of the port's spans found."""
+    run = make_run(cell, trace=trace)
     res = bench_run.run_cell(run)
     assert res["correct"], res["checks"]
     assert list(res)[-1] == "checks" and res["attempted"] > 0
     if trace:
         assert res["device"]["window_s"] > 0 and "breakdown" in res
         assert "render_frames_per_s" not in res["metrics"]
+        assert res["metrics"]["host_issue_ms_per_batch.render"]["value"] > 0
     else:
         assert set(res["metrics"]) == {"setup_s", "render_frames_per_s"}
 

@@ -7,21 +7,22 @@ import torch
 from benchmark import inputs
 from benchmark.reference import quant, resnet
 from benchmark.reference import warp as ref_warp
-from benchmark.tests.portbench_tiny import make_run
+from benchmark.tests.portbench_tiny import make_run, render_cells
 from benchmark.traffic import train
 
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("cell", ["sg2w1024-render-bf16", "proggan1024-render-bf16"])
+@pytest.mark.parametrize("cell", render_cells())
 def test_generator_agrees(cell):
     run = make_run(cell)
     cfg = run.config
     sd = run.family.make_weights(cfg, inputs.generator(5, "generator", CPU), CPU)
     G = run.family.build_program(cfg, sd, CPU)
     ref = run.family.build_reference(cfg, sd, quant.exact)
-    z = torch.randn(3, 512, generator=torch.Generator().manual_seed(1))
-    shift = 0.1 * torch.randn(3, 512, generator=torch.Generator().manual_seed(2))
+    z = torch.randn(3, G.dim_z, generator=torch.Generator().manual_seed(1))
+    shift = 0.1 * torch.randn(3, cfg["support_vectors_dim"],
+                              generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         w = G.get_w(z)
         got = G(w, shift, latent_is_w=True) if G.shift_in_w_space else G(z, shift)

@@ -1,15 +1,23 @@
-"""The port's spans in a trace (``benchmark/spans.py``): on synthetic events,
-a span's device mirror is no device work, a launch goes to the innermost span
-open on its thread, idle gaps are named by the innermost span of either
-family, and the quantities read what they say; on the card (``-m gpu``), the
-render cells' kernel and copy time is all put down to the port's spans."""
+"""The port's spans in a trace (``benchmark/trace.py``, ``benchmark/spans.py``):
+on synthetic events, a span's device mirror is no device work and the
+window reads what it read when only the benchmark's spans were kept, a
+launch goes to the innermost span open on its thread, idle gaps are named by
+the innermost span of either family, and the quantities and their readers
+read what they say; on the card (``-m gpu``), the render cells' kernel and
+copy time is all put down to the port's spans."""
+from types import SimpleNamespace
+
 import pytest
 import torch
 
 from benchmark import run as bench_run
 from benchmark import spans as sp
-from benchmark.spans import Event
+from benchmark import trace as tr
+from benchmark.tests.portbench_tiny import render_cells
+from benchmark.trace import Event
 
+SPAN_METRICS = ("generator_ms_per_frame.render", "stream_ms_per_frame.render",
+                "host_issue_ms_per_batch.render", "tail_weights_ms_per_frame.render")
 T = 7  # the host thread
 
 
@@ -47,19 +55,19 @@ def events(program=True) -> list:
 
 
 def test_a_span_mirrored_on_the_device_is_no_device_work():
-    with_spans, without = sp.from_events(events()), sp.from_events(events(program=False))
-    for pt in (with_spans, without):
-        assert [k[2] for k in pt.base.kernels] == ["gemm", "weights_kernel", "to_u8_kernel",
-                                                   "outside_kernel"]
-        assert pt.base.kernel_s() == pytest.approx(130e-9)
-        assert pt.base.busy_s() == pytest.approx(190e-9)
-        assert sp.copy_s(pt.base) == pytest.approx(60e-9)
-    assert with_spans.base.kernel_s() == without.base.kernel_s()
-    assert with_spans.base.busy_s() == without.base.busy_s()
+    with_spans, without = tr.from_events(events()), tr.from_events(events(program=False))
+    for t in (with_spans, without):
+        assert [k[2] for k in t.kernels] == ["gemm", "weights_kernel", "to_u8_kernel",
+                                             "outside_kernel"]
+        assert t.kernel_s() == pytest.approx(130e-9)
+        assert t.busy_s() == pytest.approx(190e-9)
+        assert t.copy_s() == pytest.approx(60e-9)
+    assert with_spans.kernel_s() == without.kernel_s()
+    assert with_spans.busy_s() == without.busy_s()
 
 
 def test_a_launch_goes_to_the_spans_open_on_its_thread():
-    launched = {n: spans for _, _, n, spans in sp.from_events(events()).launched}
+    launched = {n: spans for _, _, n, spans in tr.from_events(events()).launched}
     assert launched["gemm"] == ("wgs.render.issue", "wgs.render.generator")
     assert launched["weights_kernel"] == ("wgs.render.issue", "wgs.render.generator",
                                           "wgs.sg2_tail.weights")
@@ -71,11 +79,11 @@ def test_a_launch_goes_to_the_spans_open_on_its_thread():
 
 
 def test_a_gap_is_named_by_the_innermost_span_of_either_family():
-    pt = sp.from_events(events())
-    assert sp.host_activity(pt, [55, 350, 15, 500]) == [
+    t = tr.from_events(events())
+    assert tr.host_activity(t, [55, 350, 15, 500]) == [
         "wgs.sg2_tail.weights", "wgs.render.wait", "bench.render_batch",
         "bench.window (between spans)"]
-    rep = sp.report(pt, 4, rows=2)
+    rep = sp.report(t, 4, rows=2)
     assert rep["idle_gaps"] == [["bench.window (between spans)", pytest.approx(570e-9)],
                                 ["wgs.render.to_u8", pytest.approx(140e-9)]]
     assert dict(rep["idle_s_by_span"]) == pytest.approx({
@@ -84,15 +92,96 @@ def test_a_gap_is_named_by_the_innermost_span_of_either_family():
 
 
 def test_the_quantities_read_what_they_say():
-    assert set(sp.quantities(sp.from_events(events(program=False)), 4).values()) == {None}
-    q = sp.quantities(sp.from_events(events()), 4)
+    assert set(sp.quantities(tr.from_events(events(program=False)), 4).values()) == {None}
+    q = sp.quantities(tr.from_events(events()), 4)
     assert q["generator_ms_per_frame"] == pytest.approx(60e-6 / 4)       # gemm + weights
     assert q["stream_ms_per_frame"] == pytest.approx(80e-6 / 4)          # to_u8 + copy
     assert q["tail_weights_ms_per_frame"] == pytest.approx(10e-6 / 4)
-    assert q["traverse_ms_per_frame"] == 0.0
+    assert q["traverse_ms_per_frame"] is None                            # no wgs.traverse
     # (issue 280 + deliver 70 - wait 60) over the two issue spans of the window.
     assert q["host_issue_ms_per_batch"] == pytest.approx((280 + 90 + 70 - 60) * 1e-6 / 2)
     assert q["attributed_pct"] == pytest.approx(100.0 * 140 / 190)
+
+
+def _profile(evs):
+    """A finished profile holding ``evs``, as ``benchmark.trace.events`` reads one."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    class Raw:
+        def __init__(self, e):
+            self.e = e
+
+        def name(self):
+            return self.e.name
+
+        def start_ns(self):
+            return self.e.start
+
+        def end_ns(self):
+            return self.e.end
+
+        def device_type(self):
+            return cuda if self.e.on_device else cpu
+
+        def device_resource_id(self):
+            return self.e.thread
+
+        def correlation_id(self):
+            return self.e.corr
+
+    results = SimpleNamespace(events=lambda: [Raw(e) for e in evs])
+    return SimpleNamespace(profiler=SimpleNamespace(kineto_results=results))
+
+
+def _bench_spans_only(evs) -> tr.Trace:
+    """The window as the harness read it when it kept the bench.* spans
+    alone: every device event but those named after a bench.* host span."""
+    spans = [(e.start, e.end, e.name) for e in evs
+             if not e.on_device and e.name.startswith("bench.")]
+    host = {n for _, _, n in spans}
+    device = [(e.start, e.end, e.name) for e in evs if e.on_device and e.name not in host]
+    copy = ("Memcpy", "Memset")
+    return tr.Trace(window=next((s, e) for s, e, n in spans if n == tr.WINDOW),
+                    kernels=[d for d in device if not d[2].startswith(copy)],
+                    copies=[d for d in device if d[2].startswith(copy)],
+                    spans=[x for x in spans if x[2] != tr.WINDOW])
+
+
+def test_collect_reads_the_window_as_the_bench_spans_alone_read_it():
+    """``collect`` on a profile with the port's spans and a device mirror of
+    one: the kernels, copies, kernel time and busy time, to the last digit,
+    that keeping the bench.* spans alone read on the same profile as the
+    card records it (no wgs.* mirror), and on a program without spans."""
+    got = tr.collect(_profile(events()))
+    as_recorded = [e for e in events() if not (e.on_device and e.name.startswith("wgs."))]
+    for want in (_bench_spans_only(as_recorded), _bench_spans_only(events(program=False))):
+        assert got.kernels == want.kernels and got.copies == want.copies
+        assert got.kernel_s() == want.kernel_s() and got.busy_s() == want.busy_s()
+    assert got.program_spans and got.launched
+    # Kept alone, the bench.* spans let the port's mirror in as a kernel.
+    assert _bench_spans_only(events()).kernel_s() > got.kernel_s()
+
+
+def test_the_breakdown_names_a_gap_by_the_port_spans():
+    gaps = tr.breakdown(tr.from_events(events()), rows=2)["idle_gaps"]
+    assert [n for n, _ in gaps] == ["bench.window (between spans)", "wgs.render.to_u8"]
+
+
+@pytest.mark.parametrize("name", SPAN_METRICS)
+def test_a_span_metric_reads_its_quantity(name):
+    """Each reader gives its quantity of one trace, the mean over two cards'
+    traces (each with its share of the frames), and None without wgs.*
+    spans or frames."""
+    quantity = name.split(".")[0]
+    one = tr.from_events(events())
+    read = bench_run.reader(name).read
+
+    def view(traces, frames):
+        return bench_run.View(traces=traces, work={"frames": frames}, config={}, params={})
+    assert read(view([one], 4)) == sp.quantities(one, 4)[quantity]
+    assert read(view([one, one], 8)) == pytest.approx(sp.quantities(one, 4)[quantity])
+    assert read(view([tr.from_events(events(program=False))], 4)) is None
+    assert read(view([one], 0)) is None
 
 
 @pytest.fixture
@@ -103,19 +192,24 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["sg2w1024-render-bf16", "proggan1024-render-bf16"])
+@pytest.mark.parametrize("cell", render_cells())
 def test_the_render_cells_device_time_is_put_down_to_the_port_spans(cell, card):
     """A 2 s traced window: 99 % of the kernel and copy time launched inside
     some wgs.* span; the generator's and the stream's time within the
-    window's kernels and copies; benchmark.trace's numbers as before."""
+    window's kernels and copies; the window's kernel and busy time as the
+    bench.* spans alone read them; each span metric read, above 0."""
     run = bench_run.make_run(cell, 2 ** 33 + 303, 2.0, True, card)
-    pt, harness, out = sp.trace_window(run)
+    raw, out = sp.trace_window(run)
+    t = tr.from_events(raw)
     frames = out["work"]["frames"]
-    q = sp.quantities(pt, frames)
-    assert q["attributed_pct"] >= 99.0, sp.report(pt, frames)
-    device_ms_per_frame = 1e3 * pt.base.kernel_s() / frames
-    copy_ms_per_frame = 1e3 * sp.copy_s(pt.base) / frames
+    q = sp.quantities(t, frames)
+    assert q["attributed_pct"] >= 99.0, sp.report(t, frames)
+    device_ms_per_frame = 1e3 * t.kernel_s() / frames
+    copy_ms_per_frame = 1e3 * t.copy_s() / frames
     assert (q["generator_ms_per_frame"] + q["stream_ms_per_frame"]
             <= device_ms_per_frame + copy_ms_per_frame)
-    assert q["tail_weights_ms_per_frame"] > 0 and q["host_issue_ms_per_batch"] > 0
-    assert harness.kernel_s() == pt.base.kernel_s() and harness.busy_s() == pt.base.busy_s()
+    alone = _bench_spans_only(raw)
+    assert alone.kernel_s() == t.kernel_s() and alone.busy_s() == t.busy_s()
+    view = bench_run.View(traces=[t], work=out["work"], config=run.config, params=run.params)
+    for name in SPAN_METRICS:
+        assert bench_run.reader(name).read(view) > 0, name

@@ -126,8 +126,9 @@ def window(run, st):
                 if item is None:
                     break
                 start, imgs = item
-                for j in range(imgs.shape[0]):
-                    keep.offer((index, i, start + j), imgs[j].copy)
+                with record_function("bench.keep"):
+                    for j in range(imgs.shape[0]):
+                        keep.offer((index, i, start + j), imgs[j].copy)
                 frames += imgs.shape[0]
                 now = time.perf_counter()
             stream.close()
