@@ -23,6 +23,12 @@ shared_dim=128, attention at 64x64, 128x128 output):
   hand-written backward kernel.
 - Output: affine BN -> ReLU -> conv3x3 -> tanh (BigGAN.py:170-174, 242-243).
 
+Every ``CCBN.forward`` is the span ``wgs.biggan.ccbn`` and every
+``Attention.forward`` (its projections, pools, transposes, the kernel, the
+output conv and the residual) the span ``wgs.biggan.attention``
+(:mod:`~warpedganspace_torch.utils.spans`): a trace puts the kernels each
+launches down to it.
+
 The projection discriminator and the G_D pair (BigGAN.py:247-445) belong to
 the model family, though the WarpedGANSpace pipeline runs neither: D's
 attention block is the generator's, so on a CUDA device it too goes through
@@ -52,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from warpedganspace_torch.ops.attn_cuda import sa_attention
+from warpedganspace_torch.utils.spans import span
 
 # Dataset registries (reference models/BigGAN/utils.py:7-32).
 IMSIZE_DICT = {"I32": 32, "I32_hdf5": 32, "I64": 64, "I64_hdf5": 64,
@@ -158,11 +165,12 @@ class CCBN(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x, cond):
-        mean, var = self.mean[None, :, None, None], self.var[None, :, None, None]
-        xhat = (x - mean) * torch.rsqrt(var + self.eps)
-        gain = 1.0 + self.gain(cond)                       # (B, C)
-        bias = self.bias(cond)
-        return xhat * gain[:, :, None, None] + bias[:, :, None, None]
+        with span("wgs.biggan.ccbn"):
+            mean, var = self.mean[None, :, None, None], self.var[None, :, None, None]
+            xhat = (x - mean) * torch.rsqrt(var + self.eps)
+            gain = 1.0 + self.gain(cond)                   # (B, C)
+            bias = self.bias(cond)
+            return xhat * gain[:, :, None, None] + bias[:, :, None, None]
 
 
 class OutputBN(nn.Module):
@@ -194,15 +202,16 @@ class Attention(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(()))
 
     def forward(self, x):
-        b, c, h, w = x.shape
-        # (B, C', H, W) -> (B, H*W, C'): queries and pooled keys in row-major
-        # order of their maps, the layout of the JAX package's attention.
-        theta = self.theta(x).flatten(2).transpose(1, 2).contiguous()
-        phi = F.max_pool2d(self.phi(x), 2).flatten(2).transpose(1, 2).contiguous()
-        g = F.max_pool2d(self.g(x), 2).flatten(2).transpose(1, 2).contiguous()
-        o = sa_attention(theta, phi, g)                    # (B, H*W, C/2)
-        o = o.transpose(1, 2).reshape(b, c // 2, h, w)
-        return self.gamma * self.o(o) + x
+        with span("wgs.biggan.attention"):
+            b, c, h, w = x.shape
+            # (B, C', H, W) -> (B, H*W, C'): queries and pooled keys in row-major
+            # order of their maps, the layout of the JAX package's attention.
+            theta = self.theta(x).flatten(2).transpose(1, 2).contiguous()
+            phi = F.max_pool2d(self.phi(x), 2).flatten(2).transpose(1, 2).contiguous()
+            g = F.max_pool2d(self.g(x), 2).flatten(2).transpose(1, 2).contiguous()
+            o = sa_attention(theta, phi, g)                # (B, H*W, C/2)
+            o = o.transpose(1, 2).reshape(b, c // 2, h, w)
+            return self.gamma * self.o(o) + x
 
 
 class GBlock(nn.Module):
